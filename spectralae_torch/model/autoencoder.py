@@ -1,0 +1,164 @@
+"""The autoencoder model: mirrored encoder/decoder conv stages, two domains.
+
+Port of :mod:`spectralae.model.autoencoder`.  The network is a *tape* of
+conv stages (encoder half, then mirrored decoder half) with signed pooling
+scales, exactly the reference's four parallel vectors
+(source/autoencoder.cpp:109-120).  Forward passes:
+
+- coordinate space: pool → conv (encoder), conv → unpool (decoder)
+  (source/autoencoder.cpp:135-150);
+- momentum space: one rfft2, per-stage spectral pool + pointwise complex
+  conv, one irfft2 (``autoenc_fft``, source/fft_backproplib.cu:1331-1376).
+
+Both are plain functions of ``(params, x)`` with the stage scales as
+arguments; they run on whatever device ``params`` and ``x`` are on.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..core.config import TapMode
+from ..core.types import AEParams, ConvStage
+from ..ops import coord, spectral
+
+
+def _not_ported(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not ported yet (ROADMAP A4: forward_fft's remat and "
+        "compute_dtype come with training); serving passes neither")
+
+
+def tie_symmetric(params: AEParams, n_l: int) -> AEParams:
+    """Copy ``cᵀ`` into the mirrored decoder stage ('p' key).
+
+    ``f[d][m][k][l] = c[m][d][k][l]`` — note the spatial taps are *not*
+    flipped (source/autoencoder.cpp:343-355).  Biases stay independent.
+    """
+    enc, dec = params.pair(n_l)
+    dec = ConvStage(c=enc.c.transpose(0, 1), b=dec.b)
+    return params.replace_pair(n_l, enc, dec)
+
+
+def forward_coord(params: AEParams, x: torch.Tensor, scales: Sequence[int],
+                  *, tap_mode: TapMode = "centered",
+                  scale_by_dm: bool = True, act=None,
+                  remat: bool = False) -> list[torch.Tensor]:
+    """Coordinate-space forward; returns the full activation tape.
+
+    The returned list mirrors the reference ``layers`` vector: entry 0 is the
+    input, then two entries per stage (encoder: pooled, conv-out; decoder:
+    conv-out, unpooled), ``2·n_stages + 1`` entries total.
+    """
+    if remat:
+        raise _not_ported("remat")
+    n = params.n_stages
+
+    def conv(h, c, b):
+        return coord.conv2d(h, c, b, tap_mode=tap_mode,
+                            scale_by_dm=scale_by_dm, act=act)
+    acts = [x]
+    h = x
+    for i, (stage, sc) in enumerate(zip(params.stages, scales)):
+        if i < n // 2:  # encoder: pool then conv
+            h = coord.pool(h, sc)
+            acts.append(h)
+            h = conv(h, stage.c, stage.b)
+            acts.append(h)
+        else:  # decoder: conv then unpool
+            h = conv(h, stage.c, stage.b)
+            acts.append(h)
+            h = coord.pool(h, sc)
+            acts.append(h)
+    return acts
+
+
+def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
+                scale_by_dm: bool = True,
+                return_layers: bool = False,
+                constrain=None, compute_dtype=None,
+                remat: bool = False):
+    """Momentum-space forward (reference ``autoenc_fft``).
+
+    Args:
+      x: ``[B, D, Nx, Ny]`` real input.
+      return_layers: also inverse-transform every intermediate spectrum —
+        the reference's ``fft_l`` per-layer visualization mode ('g' key,
+        fft_backproplib.cu:1347-1361).
+      constrain: optional hook applied to each stage's spectrum.
+      compute_dtype, remat: not ported yet; anything but the defaults
+        raises ``NotImplementedError``.
+
+    Returns the ``[B, D, Nx, Ny]`` reconstruction, or ``(out, layers)``.
+    """
+    if compute_dtype is not None:
+        raise _not_ported("compute_dtype")
+    if remat:
+        raise _not_ported("remat")
+    n = params.n_stages
+    nx, ny = x.shape[-2], x.shape[-1]
+    X = spectral.rfft2(x)
+    if constrain is not None:
+        X = constrain(X)
+    layers = [x]
+    cx, cy = nx, ny
+    for i, (stage, sc) in enumerate(zip(params.stages, scales)):
+        if i < n // 2:
+            X, cx, cy = spectral.spectral_pool(X, cx, cy, sc)
+            if return_layers:
+                layers.append(spectral.irfft2(X, (cx, cy)))
+        # kernel spectra are recomputed per call — the functional
+        # replacement for the reference's lazily-filled host-side
+        # net_cfreq cache (fft_backproplib.cu:1146-1161)
+        C = spectral.kernel_rfft(stage.c, cx, cy)
+        X = spectral.spectral_conv(X, C, stage.b, cx, cy,
+                                   scale_by_dm=scale_by_dm)
+        if constrain is not None:
+            X = constrain(X)
+        if return_layers:
+            layers.append(spectral.irfft2(X, (cx, cy)))
+        if i >= n // 2:
+            X, cx, cy = spectral.spectral_pool(X, cx, cy, sc)
+            if return_layers:
+                layers.append(spectral.irfft2(X, (cx, cy)))
+    out = spectral.irfft2(X, (cx, cy))
+    if return_layers:
+        layers[-1] = out
+        return out, layers
+    return out
+
+
+def reconstruction_mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean squared reconstruction error (per element)."""
+    return torch.mean((x - y) ** 2)
+
+
+def encode(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
+           domain: str = "fft", tap_mode: TapMode = "centered",
+           scale_by_dm: bool = True) -> torch.Tensor:
+    """Encoder-only inference: the bottleneck feature maps.
+
+    A serving-path capability on top of the reference (which only exposes
+    full reconstructions): runs the encoder half and returns the innermost
+    ``[B, M, nx', ny']`` activations.
+    """
+    n = params.n_stages
+    half = n // 2
+    if domain == "fft":
+        nx, ny = x.shape[-2], x.shape[-1]
+        X = spectral.rfft2(x)
+        cx, cy = nx, ny
+        for stage, sc in zip(params.stages[:half], scales[:half]):
+            X, cx, cy = spectral.spectral_pool(X, cx, cy, sc)
+            C = spectral.kernel_rfft(stage.c, cx, cy)
+            X = spectral.spectral_conv(X, C, stage.b, cx, cy,
+                                       scale_by_dm=scale_by_dm)
+        return spectral.irfft2(X, (cx, cy))
+    h = x
+    for stage, sc in zip(params.stages[:half], scales[:half]):
+        h = coord.pool(h, sc)
+        h = coord.conv2d(h, stage.c, stage.b, tap_mode=tap_mode,
+                         scale_by_dm=scale_by_dm)
+    return h

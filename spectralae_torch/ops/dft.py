@@ -1,0 +1,121 @@
+"""Compact-support DFT transforms: kernel↔spectrum as small matmuls.
+
+Port of :mod:`spectralae.ops.dft`.  Because conv kernels live on a tiny
+Nk×Nl support (25 taps for 5×5), their full Nx×Ny spectra are rank-P DFT
+projections:
+
+  forward  (pad+rfft2,      fft_backproplib.cu:1276-1282):
+      C(ω) = Σ_{k,l} c[k,l] · e^{-2πi ω·r_kl}
+  inverse  (unnormalized C2R + shrink, fft_backproplib.cu:1219-1226):
+      g[k,l] = Σ_ω w_ω · Re(D(ω) · e^{+2πi ω·r_kl})
+
+with r_kl the corner-quadrant (circular) kernel positions and w_ω the
+Hermitian double-count weights of the half-spectrum.  The phases are
+separable — θ(ω) = θx_k(ωx) + θy_l(ωy) — so both transforms factor into
+two per-axis products against tiny [Nk, Nx] / [Nl, Nyr] bases.
+
+The products are ``torch.einsum`` in float32: plain tensor code, with no
+hand-written kernel (the JAX package leaves them to XLA too).  On the card
+they run at PyTorch's float32 matmul precision, which is IEEE float32
+unless ``torch.backends.cuda.matmul.allow_tf32`` is switched on.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_bases(nk: int, nl: int, nx: int, ny: int):
+    """Per-axis cos/sin bases + Hermitian column weights.
+
+    Returns cx/sx [nk, nx], cy/sy [nl, nyr], hermy [nyr].
+    """
+    nyr = ny // 2 + 1
+    rx = (np.arange(nk) - nk // 2) % nx           # circular kernel rows
+    ry = (np.arange(nl) - nl // 2) % ny           # circular kernel cols
+    px = 2 * np.pi * np.outer(rx, np.arange(nx)) / nx     # [nk, nx]
+    py = 2 * np.pi * np.outer(ry, np.arange(nyr)) / ny    # [nl, nyr]
+    from .spectral import _hermitian_weights
+    herm = _hermitian_weights(nx, ny)
+    return (np.cos(px).astype(np.float32), np.sin(px).astype(np.float32),
+            np.cos(py).astype(np.float32), np.sin(py).astype(np.float32),
+            herm)
+
+
+@functools.lru_cache(maxsize=None)
+def _bases_on(nk: int, nl: int, nx: int, ny: int, device: torch.device):
+    """:func:`_axis_bases` as float32 tensors, kept on ``device``."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _axis_bases(nk, nl, nx, ny))
+
+
+@functools.lru_cache(maxsize=None)
+def lag_basis(nx: int, ny: int, hx: int, hy: int):
+    """Separable restricted-iDFT bases for centered lag windows.
+
+    ``corr[v] = Re Σ_ω w(ω_y)·P(ω)·e^{2πi(v_x ω_x/nx + v_y ω_y/ny)}`` over
+    the Hermitian half-spectrum (w doubles interior columns) — the
+    irfft2·(Nx·Ny) value at lag ``v ∈ [−h, h]²``, computed as four small
+    matmuls instead of a full inverse FFT.  Lag periodicity (``v mod N``) is
+    inherent in the complex exponential, so windows wider than the grid
+    alias exactly like the FFT path does.  Returns numpy arrays.
+    """
+    from .spectral import _hermitian_weights
+    w = _hermitian_weights(nx, ny).astype(np.float64)
+    nyr = ny // 2 + 1
+    vy = np.arange(-hy, hy + 1)
+    vx = np.arange(-hx, hx + 1)
+    ay = 2.0 * np.pi * np.arange(nyr)[:, None] * vy[None, :] / ny
+    ax = 2.0 * np.pi * np.arange(nx)[:, None] * vx[None, :] / nx
+    return (np.asarray(np.cos(ax), np.float32),
+            np.asarray(np.sin(ax), np.float32),
+            np.asarray(w[:, None] * np.cos(ay), np.float32),
+            np.asarray(w[:, None] * np.sin(ay), np.float32))
+
+
+def kernel_spectrum(c: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+    """``rfft2(kernel_pad(c))`` as two per-axis products.
+
+    c: ``[..., Nk, Nl]`` real → ``[..., Nx, Ny//2+1]`` complex64.
+    """
+    nk, nl = c.shape[-2], c.shape[-1]
+    cx, sx, cy, sy, _ = _bases_on(nk, nl, nx, ny, c.device)
+    # columns first: T = c · e^{-iθy}   [..., Nk, Nyr]
+    tr = torch.einsum("...kl,ly->...ky", c, cy)
+    ti = -torch.einsum("...kl,ly->...ky", c, sy)
+    # rows: C = e^{-iθx} · T            [..., Nx, Nyr]
+    re = (torch.einsum("kx,...ky->...xy", cx, tr)
+          + torch.einsum("kx,...ky->...xy", sx, ti))
+    im = (torch.einsum("kx,...ky->...xy", cx, ti)
+          - torch.einsum("kx,...ky->...xy", sx, tr))
+    return torch.complex(re, im)
+
+
+def kernel_project(D: torch.Tensor, nk: int, nl: int, nx: int,
+                   ny: int) -> torch.Tensor:
+    """``kernel_shrink(irfft2_unnormalized(D))`` as two per-axis products.
+
+    D: ``[..., Nx, Ny//2+1]`` complex (Hermitian-consistent) →
+    ``[..., Nk, Nl]`` real — the spatial gradient restricted to the compact
+    support, with cuFFT's unnormalized C2R scaling.
+
+    g[k,l] = Σ_ω w(ωy)·[Dr·cos(θx+θy) − Di·sin(θx+θy)], expanded over the
+    separable angle sum into four (rows ∘ cols) contractions.
+    """
+    cx, sx, cy, sy, w = _bases_on(nk, nl, nx, ny, D.device)
+    Dr = D.real * w
+    Di = D.imag * w
+    # columns: A·e^{±iθy} partials        [..., Nx, Nl]
+    rc = torch.einsum("...xy,ly->...xl", Dr, cy)
+    rs = torch.einsum("...xy,ly->...xl", Dr, sy)
+    ic = torch.einsum("...xy,ly->...xl", Di, cy)
+    is_ = torch.einsum("...xy,ly->...xl", Di, sy)
+    # rows: contract ωx                   [..., Nk, Nl]
+    return (torch.einsum("kx,...xl->...kl", cx, rc)
+            - torch.einsum("kx,...xl->...kl", sx, rs)
+            - torch.einsum("kx,...xl->...kl", sx, ic)
+            - torch.einsum("kx,...xl->...kl", cx, is_))
