@@ -42,10 +42,10 @@ _F = ctypes.c_float
 # C signatures of the entry points (see the .cu files); every one returns
 # the cudaError_t of its launch
 _SIGNATURES = {
-    # p, q, out, A, K, B, W, q_stride_k, q_stride_b, p_scale, bias,
-    # bias_scale, stream
-    "cmul_contract_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P, _F,
-                             _P),
+    # p, q, out, A, K, B, W, p_stride_a, p_stride_k, q_stride_k,
+    # q_stride_b, conj_q, p_scale, bias, bias_scale, stream
+    "cmul_contract_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I,
+                             _F, _P, _F, _P),
     # xpad, w, out, B, D, Hp, Wp, M, nk, nl, stream
     "conv_valid_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -1,9 +1,12 @@
-"""Command-line interface of the port: info / export / serve.
+"""Command-line interface of the port: info / train / export / serve.
 
-Port of the serving subcommands of :mod:`spectralae.cli.main`, with the
-same flags:
+Port of the serving and step-mode training subcommands of
+:mod:`spectralae.cli.main`, with the same flags:
 
   - ``spectralae-torch info``   — print the network structure ('i' key).
+  - ``spectralae-torch train``  — headless batched training, ``--mode
+    step`` (the burst and stream trainers are not ported yet), on a device
+    (``--device``, default ``cuda``), with checkpoints and resume.
   - ``spectralae-torch export`` — write a serving artifact (manifest +
     weights) from a checkpoint or a freshly initialised net.
   - ``spectralae-torch serve``  — run inference from an artifact on a
@@ -19,7 +22,9 @@ package's for the same seed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import time
 from pathlib import Path
 
@@ -90,6 +95,190 @@ def _info(params, spec) -> str:
 def cmd_info(args):
     params, spec = _make_net(args)
     print(_info(params, spec))
+
+
+def _sync_args_to_spec(args, spec):
+    """Resuming continues THAT training run: the frame pipeline must feed
+    the checkpoint's resolution/depth, not the CLI defaults."""
+    if (args.nx, args.ny or args.nx, args.depth) != (spec.nx, spec.ny,
+                                                     spec.d):
+        print(f"resume: using the checkpoint's geometry "
+              f"{spec.d}x{spec.nx}x{spec.ny} (CLI asked for "
+              f"{args.depth}x{args.nx}x{args.ny or args.nx})", flush=True)
+    args.nx, args.ny, args.depth = spec.nx, spec.ny, spec.d
+
+
+def _ckpt_dispatch(args, path, params, spec, opt, step_n, *, final=False,
+                   extra_files=None):
+    """The one checkpoint policy: rotating history / async mid-run / plain
+    sync, with optional sidecar files (torch.optim state).
+
+    A final save FIRST drains the async worker — writing the final
+    checkpoint concurrently with a still-queued mid-run save to the same
+    directory could interleave their files (a step-N manifest over
+    step-M arrays)."""
+    from ..io import checkpoint as ckpt
+    if final:
+        ckpt.wait_pending_saves()
+    if args.ckpt_history > 0:
+        ckpt.save_rotating(path, params, spec, opt,
+                           extra={"step": step_n}, step=step_n,
+                           keep=args.ckpt_history, extra_files=extra_files)
+    elif extra_files is not None:
+        # sidecars have no async variant: write synchronously
+        ckpt.save(path, params, spec, opt, extra={"step": step_n})
+        extra_files(Path(path))
+    elif args.ckpt_async and not final:
+        ckpt.save_async(path, params, spec, opt, extra={"step": step_n})
+    else:
+        ckpt.save(path, params, spec, opt, extra={"step": step_n})
+
+
+# what train flags need that is not ported yet, and where the ROADMAP has it
+_TRAIN_NOT_PORTED = (
+    (lambda a: a.mode != "step",
+     "train --mode {mode}: the burst and stream trainers are not ported yet "
+     "(ROADMAP A5-A7)"),
+    (lambda a: a.bf16,
+     "train --bf16: bf16 operands are not ported yet (ROADMAP queue B, "
+     "'B1 bf16 operands')"),
+    (lambda a: a.pallas_fft,
+     "train --pallas-fft: the Pallas four-step rfft2 is not ported yet "
+     "(ROADMAP A8 and B5)"),
+    (lambda a: a.source != "synthetic",
+     "train --source {source}: only 'synthetic' is ported yet (file and "
+     "camera sources: ROADMAP A13)"),
+)
+
+
+def cmd_train(args):
+    for applies, msg in _TRAIN_NOT_PORTED:
+        if applies(args):
+            raise SystemExit(msg.format(mode=args.mode, source=args.source))
+    from ..core.profiling import device_trace
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("train --device cuda: torch finds no CUDA device "
+                         "(pass --device cpu to train on the CPU)")
+    # full float32 in the library convs and matmuls the path runs beside
+    # the hand-written kernels (cuDNN would otherwise run TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trace_ctx = (device_trace(args.trace) if args.trace
+                 else contextlib.nullcontext())
+    with trace_ctx:
+        return _train_steps(args, device)
+
+
+def _train_steps(args, device):
+    from ..core.profiling import MetricsLogger
+    from ..core.types import AEParams, init_opt_state
+    from ..data import pipeline
+    from ..io import checkpoint as ckpt
+    from ..ops.coord import leaky_relu
+    from ..train.modern import (make_optim_train_step, make_optimizer,
+                                train_step)
+    use_optim = args.optimizer != "reference"
+    act = leaky_relu if args.activation == "leaky_relu" else None
+    if use_optim:
+        optimizer = make_optimizer(args.optimizer, args.lr,
+                                   schedule=args.lr_schedule,
+                                   warmup_steps=args.warmup,
+                                   total_steps=args.steps)
+        optim_step = make_optim_train_step(
+            optimizer, domain=args.domain, act=act, remat=args.remat,
+            accum_steps=args.accum)
+    start_step = 0
+    if args.resume:
+        params, spec, opt, extra = ckpt.load(args.resume, device=device)
+        if use_optim:
+            opt = optimizer.init(params)
+            where = ckpt.resolve(args.resume)
+            if (where / ckpt.OPTIM_SIDECAR).exists():
+                opt = ckpt.load_optim_state(where / ckpt.OPTIM_SIDECAR)
+            elif (where / ckpt.OPTAX_SIDECAR).exists():
+                print(f"resume: {ckpt.OPTAX_SIDECAR} holds the JAX "
+                      "package's optax state, which this package does not "
+                      f"read; {args.optimizer} starts from a fresh state",
+                      flush=True)
+        elif opt is None:
+            opt = init_opt_state(params)
+        start_step = int(extra.get("step", 0))
+        _sync_args_to_spec(args, spec)
+        print(f"resumed from {args.resume} at step {start_step}", flush=True)
+    else:
+        params, spec = _make_net(args)
+        params = AEParams.from_leaves([t.to(device)
+                                       for t in params.leaves()])
+        opt = (optimizer.init(params) if use_optim
+               else init_opt_state(params))
+
+    def save_ckpt(path, step_n, final=False):
+        # optimizer state is written via extra_files so it lands in the
+        # step dir BEFORE the LATEST marker moves — a crash between
+        # the two can't expose a checkpoint with missing opt state
+        sidecar = ((lambda d: ckpt.save_optim_state(
+            Path(d) / ckpt.OPTIM_SIDECAR, opt)) if use_optim else None)
+        _ckpt_dispatch(args, path, params, spec,
+                       None if use_optim else opt, step_n, final=final,
+                       extra_files=sidecar)
+
+    src = pipeline.synthetic_frames(args.nx, args.ny, seed=args.seed)
+    metrics = MetricsLogger(args.metrics or None)
+    pf = pipeline.DevicePrefetcher(src, args.nx, args.ny, batch=args.batch,
+                                   device=device)
+    t_start = time.perf_counter()
+    last_step = start_step
+    # last params/opt verified finite at a log step — what we roll back to
+    # (and save) on divergence, so NaN updates applied between log steps
+    # can never reach the final checkpoint
+    good_params, good_opt, good_step = params, opt, start_step
+    try:
+        for step_i, batch in enumerate(pf, start=start_step):
+            if step_i >= args.steps:
+                break
+            if use_optim:
+                res = optim_step(params, opt, batch, spec.scales)
+            else:
+                res = train_step(params, opt, batch, spec.scales, lr=args.lr,
+                                 alpha=args.alpha, domain=args.domain,
+                                 act=act, remat=args.remat,
+                                 accum_steps=args.accum)
+            # failure detection (SURVEY.md §5.3): halt on divergence, keep
+            # the last good checkpoint.  Reading the loss synchronises with
+            # the device, so check only on log steps — off-step launches
+            # stay queued behind the prefetcher
+            if step_i % args.log_every == 0:
+                loss = float(res.loss)
+                if not math.isfinite(loss):
+                    print(json.dumps({"step": step_i,
+                                      "error": "non-finite loss",
+                                      "loss": loss}), flush=True)
+                    params, opt, last_step = good_params, good_opt, good_step
+                    break
+                # res.loss is the loss of the params going INTO this step,
+                # so a finite value certifies the pre-update params
+                good_params, good_opt, good_step = params, opt, last_step
+            params, opt = res.params, res.opt
+            last_step = step_i + 1
+            if step_i % args.log_every == 0:
+                metrics.log(step=step_i, loss=loss, domain=args.domain,
+                            steps_per_sec=(step_i + 1)
+                            / (time.perf_counter() - t_start))
+            if (args.ckpt and args.ckpt_every > 0 and step_i
+                    and step_i % args.ckpt_every == 0):
+                # stamp the step REACHED (params already applied step_i's
+                # update): stamping step_i made resume replay that update
+                save_ckpt(args.ckpt, last_step)
+    finally:
+        pf.close()
+        metrics.close()
+    if args.ckpt:
+        # stamped with the step actually REACHED (divergence break or an
+        # exhausted source must not fake completion — resume would no-op)
+        save_ckpt(args.ckpt, last_step, final=True)
+        print(f"checkpoint written to {args.ckpt} at step {last_step}",
+              flush=True)
 
 
 def cmd_export(args):
@@ -173,6 +362,80 @@ def main(argv=None):
     p = sub.add_parser("info", help="print network structure")
     _add_common(p)
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("train", help="headless batched training")
+    _add_common(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; no "
+                        "automatic fallback to the CPU)")
+    p.add_argument("--source", default="synthetic",
+                   help="only 'synthetic' is ported yet")
+    p.add_argument("--png-order", choices=("rgb", "bgr"), default="rgb")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--lr", type=float, default=0.2)
+    p.add_argument("--alpha", type=float, default=0.9)
+    p.add_argument("--optimizer",
+                   choices=("reference", "adam", "adamw", "sgd"),
+                   default="reference",
+                   help="'reference' = the normalized-gradient inertia "
+                        "update; the rest are torch.optim optimizers "
+                        "(their state checkpoints to optim.pt)")
+    p.add_argument("--domain", choices=("fft", "coord"), default="fft",
+                   help="the autodiff domain of the step")
+    p.add_argument("--mode", choices=("step", "burst", "stream"),
+                   default="step",
+                   help="step: batched autodiff training (burst and stream "
+                        "are not ported yet)")
+    # burst/stream flags: parsed for compatibility with the JAX CLI and,
+    # as there, ignored in step mode
+    p.add_argument("--stream-k", type=int, default=16)
+    p.add_argument("--train-pair", default="0")
+    p.add_argument("--patch-q", type=int, default=1)
+    p.add_argument("--pair-sweep", choices=("block", "frame"),
+                   default="block")
+    p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--carry-momentum", action="store_true")
+    p.add_argument("--maxdiff", action="store_true")
+    p.add_argument("--reanchor", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="not ported yet (ROADMAP 'B1 bf16 operands')")
+    p.add_argument("--pallas-fft", action="store_true",
+                   help="not ported yet (ROADMAP A8, B5)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize per-stage blocks in the backward "
+                        "(trades recompute for activation memory at "
+                        "high resolution)")
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per step "
+                        "(batch must divide evenly)")
+    p.add_argument("--lr-schedule", choices=("constant", "cosine", "linear"),
+                   default="constant",
+                   help="learning-rate schedule (torch.optim optimizers "
+                        "only; decays over --steps)")
+    p.add_argument("--warmup", type=int, default=0,
+                   help="linear lr warmup steps (torch.optim optimizers "
+                        "only)")
+    p.add_argument("--activation", choices=("identity", "leaky_relu"),
+                   default="identity")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--ckpt", default="")
+    p.add_argument("--ckpt-every", type=int, default=100)
+    p.add_argument("--ckpt-history", type=int, default=0, metavar="N",
+                   help="keep a rotating history of the newest N "
+                        "step-stamped checkpoints under --ckpt (0 = one "
+                        "directory, overwritten)")
+    p.add_argument("--ckpt-async", action="store_true",
+                   help="write mid-run checkpoints on a background worker "
+                        "(final checkpoint is always synchronous)")
+    p.add_argument("--resume", default="",
+                   help="checkpoint dir to resume params, optimizer state "
+                        "and step from (a JAX package checkpoint too)")
+    p.add_argument("--metrics", default="")
+    p.add_argument("--trace", default="",
+                   help="capture a torch.profiler trace of the run into "
+                        "this directory (trace.json)")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("export", help="write a serving artifact")
     _add_common(p)

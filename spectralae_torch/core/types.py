@@ -80,6 +80,17 @@ class AEParams:
         stages[self.n_stages - 1 - n_l] = dec
         return AEParams(stages=tuple(stages))
 
+    def leaves(self) -> list[torch.Tensor]:
+        """The tensors in the JAX pytree's flatten order: ``c``, ``b`` of
+        stage 0, then of stage 1, …"""
+        return [t for st in self.stages for t in (st.c, st.b)]
+
+    @classmethod
+    def from_leaves(cls, leaves: Sequence[torch.Tensor]) -> "AEParams":
+        """Inverse of :meth:`leaves`."""
+        return cls(stages=tuple(ConvStage(c=leaves[i], b=leaves[i + 1])
+                                for i in range(0, len(leaves), 2)))
+
 
 @dataclasses.dataclass(frozen=True)
 class StageSpec:
@@ -193,6 +204,11 @@ def init_params(gen: torch.Generator, spec: NetSpec, rmax: float, *,
         for s in spec.stages))
 
 
+def zeros_like_params(params: AEParams) -> AEParams:
+    return AEParams.from_leaves([torch.zeros_like(t)
+                                 for t in params.leaves()])
+
+
 def spec_of(params: AEParams, nx: int, ny: int, d: int,
             scales: Tuple[int, ...]) -> NetSpec:
     """Rebuild a NetSpec from concrete params + scales (e.g. after load)."""
@@ -206,6 +222,25 @@ def spec_of(params: AEParams, nx: int, ny: int, d: int,
         if sc < 0:  # decoder: upsample after conv
             cx, cy = cx * (-sc), cy * (-sc)
     return NetSpec(nx=nx, ny=ny, d=d, stages=tuple(stages))
+
+
+@dataclasses.dataclass
+class OptState:
+    """Optimizer state for the inertia + adaptive-lr update.
+
+    ``mom``  — previous applied update ``dw = w(t-1) - w(t-2)``
+               (reference ``dc/df/db/dp``, autoencoder.cpp:102-104).
+    ``prev_grad`` — previous raw gradient (reference ``ddc/ddf/...``,
+               autoencoder.cpp:105-107), consumed by the adaptive-lr rule.
+    """
+
+    mom: AEParams
+    prev_grad: AEParams
+
+
+def init_opt_state(params: AEParams) -> OptState:
+    return OptState(mom=zeros_like_params(params),
+                    prev_grad=zeros_like_params(params))
 
 
 def params_from_numpy(stages: Sequence[tuple[np.ndarray, np.ndarray]], *,
@@ -222,3 +257,17 @@ def params_to_numpy(params: AEParams) -> list[tuple[np.ndarray, np.ndarray]]:
     """Inverse of :func:`params_from_numpy`: ``[(c, b), ...]`` on the host."""
     return [(s.c.detach().cpu().numpy(), s.b.detach().cpu().numpy())
             for s in params.stages]
+
+
+def opt_state_from_numpy(mom: Sequence[tuple[np.ndarray, np.ndarray]],
+                         prev_grad: Sequence[tuple[np.ndarray, np.ndarray]],
+                         *, device: torch.device | str = "cpu") -> OptState:
+    """Momentum and previous-gradient ``[(c, b), ...]`` arrays (e.g. a JAX
+    ``OptState`` read out with ``np.asarray``) → :class:`OptState`."""
+    return OptState(mom=params_from_numpy(mom, device=device),
+                    prev_grad=params_from_numpy(prev_grad, device=device))
+
+
+def opt_state_to_numpy(opt: OptState):
+    """Inverse of :func:`opt_state_from_numpy`: ``(mom, prev_grad)``."""
+    return params_to_numpy(opt.mom), params_to_numpy(opt.prev_grad)

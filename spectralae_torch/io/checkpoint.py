@@ -2,43 +2,58 @@
 
 Port of the native format of :mod:`spectralae.io.checkpoint`: a directory
 with a JSON manifest (shapes, dtypes, scales, config) + one ``arrays.npz``
-of all arrays.  Both sides are plain numpy, so a checkpoint written by the
-JAX package loads here and the reverse.  Shape metadata travels with the
-payload, so mismatched loads fail loudly.
+of all arrays, the reference optimizer's state included (``mom{i}/c``,
+``pg{i}/b``, … and the ``has_opt`` manifest key).  Both sides are plain
+numpy, so a training checkpoint written by the JAX package resumes here and
+the reverse.  Shape metadata travels with the payload, so mismatched loads
+fail loudly.
 
-Not ported yet (ROADMAP A10): optimizer state (a JAX training checkpoint's
-``mom*``/``pg*`` arrays are left unread), the reference ``.conv`` shim,
-rotating history and asynchronous saves.
+The ``torch.optim`` optimizers' state goes into a sidecar file of its own,
+``optim.pt`` (:func:`save_optim_state`); the JAX package's ``optax.npz``
+sidecar holds optax state, which this package does not read.
+
+Not ported yet (ROADMAP A10): the reference ``.conv`` shim.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..core.types import AEParams, ConvStage, NetSpec, StageSpec
+from ..core.types import AEParams, ConvStage, NetSpec, OptState, StageSpec
 
 FORMAT_VERSION = 1
+OPTIM_SIDECAR = "optim.pt"      # torch.optim state (this package)
+OPTAX_SIDECAR = "optax.npz"     # optax state (the JAX package; not read)
 
 
 def save(path: str | Path, params: AEParams, spec: NetSpec,
-         extra: dict | None = None) -> None:
-    """Write ``params`` and ``spec`` (no optimizer state) to ``path``."""
+         opt: OptState | None = None, extra: dict | None = None) -> None:
+    """Write ``params``, ``spec`` and the reference optimizer's ``opt``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     arrays: dict[str, np.ndarray] = {}
     for i, st in enumerate(params.stages):
         arrays[f"stage{i}/c"] = st.c.detach().cpu().numpy()
         arrays[f"stage{i}/b"] = st.b.detach().cpu().numpy()
+    if opt is not None:
+        for i, st in enumerate(opt.mom.stages):
+            arrays[f"mom{i}/c"] = st.c.detach().cpu().numpy()
+            arrays[f"mom{i}/b"] = st.b.detach().cpu().numpy()
+        for i, st in enumerate(opt.prev_grad.stages):
+            arrays[f"pg{i}/c"] = st.c.detach().cpu().numpy()
+            arrays[f"pg{i}/b"] = st.b.detach().cpu().numpy()
     np.savez(path / "arrays.npz", **arrays)
     manifest = {
         "format_version": FORMAT_VERSION,
         "n_stages": len(params.stages),
-        "has_opt": False,
+        "has_opt": opt is not None,
         "spec": {
             "nx": spec.nx, "ny": spec.ny, "d": spec.d,
             "stages": [dataclasses.asdict(s) for s in spec.stages],
@@ -50,10 +65,74 @@ def save(path: str | Path, params: AEParams, spec: NetSpec,
     (path / "manifest.json").write_text(json.dumps(manifest, indent=2))
 
 
+_SAVE_POOL: ThreadPoolExecutor | None = None
+
+
+def save_async(path: str | Path, params: AEParams, spec: NetSpec,
+               opt: OptState | None = None,
+               extra: dict | None = None) -> Future:
+    """Non-blocking :func:`save`: the device→host copy and the file IO run
+    on a single background worker (saves stay ordered).  Returns a
+    ``Future``; call :func:`wait_pending_saves` before exiting.
+
+    The worker writes exactly the tensors passed in: the train steps of
+    :mod:`spectralae_torch.train.modern` never update a tensor in place, so
+    training may go on meanwhile.
+    """
+    global _SAVE_POOL
+    if _SAVE_POOL is None:
+        _SAVE_POOL = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="ckpt-save")
+    return _SAVE_POOL.submit(save, path, params, spec, opt, extra)
+
+
+def wait_pending_saves() -> None:
+    """Block until every :func:`save_async` in flight has committed."""
+    global _SAVE_POOL
+    if _SAVE_POOL is not None:
+        _SAVE_POOL.shutdown(wait=True)
+        _SAVE_POOL = None
+
+
+def save_rotating(root: str | Path, params: AEParams, spec: NetSpec,
+                  opt: OptState | None = None, extra: dict | None = None,
+                  *, step: int, keep: int = 3, extra_files=None) -> Path:
+    """Step-stamped checkpoint history: writes ``root/step_{step:08d}``,
+    points ``root/LATEST`` at it, prunes to the newest ``keep`` (``keep``
+    ≤ 0 keeps all).
+
+    ``extra_files(dest)`` runs after the checkpoint is written but BEFORE
+    ``LATEST`` moves, so sidecar files (optimizer state) are committed
+    before the checkpoint becomes resolvable.
+    """
+    root = Path(root)
+    dest = root / f"step_{step:08d}"
+    save(dest, params, spec, opt, extra={**(extra or {}), "step": step})
+    if extra_files is not None:
+        extra_files(dest)
+    (root / "LATEST").write_text(dest.name)
+    # prune by RECENCY (mtime), not name: a divergence rollback re-saves an
+    # *earlier* step, and name order would then delete the fresh good
+    # checkpoints and keep the diverged ones.  Never the one just written.
+    olds = sorted((p for p in root.iterdir()
+                   if p.is_dir() and p.name.startswith("step_")
+                   and p != dest),
+                  key=lambda p: p.stat().st_mtime)
+    if keep <= 0:
+        doomed = []
+    elif keep == 1:
+        doomed = olds
+    else:
+        doomed = olds[:-(keep - 1)]
+    for p in doomed:
+        shutil.rmtree(p, ignore_errors=True)
+    return dest
+
+
 def resolve(path: str | Path) -> Path:
     """Resolve a checkpoint argument to a concrete checkpoint directory —
-    either the directory itself or, for a rotation root, the directory its
-    ``LATEST`` marker points at."""
+    either the directory itself or, for a :func:`save_rotating` root, the
+    directory its ``LATEST`` marker points at."""
     path = Path(path)
     if not (path / "manifest.json").exists() and (path / "LATEST").exists():
         return path / (path / "LATEST").read_text().strip()
@@ -61,10 +140,10 @@ def resolve(path: str | Path) -> Path:
 
 
 def load(path: str | Path, *, device: torch.device | str = "cpu"):
-    """Returns ``(params, spec, None, extra)``, params on ``device``.
+    """Returns ``(params, spec, opt_or_None, extra)``, tensors on ``device``.
 
-    The third slot is the JAX loader's optimizer state; the port does not
-    read it yet, so it is always ``None``.
+    Accepts either a single checkpoint directory or a rotation root
+    written by :func:`save_rotating` (resolved through ``LATEST``).
     """
     path = resolve(path)
     manifest = json.loads((path / "manifest.json").read_text())
@@ -77,11 +156,33 @@ def load(path: str | Path, *, device: torch.device | str = "cpu"):
                 raise ValueError(f"shape mismatch for {k}: "
                                  f"{data[k].shape} != {shape}")
         n = manifest["n_stages"]
-        params = AEParams(stages=tuple(
-            ConvStage(c=torch.tensor(data[f"stage{i}/c"], device=device),
-                      b=torch.tensor(data[f"stage{i}/b"], device=device))
-            for i in range(n)))
+
+        def tape(prefix: str) -> AEParams:
+            return AEParams(stages=tuple(
+                ConvStage(c=torch.tensor(data[f"{prefix}{i}/c"],
+                                         device=device),
+                          b=torch.tensor(data[f"{prefix}{i}/b"],
+                                         device=device))
+                for i in range(n)))
+        params = tape("stage")
+        opt = (OptState(mom=tape("mom"), prev_grad=tape("pg"))
+               if manifest["has_opt"] else None)
     sm = manifest["spec"]
     spec = NetSpec(nx=sm["nx"], ny=sm["ny"], d=sm["d"],
                    stages=tuple(StageSpec(**s) for s in sm["stages"]))
-    return params, spec, None, manifest.get("extra", {})
+    return params, spec, opt, manifest.get("extra", {})
+
+
+# ------------------------------------------------- torch.optim opt state
+
+def save_optim_state(path: str | Path, state: dict) -> None:
+    """Persist an :class:`~spectralae_torch.train.modern.Optimizer` state
+    (its update count and the torch optimizer's ``state_dict``)."""
+    torch.save(state, Path(path))
+
+
+def load_optim_state(path: str | Path) -> dict:
+    """Read a state written by :func:`save_optim_state` onto the CPU
+    (tensors and plain values only: ``weights_only`` loading).  The torch
+    optimizer moves it to its parameters' device when it loads it."""
+    return torch.load(Path(path), map_location="cpu", weights_only=True)

@@ -8,10 +8,17 @@ padding and the tap flip (:func:`spectralae_torch.ops.coord.conv2d`), as in
 the JAX package.  The file's header note says what bounds it and why it is
 shaped as it is.
 
-:func:`conv_valid` runs :func:`conv_valid_plain` for CPU tensors and
-launches the kernel for CUDA tensors — never the plain version there.
-:data:`LAUNCHES` counts kernel launches.  Forward only: the backward is
-ROADMAP queue B work ("B6 VJP").
+:class:`ConvValid` carries the JAX package's custom VJP
+(``_conv_valid_bwd``, pallas_conv.py:185-209): the data grad is a valid
+correlation of the padded cotangent with the M/D-transposed, tap-flipped
+weights — ``F.conv2d`` by default, or this kernel itself when
+:data:`PALLAS_DATA_GRAD` is set — and the weight grad, a contraction over
+pixels, is left to the library (cuDNN's backward-filter conv), as the JAX
+package leaves it to ``lax``.
+
+Each launch of the kernel runs :func:`conv_valid_plain` for CPU tensors and
+the kernel for CUDA tensors — never the plain version there.
+:data:`LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,10 +27,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .spectral_kernels import _check_no_grad
 
 #: kernel launches of :func:`conv_valid` since import (or the last reset)
 LAUNCHES = 0
+
+#: route the data grad of :class:`ConvValid` through this kernel (True) or
+#: through ``F.conv2d`` (False, the JAX package's default, chosen on its
+#: accelerator; deciding it on the card is ROADMAP B6 work)
+PALLAS_DATA_GRAD = False
 
 # the kernel's output tile (csrc/conv_valid.cu kTileH x kTileW) and the
 # largest dynamic shared memory one block may take on Hopper
@@ -36,14 +47,7 @@ def conv_valid_plain(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(xpad, w)
 
 
-def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Valid correlation ``[B,D,H+nk-1,W+nl-1] × [M,D,nk,nl] → [B,M,H,W]``.
-
-    ``w`` holds the *already tap-flipped* correlation weights.  float32,
-    contiguous.  CPU tensors take :func:`conv_valid_plain`; CUDA tensors
-    launch the kernel.
-    """
-    global LAUNCHES
+def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
     if xpad.dim() != 4 or w.dim() != 4 or xpad.shape[1] != w.shape[1]:
         raise ValueError(f"xpad must be [B,D,Hp,Wp] and w [M,D,nk,nl], got "
                          f"{tuple(xpad.shape)} and {tuple(w.shape)}")
@@ -57,13 +61,20 @@ def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(xpad.shape)}, w {tuple(w.shape)}")
     if xpad.device != w.device:
         raise ValueError(f"xpad on {xpad.device}, w on {w.device}")
+    if xpad.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv_valid runs on cpu or cuda, not {xpad.device}")
+
+
+def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One valid correlation: the plain version for CPU tensors, a launch of
+    the kernel for CUDA tensors (checked by :func:`_check_valid`)."""
+    global LAUNCHES
     if xpad.device.type == "cpu":
         return conv_valid_plain(xpad, w)
-    if xpad.device.type != "cuda":
-        raise ValueError(f"conv_valid runs on cpu or cuda, not {xpad.device}")
-    _check_no_grad("conv_valid", xpad, w)
     if not (xpad.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv_valid needs contiguous operands")
+    b, d, hp, wp = xpad.shape
+    m, _, nk, nl = w.shape
     if b > 65535:
         raise ValueError(f"conv_valid: batch {b} exceeds the grid's z limit "
                          "of 65535")
@@ -82,3 +93,42 @@ def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _kernels.check(err, "conv_valid")
     LAUNCHES += 1
     return out
+
+
+class ConvValid(torch.autograd.Function):
+    """The valid correlation with the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, xpad, w):
+        ctx.save_for_backward(xpad, w)
+        return _valid_corr(xpad, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xpad, w = ctx.saved_tensors
+        _, _, nk, nl = w.shape
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the same tap algebra as the forward: runnable through the
+            # same kernel
+            wt = w.transpose(0, 1).flip((-2, -1)).contiguous()
+            dy_pad = F.pad(dy, (nl - 1, nl - 1, nk - 1, nk - 1))
+            if PALLAS_DATA_GRAD:
+                dx = _valid_corr(dy_pad.contiguous(), wt)
+            else:
+                dx = F.conv2d(dy_pad, wt)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(xpad, w.shape, dy)
+        return dx, dw
+
+
+def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Valid correlation ``[B,D,H+nk-1,W+nl-1] × [M,D,nk,nl] → [B,M,H,W]``,
+    differentiable (:class:`ConvValid`).
+
+    ``w`` holds the *already tap-flipped* correlation weights.  float32;
+    contiguous on the card.  CPU tensors take :func:`conv_valid_plain`;
+    CUDA tensors launch the kernel.
+    """
+    _check_valid(xpad, w)
+    return ConvValid.apply(xpad, w)

@@ -48,9 +48,11 @@ def _axis_bases(nk: int, nl: int, nx: int, ny: int):
 
 @functools.lru_cache(maxsize=None)
 def _bases_on(nk: int, nl: int, nx: int, ny: int, device: torch.device):
-    """:func:`_axis_bases` as float32 tensors, kept on ``device``."""
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in _axis_bases(nk, nl, nx, ny))
+    """:func:`_axis_bases` as float32 tensors, kept on ``device`` — built
+    outside inference mode, so a later backward may save them."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _axis_bases(nk, nl, nx, ny))
 
 
 @functools.lru_cache(maxsize=None)

@@ -85,12 +85,17 @@ def _resize_maps(nx: int, ny: int, nxs: int, nys: int):
 @functools.lru_cache(maxsize=None)
 def _resize_tensors(nx: int, ny: int, nxs: int, nys: int,
                     device: torch.device):
-    """:func:`_resize_maps` as index/mask tensors, kept on ``device``."""
+    """:func:`_resize_maps` as index/mask tensors, kept on ``device``.
+
+    Built outside inference mode: a tensor made under
+    ``torch.inference_mode()`` (a serving forward may fill the cache) could
+    never be saved for a later backward."""
     rows, row_mask, cols, col_mask = _resize_maps(nx, ny, nxs, nys)
     mask = row_mask[:, None] * col_mask[None, :]
-    return (torch.as_tensor(rows, dtype=torch.long, device=device),
-            torch.as_tensor(cols, dtype=torch.long, device=device),
-            torch.as_tensor(mask, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(rows, dtype=torch.long, device=device),
+                torch.as_tensor(cols, dtype=torch.long, device=device),
+                torch.as_tensor(mask, device=device))
 
 
 def spectral_resize(X: torch.Tensor, nx: int, ny: int, nxs: int,

@@ -8,13 +8,16 @@ a per-bin complex contraction that reads complex64 as interleaved
 one pass.  The file's header note says what bounds it and why it is shaped
 as it is.
 
+:class:`SpectralConvFused` carries the JAX package's custom VJP: its
+backward is two more launches of the same kernel, one for the input spectra
+and one for the kernel spectra, with ``q`` conjugated (PyTorch's gradient of
+a complex-linear map is the conjugate of JAX's cotangent).
+
 Every wrapper runs the kernel's plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors — never the plain version, and never a
 library kernel in its place.  :data:`LAUNCHES` counts kernel launches.
-
-Forward only: the backward (the JAX package's custom VJP, two more
-contractions) and bf16 operands are ROADMAP queue B work ("B1 VJP",
-"B1 bf16 operands"); asking for either raises.
+bf16 operands are ROADMAP queue B work ("B1 bf16 operands"); asking for
+them raises.
 """
 
 from __future__ import annotations
@@ -28,14 +31,17 @@ LAUNCHES = 0
 
 
 def cmul_contract_plain(p: torch.Tensor, q: torch.Tensor, *,
-                        p_scale: float = 1.0,
+                        p_scale: float = 1.0, conj_q: bool = False,
                         bias: torch.Tensor | None = None,
                         bias_scale: float = 0.0) -> torch.Tensor:
     """Plain version of :func:`cmul_contract`: the same math as einsum.
 
-    ``out[a,b,w] = Σ_k (p_scale·p[a,k,w])·q[k,b,w]``, plus
-    ``bias[b]·bias_scale`` on bin ``w = 0`` when ``bias`` is given.
+    ``out[a,b,w] = Σ_k (p_scale·p[a,k,w])·q'[k,b,w]`` with
+    ``q' = conj(q)`` when ``conj_q``, plus ``bias[b]·bias_scale`` on bin
+    ``w = 0`` when ``bias`` is given.
     """
+    if conj_q:
+        q = q.conj()
     out = torch.einsum("akw,kbw->abw", p * p_scale, q)
     if bias is not None:
         # the einsum result is fresh, so the DC add may update it in place
@@ -66,36 +72,33 @@ def _check_contract(p, q, bias) -> None:
                              f"{tuple(bias.shape)} on {bias.device}")
 
 
-def _check_no_grad(name: str, *ts) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in ts):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; its backward is "
-            "ROADMAP queue B work")
-
-
 def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
-                  p_scale: float = 1.0,
+                  p_scale: float = 1.0, conj_q: bool = False,
                   bias: torch.Tensor | None = None,
                   bias_scale: float = 0.0) -> torch.Tensor:
     """Per-bin complex contraction ``[A,K,W] × [K,B,W] → [A,B,W]`` (K1).
 
-    ``p`` must be contiguous; ``q`` may be any view whose last axis is
-    contiguous (the spectral conv passes its ``[M, D, W]`` kernel spectra
-    transposed, with no copy).  CPU tensors take
-    :func:`cmul_contract_plain`; CUDA tensors launch the kernel.
+    ``p`` and ``q`` may be any views whose last axis is contiguous: the
+    spectral conv passes its ``[M, D, W]`` kernel spectra transposed, and
+    its backward the ``[B, M, W]`` cotangent transposed, with no copy.
+    ``conj_q`` contracts with ``conj(q)``.  CPU tensors take
+    :func:`cmul_contract_plain`; CUDA tensors launch the kernel.  The
+    result carries no gradient: :class:`SpectralConvFused` does.
     """
     global LAUNCHES
     _check_contract(p, q, bias)
     if p.device.type == "cpu":
-        return cmul_contract_plain(p, q, p_scale=p_scale, bias=bias,
-                                   bias_scale=bias_scale)
+        return cmul_contract_plain(p, q, p_scale=p_scale, conj_q=conj_q,
+                                   bias=bias, bias_scale=bias_scale)
     if p.device.type != "cuda":
         raise ValueError(f"cmul_contract runs on cpu or cuda, not {p.device}")
-    _check_no_grad("cmul_contract", p, q, bias)
-    if not p.is_contiguous() or q.stride(2) != 1:
-        raise ValueError("cmul_contract needs a contiguous p and a q whose "
-                         "last axis is contiguous")
+    # a lazily conjugated or negated view flags its storage but does not
+    # change it, and the kernel reads the storage: materialise it first
+    p = p.resolve_conj().resolve_neg()
+    q = q.resolve_conj().resolve_neg()
+    if p.stride(2) != 1 or q.stride(2) != 1:
+        raise ValueError("cmul_contract needs p and q whose last axis is "
+                         "contiguous")
     if bias is not None and not bias.is_contiguous():
         raise ValueError("bias must be contiguous")
     a, k, w = p.shape
@@ -107,7 +110,8 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
     with torch.cuda.device(p.device):
         err = _kernels.lib().cmul_contract_launch(
             p.data_ptr(), q.data_ptr(), out.data_ptr(), a, k, b, w,
-            q.stride(0), q.stride(1), float(p_scale),
+            p.stride(0), p.stride(1), q.stride(0), q.stride(1),
+            int(conj_q), float(p_scale),
             None if bias is None else bias.data_ptr(), float(bias_scale),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "cmul_contract")
@@ -115,32 +119,67 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
     return out
 
 
+class SpectralConvFused(torch.autograd.Function):
+    """The spectral conv with the JAX package's custom VJP (``_conv_bwd``,
+    pallas_kernels.py:123-151), every contraction through K1.
+
+    Forward: ``out[b,m] = Σ_d (X[b,d]/M)·C[m,d]`` + ``b[m]·Nx·Ny`` on the
+    DC bin.  Backward, in PyTorch's conjugate convention:
+    ``dX[b,d] = Σ_m g[b,m]·conj(C[m,d])/M`` (``p = g``, ``q = C``) and
+    ``dC[m,d] = Σ_b g[b,m]·conj(X[b,d])/M`` (``p = gᵀ``, a view, and
+    ``q = X``); ``db[m] = Nx·Ny·Re Σ_b g[b,m,0,0]``.  A gradient that no
+    input needs is not computed, so stage 0 of a net (whose input spectra
+    come from the frames) launches K1 once in its backward, not twice.
+    """
+
+    @staticmethod
+    def forward(ctx, X, C, b, nx, ny, scale_by_dm):
+        nb, d = X.shape[0], X.shape[1]
+        m = C.shape[0]
+        nyr = ny // 2 + 1
+        w = nx * nyr
+        scale = (1.0 / m) if scale_by_dm else 1.0
+        p = X.reshape(nb, d, w)
+        q = C.reshape(m, d, w).transpose(0, 1)      # [D, M, W] view, no copy
+        out = cmul_contract(p, q, p_scale=scale,
+                            bias=b.to(torch.float32).contiguous(),
+                            bias_scale=float(nx * ny))
+        ctx.save_for_backward(X, C)
+        ctx.dims = (nb, d, m, w, nx * ny, scale, b.dtype)
+        return out.reshape(nb, m, nx, nyr)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, C = ctx.saved_tensors
+        nb, d, m, w, n_pix, scale, b_dtype = ctx.dims
+        g = g.resolve_conj().resolve_neg().reshape(nb, m, w).contiguous()
+        dX = dC = db = None
+        if ctx.needs_input_grad[0]:
+            dX = cmul_contract(g, C.reshape(m, d, w), p_scale=scale,
+                               conj_q=True).reshape(X.shape)
+        if ctx.needs_input_grad[1]:
+            dC = cmul_contract(g.transpose(0, 1), X.reshape(nb, d, w),
+                               p_scale=scale, conj_q=True).reshape(C.shape)
+        if ctx.needs_input_grad[2]:
+            db = (g[:, :, 0].real.sum(dim=0) * n_pix).to(b_dtype)
+        return dX, dC, db, None, None, None
+
+
 def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
                         nx: int, ny: int, scale_by_dm: bool = True,
                         compute_dtype=None) -> torch.Tensor:
-    """Batched pointwise complex conv through K1 — drop-in for
-    :func:`spectralae_torch.ops.spectral.spectral_conv`:
+    """Batched pointwise complex conv through K1, differentiable — drop-in
+    for :func:`spectralae_torch.ops.spectral.spectral_conv`:
     ``out[b,m,ω] = Σ_d (X[b,d,ω]/M)·C[m,d,ω]`` + ``b[m]·Nx·Ny`` on the DC
     bin (``conv_k``, source/fft_backproplib.cu:162-189).
 
     X: ``[B, D, Nx, Nyr]``, C: ``[M, D, Nx, Nyr]`` complex64, b: ``[M]``.
+    Runs :class:`SpectralConvFused` on either device.
     """
     if compute_dtype is not None:
         raise NotImplementedError("compute_dtype: bf16 operands for K1 are "
                                   "ROADMAP queue B 'B1 bf16 operands'")
-    nb, d = X.shape[0], X.shape[1]
-    m = C.shape[0]
-    nyr = ny // 2 + 1
-    w = nx * nyr
-    scale = (1.0 / m) if scale_by_dm else 1.0
-    p = X.reshape(nb, d, w).contiguous()
-    q = C.reshape(m, d, w).transpose(0, 1)      # [D, M, W] view, no copy
-    out = cmul_contract(p, q, p_scale=scale,
-                        bias=b.to(torch.float32).contiguous(),
-                        bias_scale=float(nx * ny))
-    return out.reshape(nb, m, nx, nyr)
-
-
+    return SpectralConvFused.apply(X, C, b, nx, ny, scale_by_dm)
 def spectral_conv_pallas(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
                          nx: int, ny: int, *,
                          scale_by_dm: bool = True) -> torch.Tensor:

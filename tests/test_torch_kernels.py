@@ -209,3 +209,93 @@ def test_conv_valid_kernel_matches_plain_on_card(cuda_device, b, d, m, n):
     assert ck.LAUNCHES == before + 1
     want = ck.conv_valid_plain(xpad.double(), w.double())
     assert rel(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k,b,n", [(8, 10, 3, 128), (10, 8, 10, 32),
+                                     (3, 2, 17, 16)])
+def test_cmul_contract_conj_and_strided_p_on_card(cuda_device, a, k, b, n):
+    """The backward's two forms: ``q`` conjugated, and ``p`` a transposed
+    view (``gᵀ`` for the kernel-spectrum gradient), against the plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    w = n * (n // 2 + 1)
+    g = torch.randn(k, a, w, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    q = torch.randn(k, b, w, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    p = g.transpose(0, 1)                        # [a, k, w], strided
+    before = sk.LAUNCHES
+    got = sk.cmul_contract(p, q, p_scale=0.1, conj_q=True)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    want = sk.cmul_contract_plain(p.contiguous(), q, p_scale=0.1,
+                                  conj_q=True)
+    assert rel(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_cmul_contract_resolves_lazy_conjugates_on_card(cuda_device):
+    """A lazily conjugated view flags unconjugated storage; the wrapper
+    materialises it before the launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    p = torch.randn(2, 3, 40, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    q = torch.randn(3, 4, 40, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    for pv, qv in ((p.conj(), q), (p, q.conj())):
+        assert pv.is_conj() or qv.is_conj()
+        got = sk.cmul_contract(pv, qv)
+        want = sk.cmul_contract_plain(pv.resolve_conj(), qv.resolve_conj())
+        assert rel(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_spectral_conv_fused_grads_on_card(cuda_device):
+    """The Function's backward (two K1 launches) against autograd through
+    the plain einsum, on the card."""
+    from spectralae_torch.ops import dft
+    from spectralae_torch.ops import spectral
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n, nb, d, m = 64, 4, 3, 10
+    x = torch.randn(nb, d, n, n, device=cuda_device, generator=gen)
+    c0 = torch.randn(m, d, 5, 5, device=cuda_device, generator=gen)
+    b0 = torch.randn(m, device=cuda_device, generator=gen)
+    dy = torch.randn(nb, m, n, n, device=cuda_device, generator=gen)
+    grads = []
+    for conv in (sk.spectral_conv_fused, spectral.spectral_conv_einsum):
+        X = torch.fft.rfft2(x.clone().requires_grad_())
+        leaves = [X, c0.clone().requires_grad_(), b0.clone().requires_grad_()]
+        C = dft.kernel_spectrum(leaves[1], n, n)
+        y = torch.fft.irfft2(conv(X, C, leaves[2], n, n), s=(n, n))
+        before = sk.LAUNCHES
+        grads.append(torch.autograd.grad(y, [X] + leaves[1:], dy))
+        if conv is sk.spectral_conv_fused:
+            assert sk.LAUNCHES == before + 2     # dX and dC
+    for got, want in zip(*grads):
+        assert rel(got.cpu(), want.cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_grad_kernel", [False, True])
+def test_conv_valid_grads_on_card(cuda_device, monkeypatch,
+                                  data_grad_kernel):
+    """dx (through K2 with the flag) and dw against autograd through the
+    plain version in float64.  cuDNN runs without TF32; dw sums 16384
+    products per weight in float32, hence 1e-5 for it."""
+    monkeypatch.setattr(ck, "PALLAS_DATA_GRAD", data_grad_kernel)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    xpad = torch.randn(4, 10, 68, 68, device=cuda_device, generator=gen)
+    w = torch.randn(3, 10, 5, 5, device=cuda_device, generator=gen)
+    dy = torch.randn(4, 3, 64, 64, device=cuda_device, generator=gen)
+    xt, wt = xpad.clone().requires_grad_(), w.clone().requires_grad_()
+    before = ck.LAUNCHES
+    ck.conv_valid(xt, wt).backward(dy)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1 + int(data_grad_kernel)
+    x64 = xpad.double().requires_grad_()
+    w64 = w.double().requires_grad_()
+    ck.conv_valid_plain(x64, w64).backward(dy.double())
+    assert rel(xt.grad.cpu(), x64.grad.cpu()) < TOL
+    assert rel(wt.grad.cpu(), w64.grad.cpu()) < 1e-5

@@ -118,11 +118,10 @@ def test_tie_symmetric_and_mse_match_jax():
     assert abs(got - want) <= 1e-6 * want
 
 
-@pytest.mark.parametrize("kw", [{"remat": True},
-                                {"compute_dtype": torch.bfloat16}])
+@pytest.mark.parametrize("kw", [{"compute_dtype": torch.bfloat16}])
 def test_unported_forward_options_raise(kw):
     _, tp, spec, x = net(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="B1 bf16 operands"):
         tmodel.forward_fft(tp, torch.from_numpy(x), spec.scales, **kw)
 
 
@@ -169,6 +168,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spectralae_torch.ops.coord",
             "spectralae_torch.ops.coord_kernels",
             "spectralae_torch.model.autoencoder",
+            "spectralae_torch.optim.update", "spectralae_torch.train.modern",
+            "spectralae_torch.core.profiling",
             "spectralae_torch.io.checkpoint", "spectralae_torch.io.export",
             "spectralae_torch.io.server", "spectralae_torch.data.pipeline",
             "spectralae_torch.viz.png", "spectralae_torch.cli.main"]
