@@ -21,6 +21,16 @@ Phases (any failure raises and exits non-zero):
    forward and the whole train step in both domains at both sizes: host
    time, device time and the kernels that take it, with the shape of each
    kernel launch of one 256^2 step recorded.
+   Then K3 (``corr_pair_windows``) and K4 (``anchor_windows``, float32 and
+   bf16 signal) against their plain versions at the burst precompute's
+   shapes: pair 0's input of the default net at 128^2 batch 8, 512^2 batch 4
+   and 1024^2 batch 1 (256^2, 1024^2 and 2048^2 frames).
+3b. Bursts: host and device time of one fused burst and of one 16-frame
+   stream flush at 256^2 batch 8, with the inner iterations per second,
+   each beside the same call with the windows on their plain version
+   (``pallas_windows=False``); the fused precompute alone, K4 against the
+   plain version, at the three sizes; and a check that the burst's entry
+   points run with TF32 off whatever the caller set.
 4. Serving: ``export`` and ``serve`` through the CLI in both domains, then
    an ``InferenceServer`` over HTTP for ``forward`` and ``encode`` in both
    domains, each response held against the same model run on the CPU
@@ -31,12 +41,22 @@ Phases (any failure raises and exits non-zero):
    must go on from the saved weights, the launch counters must grow by
    exactly the launches of one step per step, and a 3-step run must match
    the same run on the CPU in parameters, momentum and raw gradient.
+6. Stream and burst training: ``train --mode stream`` through the CLI at
+   256^2 batch 8 with a checkpoint and a resume, with ``--bf16``, and with
+   ``--train-pair all --pair-sweep frame``; then ``train --mode burst``.
+   The MSE must fall, the resume must go on from the saved weights, K4 must
+   launch exactly once per frame and pair (no anchor window may run its
+   plain version), K1 and K3 exactly as the paths use them; and a 3-frame
+   stream on the card must match the same stream on the CPU in weights,
+   momentum and MSE trajectories at 10 iterations a frame, and within the
+   spread of the training map at 100.
 
 The line before the last is a JSON object with each kernel's launches on
-the two paths and per train step, its largest error, and its time, plain
-time, bound and library time per 256^2 batch-8 train step (forward and
-backward): the rows of phase 3 at the shapes of the launches one such step
-made, summed; the last line is
+every path (serve, train, stream, burst), its largest error, and its time,
+plain time, bound and library time: K1 and K2 per 256^2 batch-8 train step
+(forward and backward; the rows of phase 3 at the shapes of the launches
+one such step made, summed), K3 per precompute of a burst and K4 per launch
+at 256^2 batch-8 frames; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -70,6 +90,27 @@ TOL_COORD = 1e-5   # 6 float32 convs (K2 / cuDNN vs the CPU's), pooling
 # g/GRAD_CLIP, so the step carries the absolute error of the small gradient
 # entries, which float32 convs and FFTs summing 2^19 terms leave large
 TOL_MOM = 1e-4
+# K3/K4 against their plain versions: the kernels sum the window transforms
+# in another order, and K4 builds the anchor spectra by its own 81-term sums
+TOL_WINDOWS = 1e-5
+# a 3-frame stream, card against CPU, at STREAM_CMP_ITERS iterations a
+# frame, where the training map is still smooth: the float32 FFTs of two
+# libraries differ by ~1e-6, and on the CPU a 1e-6 relative change of the
+# frames moved the weights by 5.0e-6, the MSEs by 1.4e-5 and the momentum
+# (the last update step, see TOL_MOM) by 4.1e-5
+# (scripts/torch_stream_sensitivity.py)
+STREAM_CMP_ITERS = 10
+TOL_STREAM_W, TOL_STREAM_MOM, TOL_STREAM_MSE = 1e-4, 1e-3, 1e-4
+# the same stream at STREAM_LONG_ITERS iterations a frame, held within the
+# spread of the map: at lr 0.2 on pixel-scale frames a 1e-7..1e-5 relative
+# change of the frames moved the weights by 8.5-12.2 % and each frame's last
+# MSE by a factor 0.55-1.49 on the CPU, through the correlation-space burst,
+# re-anchored or not, and through the omega-space burst alike (the map's
+# own amplification, not the decomposition's precision;
+# scripts/torch_stream_sensitivity.py): the card must stay within 2.5x that
+# weight spread and a factor 3 of the CPU's last MSEs
+STREAM_LONG_ITERS = 100
+TOL_LONG_W, TOL_LONG_MSE_FACTOR = 0.3, 3.0
 REPS = 20          # timed launches per measurement, after 3 warm-up ones
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -81,11 +122,40 @@ TRAIN_STEPS, RESUME_STEPS = 20, 5
 # frames' spectra need none); K2 for the 2 routed forward convs (3->10,
 # 10->3; their data grads go to F.conv2d unless PALLAS_DATA_GRAD is set)
 K1_PER_FFT_STEP, K2_PER_COORD_STEP = 17, 2
+# the stream phase: frames of the first run and of the resumed one
+STREAM_STEPS, STREAM_RESUME = 32, 16
+# burst precompute shapes: (frame size, batch) -> pair 0's input at half
+WINDOW_SIZES = ((256, 8), (1024, 4), (2048, 1))
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    from spectralae_torch.ops import window_kernels as wk
+    sk.LAUNCHES = 0
+    ck.LAUNCHES = 0
+    wk.LAUNCHES.update(dict.fromkeys(wk.LAUNCHES, 0))
+
+
+def counts() -> dict:
+    """Every kernel's launch counter, by kernel key."""
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    from spectralae_torch.ops import window_kernels as wk
+    return {"k1": sk.LAUNCHES, "k2": ck.LAUNCHES,
+            "k3": wk.LAUNCHES["corr_pair_windows"],
+            "k4": wk.LAUNCHES["anchor_windows"]}
+
+
+def grown(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -109,9 +179,10 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(stop) / REPS
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, names=None) -> float:
     """Milliseconds the device spends in the kernels of one ``fn()``: the
-    profiler's device time over REPS calls, whatever the host's pace."""
+    profiler's device time over REPS calls, whatever the host's pace.
+    ``names``: count only the kernels whose name holds one of them."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
@@ -121,7 +192,8 @@ def device_ms(fn) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.key for n in names)))
     return us / REPS / 1e3
 
 
@@ -158,17 +230,25 @@ def k2_bound(b: int, d: int, m: int, hp: int, wp: int, nk: int, nl: int):
 
 
 def measure(label: str, got, want, kernel, plain, bound, tol: float, *,
-            library=True, extra: str = "") -> dict:
+            library=True, extra: str = "", names=None) -> dict:
     """Hold ``got`` against ``want``, time ``kernel`` against ``plain``,
     print one line, return the row.  ``library`` is the one PyTorch call
-    that computes the same function: ``plain`` itself when True, else a
-    call timed on its own."""
+    that computes the same function: ``plain`` itself when True, None when
+    there is none, else a call timed on its own.  ``names``: the kernel's
+    time is that of its own grids (the wrapper's other device work, such
+    as a cast, is printed as the call's time)."""
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
     ev, plain_ev, ms, plain_ms = paired_ms(kernel, plain)
     ms, plain_ms = ms or ev, plain_ms or plain_ev
+    if names is not None:
+        call_ms = ms
+        ms = device_ms(kernel, names)
+        extra += f"; the call {call_ms:.4f} ms"
     if library is True:
         lib_ms, lib_txt = plain_ms, " (the library call)"
+    elif library is None:
+        lib_ms, lib_txt = None, " library none"
     else:
         lib_ms = device_ms(library) or cuda_ms(library)
         lib_txt = f" library {lib_ms:.4f} ms"
@@ -177,7 +257,7 @@ def measure(label: str, got, want, kernel, plain, bound, tol: float, *,
           f"ms{lib_txt} bound {bound[0]:.4f} ms ({bound[1]}); events: "
           f"kernel {ev:.4f} ms plain {plain_ev:.4f} ms", flush=True)
     check(err <= tol, f"{label} disagrees: rel {err:.3e} > {tol:g}")
-    return {"abs": abs_err, "ms": ms, "plain_ms": plain_ms,
+    return {"abs": abs_err, "rel": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
 
 
@@ -402,27 +482,28 @@ def _net(nx: int):
     return params, spec
 
 
-def _breakdown(label: str, fn, extra: str = "") -> None:
+def _breakdown(label: str, fn, extra: str = "",
+               reps: int = REPS) -> tuple[float, float]:
     """Host ms per call of ``fn`` (a synchronised loop), device ms, the
     device's busy share and the top device kernels; then, from a second
     profile that also traces the host, the host operations that take the
     most time of their own (inflated by the tracing, so only their order
-    and shares are read)."""
+    and shares are read).  Returns (host ms, device ms) per call."""
     from torch.autograd import DeviceType
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / REPS * 1e3
+    wall = (time.perf_counter() - t0) / reps * 1e3
     acts = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[acts.CUDA]) as prof:
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / REPS / 1e3, e.key)
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     dev = sum(t for t, _ in rows)
@@ -430,10 +511,10 @@ def _breakdown(label: str, fn, extra: str = "") -> None:
     print(f"{label}: host {wall:.4f} ms, device {dev:.4f} ms (busy "
           f"{dev / wall:.1%}){extra}; top ms: {top}", flush=True)
     with torch.profiler.profile(activities=[acts.CPU]) as prof:
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    host = sorted(((e.self_cpu_time_total / REPS / 1e3, e.count // REPS,
+    host = sorted(((e.self_cpu_time_total / reps / 1e3, e.count // reps,
                     e.key) for e in prof.key_averages()), reverse=True)
     total = sum(t for t, _, _ in host)
     top = "; ".join(f"{name[:40]} x{n} {t / total:.0%}"
@@ -441,6 +522,7 @@ def _breakdown(label: str, fn, extra: str = "") -> None:
     print(f"{label}: host ops traced {total:.2f} ms per call, "
           f"{sum(n for _, n, _ in host)} op calls; top self time: {top}",
           flush=True)
+    return wall, dev
 
 
 def phase_forward() -> None:
@@ -517,13 +599,370 @@ def phase_train_step() -> dict:
     return launched
 
 
+# ------------------------------------------------ K3, K4 and the bursts
+
+K3_GRIDS = ("window_rows_kernel", "window_reduce_kernel")
+K4_GRIDS = K3_GRIDS + ("anchor_taps_kernel",)
+
+
+def k3_bound(b: int, d: int, e: int, n: int, h: int, same: bool):
+    """K3 on [B, D, n, nyr] x [B, E, n, nyr] complex64 at window +-h: the
+    inputs read once (one when Z is X), the windows written once; per bin
+    and batch 6 flops per pair product and 8 per lag column of the y-stage,
+    per x-row 4 per window entry of the x-stage.  When Z is X only the
+    D(D+1)/2 pairs d <= e are needed (the others are their mirrors)."""
+    nyr, v = n // 2 + 1, 2 * h + 1
+    bins = b * n * nyr
+    pairs = d * (d + 1) // 2 if same else d * e
+    return bound_ms(bins * pairs * (6 + 8 * v) + n * pairs * v * v * 4,
+                    8 * bins * (d if same else d + e) + 4 * d * e * v * v)
+
+
+def k4_bound(b: int, d: int, n: int, nk2: int, bf16: bool):
+    """K4 on [B, D, n, nyr] (complex64, or bf16 re/im planes): per bin and
+    batch EG (8·D² + 8·D flops), the pair products (6 each) and the y-stage
+    (8 per lag column); per bin the anchor spectra (8·D²·nk2); per x-row
+    the x-stage (4 per window entry)."""
+    nyr = n // 2 + 1
+    nxx, neg, v4, v2 = d * (d + 1) // 2, d * d, 2 * nk2 - 1, nk2
+    bins = b * n * nyr
+    per_bin = 8 * d * d + 8 * d + 6 * (nxx + neg) + 8 * (nxx * v4 + neg * v2)
+    flops = (bins * per_bin + n * nyr * d * d * nk2 * 8
+             + n * (nxx * v4 * v4 + neg * v2 * v2) * 4)
+    nbytes = ((4 if bf16 else 8) * bins * d + 4 * d * d * nk2 * nk2
+              + 4 * (d * d * (v4 * v4 + v2 * v2) + 1 + d))
+    return bound_ms(flops, nbytes)
+
+
+def _grid_times(label: str, fn, names) -> None:
+    """Print the device ms of each of a kernel's grids in one call."""
+    print(f"{label} grids: " + ", ".join(
+        f"{n} {device_ms(fn, (n,)):.4f} ms" for n in names), flush=True)
+
+
+def _flat(outs) -> torch.Tensor:
+    return torch.cat([o.reshape(-1) for o in outs])
+
+
+def phase_windows(gen: torch.Generator) -> tuple[dict, dict]:
+    """K3 and K4 against their plain versions at the precompute shapes of
+    pair 0 at each of WINDOW_SIZES.  K3 at its two launches of the unfused
+    precompute (XX: Z is X at +-4h; EG: Z the 2·D error planes at +-2h),
+    with one einsum over complex bases as its library call; K4 with the
+    float32 and the bf16 signal (no single PyTorch call computes it).
+    Returns the rows by (kernel, frame size, variant) and each kernel's
+    largest absolute error."""
+    from spectralae_torch.ops import dft
+    from spectralae_torch.ops import window_kernels as wk
+    from spectralae_torch.train import fft_corr
+    # random pair-0 kernels of the default net (M=10, D=3, 5x5)
+    m, d, nk = 10, 3, 5
+    c, f = ((torch.rand(*shape, device="cuda", generator=gen) - 0.5)
+            for shape in ((m, d, nk, nk), (d, m, nk, nk)))
+    taps = fft_corr._composed_taps(c, f, fft_corr._maps_on(nk, nk, c.device),
+                                   d, m, nk * nk)
+    nk2 = taps.shape[-1]
+    h2, s1 = nk2 // 2, 1.0 / (m * d)
+    rows, errs = {}, {"k3": 0.0, "k4": 0.0}
+    for frames, batch in WINDOW_SIZES:
+        n = frames // 2
+        tag = f"{n}x{n} b{batch} ({frames}^2 frames)"
+        X = torch.fft.rfft2(torch.rand(batch, d, n, n, device="cuda",
+                                       generator=gen) * 255)
+        Z = torch.fft.rfft2(torch.randn(batch, 2 * d, n, n, device="cuda",
+                                        generator=gen) * 50)
+        for variant, Zs, h in (("xx", X, 2 * h2), ("eg", Z, h2)):
+            bxc, bxs, byc, bys = (torch.as_tensor(a, device="cuda")
+                                  for a in dft.lag_basis(n, n, h, h))
+            ex, ey = torch.complex(bxc, bxs), torch.complex(byc, bys)
+
+            def lib(Zs=Zs, ex=ex, ey=ey):
+                return torch.einsum("bdxy,bexy,xu,yv->deuv", X.conj(), Zs,
+                                    ex, ey).real / batch
+            want = wk.corr_pair_windows_plain(X, Zs, n, n, h, h)
+            lib_err = rel_err(lib(), want)
+            check(lib_err <= TOL_WINDOWS, f"K3 library call {tag}: "
+                  f"{lib_err:.3e}")
+            row = measure(
+                f"K3 corr_pair_windows {variant} {tag} D={d} "
+                f"E={Zs.shape[1]} +-{h}", wk.corr_pair_windows(X, Zs, n, n,
+                                                              h, h),
+                want, lambda Zs=Zs, h=h: wk.corr_pair_windows(X, Zs, n, n, h,
+                                                              h),
+                lambda Zs=Zs, h=h: wk.corr_pair_windows_plain(X, Zs, n, n, h,
+                                                              h),
+                k3_bound(batch, d, Zs.shape[1], n, h, Zs is X), TOL_WINDOWS,
+                library=lib, names=K3_GRIDS,
+                extra=f"; library vs plain {lib_err:.3e}")
+            rows[("k3", frames, variant)] = row
+            errs["k3"] = max(errs["k3"], row["abs"])
+            _grid_times(f"K3 {variant} {tag}", lambda Zs=Zs, h=h:
+                        wk.corr_pair_windows(X, Zs, n, n, h, h), K3_GRIDS)
+        for variant, sd in (("f32", None), ("bf16", torch.bfloat16)):
+            def kern(sd=sd):
+                return wk.anchor_windows(X, taps, n, n, h2, h2, s1,
+                                         signal_dtype=sd)
+
+            def plain(sd=sd):
+                return wk.anchor_windows_plain(X, taps, n, n, h2, h2, s1,
+                                               signal_dtype=sd)
+            row = measure(
+                f"K4 anchor_windows {variant} signal {tag} D={d} taps "
+                f"{nk2}x{nk2}", _flat(kern()), _flat(plain()), kern, plain,
+                k4_bound(batch, d, n, nk2, sd is not None), TOL_WINDOWS,
+                library=None, names=K4_GRIDS)
+            rows[("k4", frames, variant)] = row
+            errs["k4"] = max(errs["k4"], row["abs"])
+            _grid_times(f"K4 {variant} {tag}", kern, K4_GRIDS)
+    return rows, errs
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Host ms per call of ``fn`` in a synchronised loop, after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _alternate(label: str, calls: dict, rounds: int, reps: int,
+               per_call: int) -> None:
+    """Host ms of each named call, the calls taken in turns for ``rounds``
+    rounds (the order reversed every other round); prints every reading,
+    the medians and ``per_call`` units (inner iterations) per second."""
+    got = {name: [] for name in calls}
+    for k in range(rounds):
+        for name in (list(calls) if k % 2 == 0 else list(calls)[::-1]):
+            got[name].append(_host_ms(calls[name], reps))
+    for name, ms in got.items():
+        med = float(np.median(ms))
+        print(f"{label}, {name}: host ms {[round(v, 4) for v in ms]}, median "
+              f"{med:.4f} ms, {per_call / med * 1e3:.0f} inner iterations/s",
+              flush=True)
+
+
+def phase_bursts(gen: torch.Generator) -> None:
+    """Where a burst's time goes at 256^2 batch 8 (pair 0's input of the
+    default net, 128^2): one fused 100-iteration burst and one 16-frame
+    stream flush through K4 (host, device, busy share, top kernels and host
+    operations); both again in turns with the windows on their plain
+    version (``pallas_windows=False``), and the iteration loop alone; the
+    fused precompute alone, K4 against the plain version, at every
+    WINDOW_SIZES; and the burst's TF32 guard."""
+    from spectralae_torch.train import fft_corr, streaming
+    params, spec = _net(256)
+    iters = 100
+    frames = torch.rand(8, 3, 256, 256, device="cuda", generator=gen) * 255
+    x = streaming._pair_input(params, frames, spec.scales, 0)
+    enc, dec = params.pair(0)
+    w = (enc.c, dec.c, enc.b, dec.b)
+    xs = torch.rand(16, 8, 3, 256, 256, device="cuda", generator=gen) * 255
+
+    def burst(pw):
+        return lambda: fft_corr.burst_corr(x, None, None, *w, iters=iters,
+                                           pallas_windows=pw)
+
+    def flush(pw):
+        return lambda: streaming.fft_stream_pair(
+            xs, params, spec.scales, 0, iters=iters, pallas_windows=pw)
+    _breakdown(f"fused burst {tuple(x.shape)} {iters} iterations, K4",
+               burst(None), reps=5)
+    _breakdown(f"stream flush 16 frames 256x256 b8 pair 0, {iters} "
+               "iterations, K4", flush(None), reps=1)
+    # host time varies by tens of percent between calls on this machine:
+    # compare the routes only in turns
+    _alternate(f"fused burst {iters} iterations", {
+        "K4": burst(None), "plain windows": burst(False)}, 4, 5, iters)
+    _alternate(f"stream flush 16 frames x {iters} iterations", {
+        "K4": flush(None), "plain windows": flush(False)}, 2, 1, 16 * iters)
+    T = fft_corr.corr_precompute_fused(x, *w)
+    _alternate(f"iteration loop alone ({iters} iterations)", {
+        "corr_iterate": lambda: fft_corr.corr_iterate(
+            T, *w, nx=x.shape[-2], ny=x.shape[-1], iters=iters)}, 2, 5,
+        iters)
+    for size, batch in WINDOW_SIZES:
+        n = size // 2
+        xn = torch.rand(batch, 3, n, n, device="cuda", generator=gen) * 255
+        got = {}
+        for pw in (None, False, False, None):
+            got.setdefault(pw, []).append(_host_ms(
+                lambda pw=pw: fft_corr.corr_precompute_fused(
+                    xn, *w, pallas_windows=pw), 20))
+        dev = {pw: device_ms(lambda pw=pw: fft_corr.corr_precompute_fused(
+            xn, *w, pallas_windows=pw)) for pw in (None, False)}
+        print(f"fused precompute {n}x{n} b{batch} ({size}^2 frames): K4 "
+              f"host {min(got[None]):.4f} ms device {dev[None]:.4f} ms; "
+              f"plain windows host {min(got[False]):.4f} ms device "
+              f"{dev[False]:.4f} ms (host: the faster of two turns)",
+              flush=True)
+    # the entry points run in IEEE float32 whatever the caller set
+    out = {}
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        r = fft_corr.burst_corr(x, None, None, *w, iters=20)
+        check(torch.backends.cuda.matmul.allow_tf32 is tf32,
+              "burst_corr did not restore the caller's TF32 setting")
+        out[tf32] = _flat((r.c, r.f, r.b, r.p, r.mses))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(out[True], out[False]),
+          "burst_corr's result depends on the caller's TF32 setting")
+    print("burst_corr with TF32 on in the caller: bit-identical to TF32 off",
+          flush=True)
+
+
+def phase_stream_training(tmp: Path) -> tuple[dict, dict]:
+    """``train --mode stream`` and ``--mode burst`` through the CLI on the
+    card (see the module docstring).  Returns the launches of each path."""
+    from spectralae_torch.io import checkpoint as ckpt
+    from spectralae_torch.ops import window_kernels as wk
+    from spectralae_torch.train import fft_corr
+    fallbacks = []
+    real_plain = wk.anchor_windows_plain
+
+    def guard(X, *a, **kw):
+        if X.is_cuda:
+            fallbacks.append(tuple(X.shape))
+        return real_plain(X, *a, **kw)
+    common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
+              "--seed", "0", "--log-every", "1"]
+    stream = common + ["--mode", "stream", "--stream-k", "16"]
+    ck_dir = tmp / "stream"
+    resume = STREAM_STEPS + STREAM_RESUME
+    runs = (  # label, argv, first step, frames, launches per frame
+        ("stream", stream + ["--steps", str(STREAM_STEPS), "--ckpt",
+                             str(ck_dir)], 0, STREAM_STEPS, {"k4": 1}),
+        ("stream resumed", stream + ["--steps", str(resume), "--resume",
+                                     str(ck_dir), "--ckpt", str(ck_dir)],
+         STREAM_STEPS, STREAM_RESUME, {"k4": 1}),
+        ("stream --bf16", stream + ["--steps", "16", "--bf16"], 0, 16,
+         {"k4": 1}),
+        ("stream --train-pair all --pair-sweep frame",
+         stream + ["--steps", "4", "--stream-k", "4", "--train-pair", "all",
+                   "--pair-sweep", "frame"], 0, 4, {"k4": 3, "k1": 3}))
+    wk.anchor_windows_plain = fft_corr.anchor_windows_plain = guard
+    try:
+        reset_counts()
+        for label, argv, first, frames, per_frame in runs:
+            before = counts()
+            t0 = time.perf_counter()
+            recs = _cli_records(argv)
+            wall = time.perf_counter() - t0
+            got = grown(before)
+            want = {k: per_frame.get(k, 0) * frames for k in got}
+            check(got == want, f"{label}: launches {got}, expected {want}")
+            steps = sorted({r["step"] for r in recs})
+            check(steps == list(range(first, first + frames)),
+                  f"{label}: logged steps {steps}")
+            mse0 = [r["mse0"] for r in recs if r["pair"] == 0]
+            check(all(math.isfinite(r["mseN"]) for r in recs),
+                  f"{label}: non-finite mse")
+            # one burst of 100 iterations per K4 launch
+            print(f"train {label} 256x256 b8 steps {first}-"
+                  f"{first + frames - 1}: pair-0 entry mse {mse0[0]:.6g} -> "
+                  f"{mse0[-1]:.6g}; launches {got}; {wall:.2f} s CLI wall, "
+                  f"{100 * got['k4'] / wall:.0f} inner iterations/s",
+                  flush=True)
+            if label == "stream":
+                loss0 = mse0[0]
+                check(mse0[-1] < mse0[0], f"{label}: the mse did not fall")
+                check(ckpt.load(ck_dir)[3]["step"] == STREAM_STEPS,
+                      f"{label}: checkpoint step")
+            elif label == "stream resumed":
+                check(mse0[0] < 0.1 * loss0,
+                      f"{label}: first entry mse {mse0[0]:.6g} is not far "
+                      f"below the first run's {loss0:.6g}")
+            elif label == "stream --bf16":
+                check(mse0[-1] < mse0[0], f"{label}: the mse did not fall")
+        stream_launches = counts()
+        check(not fallbacks, f"anchor windows ran their plain version on "
+              f"the card for {fallbacks}")
+        reset_counts()
+        before = counts()
+        recs = _cli_records(common + ["--mode", "burst", "--steps", "3"])
+        got = grown(before)
+        want = {"k1": 18, "k2": 0, "k3": 6, "k4": 0}
+        check(got == want, f"burst: launches {got}, expected {want}")
+        check([r["step"] for r in recs] == [0, 1, 2]
+              and all(math.isfinite(r["mseN"]) for r in recs)
+              and recs[-1]["mse0"] < recs[0]["mse0"],
+              f"burst: {[(r['step'], r['mse0'], r['mseN']) for r in recs]}")
+        print(f"train burst 256x256 b8 steps 0-2: entry mse "
+              f"{recs[0]['mse0']:.6g} -> {recs[-1]['mse0']:.6g}; launches "
+              f"{got} (K1 6 per step through forward_fft, K3 2 per burst "
+              "precompute)", flush=True)
+        return stream_launches, counts()
+    finally:
+        wk.anchor_windows_plain = fft_corr.anchor_windows_plain = real_plain
+
+
+def phase_stream_vs_cpu() -> None:
+    """A 3-frame stream of pair 0 on the card and on the CPU, from the same
+    weights and frames: at STREAM_CMP_ITERS iterations a frame the weights,
+    momentum and MSE trajectories agree; at STREAM_LONG_ITERS the weights
+    and each frame's last MSE stay within the map's spread (printed beside:
+    the CPU's own distance under a 1e-7 relative change of the frames)."""
+    from spectralae_torch.core.types import AEParams
+    from spectralae_torch.data import pipeline
+    from spectralae_torch.train.streaming import stream_bursts_pair
+    params, spec = _net(256)
+    frames = np.stack([pipeline.frame_to_tensor(f) for f in itertools.islice(
+        pipeline.synthetic_frames(256, 256, seed=7), 24)])
+    xs = torch.from_numpy(frames).reshape(3, 8, 3, 256, 256)
+    on = {dev: AEParams.from_leaves([t.to(dev) for t in params.leaves()])
+          for dev in ("cuda", "cpu")}
+
+    def run(dev, iters, frames=xs):
+        r = stream_bursts_pair(frames.to(dev), on[dev], spec.scales, 0,
+                               iters=iters)
+        return r._replace(c=r.c.cpu(), f=r.f.cpu(), b=r.b.cpu(),
+                          p=r.p.cpu(), mses=r.mses.cpu(),
+                          mom=tuple(m.cpu() for m in r.mom))
+
+    def weights(r):
+        return _flat((r.c, r.f, r.b, r.p))
+
+    def last_ratio(r, ref):
+        return (r.mses[:, -1].double() / ref.mses[:, -1].double()).tolist()
+    a, b = run("cuda", STREAM_CMP_ITERS), run("cpu", STREAM_CMP_ITERS)
+    errs = {"weights": (rel_err(weights(a), weights(b)), TOL_STREAM_W),
+            "momentum": (rel_err(_flat(a.mom), _flat(b.mom)),
+                         TOL_STREAM_MOM),
+            "mses": (float(((a.mses.double() - b.mses.double()).abs()
+                            / b.mses.double().abs()).max()), TOL_STREAM_MSE)}
+    print(f"stream 3 frames x {STREAM_CMP_ITERS} iterations, 256x256 b8 pair "
+          "0, card vs CPU port: " + ", ".join(f"{k} {e:.3e} (tol {t:g})"
+                               for k, (e, t) in errs.items()), flush=True)
+    for k, (e, t) in errs.items():
+        check(e <= t, f"stream card vs CPU: {k} {e:.3e} > {t:g}")
+    a, b = run("cuda", STREAM_LONG_ITERS), run("cpu", STREAM_LONG_ITERS)
+    moved = run("cpu", STREAM_LONG_ITERS, xs * (1 + 1e-7))
+    w_err = rel_err(weights(a), weights(b))
+    ratio = last_ratio(a, b)
+    check(bool(torch.isfinite(a.mses).all()), "long stream: non-finite mse")
+    print(f"stream 3 frames x {STREAM_LONG_ITERS} iterations, card vs CPU "
+          f"port: weights {w_err:.3e} (tol {TOL_LONG_W:g}), last mse ratio "
+          f"per frame {[round(r, 4) for r in ratio]} (within a factor "
+          f"{TOL_LONG_MSE_FACTOR:g}); the CPU against itself on frames x "
+          f"(1+1e-7): weights {rel_err(weights(moved), weights(b)):.3e}, "
+          f"last mse ratio {[round(r, 4) for r in last_ratio(moved, b)]}",
+          flush=True)
+    check(w_err <= TOL_LONG_W, f"long stream card vs CPU: weights "
+          f"{w_err:.3e} > {TOL_LONG_W:g}")
+    check(all(1 / TOL_LONG_MSE_FACTOR <= r <= TOL_LONG_MSE_FACTOR
+              for r in ratio), f"long stream card vs CPU: last mse ratios "
+          f"{ratio} beyond a factor {TOL_LONG_MSE_FACTOR:g}")
+
+
 def _npy(arr: np.ndarray) -> bytes:
     buf = io.BytesIO()
     np.save(buf, arr)
     return buf.getvalue()
 
 
-def phase_serving(tmp: Path) -> tuple[int, int]:
+def phase_serving(tmp: Path) -> dict:
     from spectralae_torch.cli.main import main as cli
     from spectralae_torch.data import pipeline
     from spectralae_torch.io.export import ServingModel
@@ -531,8 +970,7 @@ def phase_serving(tmp: Path) -> tuple[int, int]:
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import spectral_kernels as sk
 
-    sk.LAUNCHES = 0
-    ck.LAUNCHES = 0
+    reset_counts()
     for domain in ("fft", "coord"):
         art = tmp / domain
         cli(["export", "--nx", "256", "--layers", "3", "--seed", "0",
@@ -584,7 +1022,7 @@ def phase_serving(tmp: Path) -> tuple[int, int]:
                   f"during requests K1 +{grew[0]} K2 +{grew[1]}", flush=True)
             check(grew[0 if domain == "fft" else 1] > 0,
                   f"{domain}/{what}: its kernel was not launched")
-    return sk.LAUNCHES, ck.LAUNCHES
+    return counts()
 
 
 def _cli_records(argv) -> list[dict]:
@@ -597,7 +1035,7 @@ def _cli_records(argv) -> list[dict]:
             if line.startswith("{")]
 
 
-def phase_training(tmp: Path) -> tuple[tuple[int, int], dict]:
+def phase_training(tmp: Path) -> tuple[dict, dict]:
     """``train`` on the card in both domains: TRAIN_STEPS steps with a
     checkpoint, then a resume of RESUME_STEPS more, which must start from
     the saved weights (its first loss far below the first run's first); the
@@ -609,8 +1047,7 @@ def phase_training(tmp: Path) -> tuple[tuple[int, int], dict]:
     from spectralae_torch.ops import spectral_kernels as sk
     common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
               "--seed", "0", "--log-every", "1"]
-    sk.LAUNCHES = 0
-    ck.LAUNCHES = 0
+    reset_counts()
     per_step_seen = {}
     for domain in ("fft", "coord"):
         per_step = ((K1_PER_FFT_STEP, 0) if domain == "fft"
@@ -656,7 +1093,7 @@ def phase_training(tmp: Path) -> tuple[tuple[int, int], dict]:
                       f"train {domain}: the resumed run's first loss "
                       f"{losses[0]:.6g} is not far below the first run's "
                       f"{loss0:.6g}; it did not start from the checkpoint")
-    return (sk.LAUNCHES, ck.LAUNCHES), per_step_seen
+    return counts(), per_step_seen
 
 
 def phase_train_vs_cpu(tmp: Path) -> None:
@@ -714,43 +1151,84 @@ def main() -> int:
           f"{len(regs)} kernels, at most {max(regs, default=0)} registers, "
           f"{spills} bytes of spill stores", flush=True)
 
-    # 3. kernels against their plain versions; forwards and train steps
+    # 3. kernels against their plain versions; forwards and train steps;
+    # 3b. the window kernels and the bursts
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed, errs = phase_kernels(gen)
     phase_forward()
     step = per_step(timed, phase_train_step())
+    windows, werrs = phase_windows(gen)
+    errs.update(werrs)
+    phase_bursts(gen)
 
-    # 4. the serving path; 5. the training path
+    # 4. the serving path; 5. the training path; 6. stream and burst
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        served = phase_serving(tmp)
-        trained, per_step_seen = phase_training(tmp)
+        by_path = {"serve": phase_serving(tmp)}
+        by_path["train"], per_step_seen = phase_training(tmp)
         phase_train_vs_cpu(tmp)
+        by_path["stream"], by_path["burst"] = phase_stream_training(tmp)
+        phase_stream_vs_cpu()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(min(served) > 0 and min(trained) > 0,
-          f"launches: serving K1 {served[0]} K2 {served[1]}, training K1 "
-          f"{trained[0]} K2 {trained[1]}")
+    # every kernel that a path runs was launched in that path's run
+    uses = {"serve": ("k1", "k2"), "train": ("k1", "k2"),
+            "stream": ("k1", "k4"), "burst": ("k1", "k3")}
+    for path, keys in uses.items():
+        check(all(by_path[path][k] > 0 for k in keys),
+              f"launches on the {path} path: {by_path[path]}")
 
     kernels = []
-    for i, (key, name, source, replaces) in enumerate((
+    for key, name, source, replaces in (
             ("k1", "cmul_contract", "spectralae_torch/csrc/cmul_contract.cu",
              "spectralae/ops/pallas_kernels.py:48"),
             ("k2", "conv_valid", "spectralae_torch/csrc/conv_valid.cu",
-             "spectralae/ops/pallas_conv.py:110"))):
-        s = step[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": served[i] + trained[i],
-            "launches_by_path": {"serve": served[i], "train": trained[i]},
-            "max_abs_err": errs[key], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            "per": "one 256x256 batch-8 train step of the 3-pair net",
-            "launches_per_step": per_step_seen[key],
-            "fwd_ms": s["fwd_ms"], "fwd_plain_ms": s["fwd_plain_ms"],
-            "bwd_ms": s["bwd_ms"], "bwd_plain_ms": s["bwd_plain_ms"]})
+             "spectralae/ops/pallas_conv.py:110"),
+            ("k3", "corr_pair_windows",
+             "spectralae_torch/csrc/corr_windows.cu",
+             "spectralae/ops/pallas_windows.py:125"),
+            ("k4", "anchor_windows", "spectralae_torch/csrc/corr_windows.cu",
+             "spectralae/ops/pallas_windows.py:295")):
+        paths = {path: by_path[path][key] for path in by_path}
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(paths.values()),
+               "launches_by_path": paths, "max_abs_err": errs[key]}
+        if key in step:
+            s = step[key]
+            row.update({
+                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"],
+                "per": "one 256x256 batch-8 train step of the 3-pair net",
+                "launches_per_step": per_step_seen[key],
+                "fwd_ms": s["fwd_ms"], "fwd_plain_ms": s["fwd_plain_ms"],
+                "bwd_ms": s["bwd_ms"], "bwd_plain_ms": s["bwd_plain_ms"]})
+        else:
+            variants = ("xx", "eg") if key == "k3" else ("f32",)
+            rs = [windows[(key, 256, v)] for v in variants]
+            row.update({
+                name_: sum(r[name_] for r in rs)
+                for name_ in ("ms", "plain_ms", "bound_ms")})
+            row["bound_by"] = max(rs, key=lambda r: r["bound_ms"])[
+                "bound_by"]
+            row["library_ms"] = (sum(r["library_ms"] for r in rs)
+                                 if key == "k3" else None)
+            # the windows of 255-scale frames reach ~1e17: the absolute
+            # error is read beside the norm-relative one
+            row["max_norm_rel_err"] = max(
+                r["rel"] for k, r in windows.items() if k[0] == key)
+            row["per"] = (("the two launches of one burst precompute"
+                           if key == "k3" else "one launch (one stream "
+                           "frame)") + " at 256x256 batch-8 frames (pair "
+                          "0's input, 128x128)")
+            row["by_frame_size"] = {
+                str(size): {v: {k: windows[(key, size, v)][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")}
+                            for v in (("xx", "eg") if key == "k3"
+                                      else ("f32", "bf16"))}
+                for size, _ in WINDOW_SIZES}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,21 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-Every ``.cu`` file under ``csrc/`` is compiled by one ``nvcc`` call into a
-shared library with a plain C interface, for ``sm_90a`` (Hopper)::
+Every ``.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process,
+all started together, for ``sm_90a`` (Hopper); one more ``nvcc`` links the
+objects into a shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/spectralae_torch/kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \\
+         -Xcompiler -fPIC -o <name>.o csrc/<name>.cu        # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/spectralae_torch/kernels-<hash>.so *.o
 
 The output lands in ``build/spectralae_torch/`` at the checkout root, named
 by a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
-``cudaGetLastError()`` after its launch, which :func:`check` turns into an
-exception.
+``cudaGetLastError()`` after its launches, which :func:`check` turns into an
+exception (``corr_windows_scratch_floats``, a host-side size query, is the
+one entry point that launches nothing).
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
@@ -31,8 +35,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "spectralae_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,7 +53,16 @@ _SIGNATURES = {
                              _F, _P, _F, _P),
     # xpad, w, out, B, D, Hp, Wp, M, nk, nl, stream
     "conv_valid_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # anchor, B, D, E, nx, nyr, nk2, nl2, vy, same (returns long long)
+    "corr_windows_scratch_floats": (_I,) * 10,
+    # X, Z, consts, out, scratch, B, D, E, nx, nyr, hx, hy, same, stream
+    "corr_pair_windows_launch": (_P,) * 5 + (_I,) * 8 + (_P,),
+    # X, xre, xim, taps, consts, out, scratch, B, D, nx, nyr, nk2, nl2, s1,
+    # bf16, stream
+    "anchor_windows_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
 }
+# entry points that return something other than a cudaError_t
+_RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong}
 
 
 class KernelBuild:
@@ -99,22 +113,48 @@ def build() -> KernelBuild:
         seconds, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+            tag = f"{out.stem}.{os.getpid()}"
+            nvcc = _nvcc()
             t0 = time.perf_counter()
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs = []
+            try:
+                for cmd, proc in procs:
+                    text = proc.communicate()[0]
+                    logs.append(text)
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed ({proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{text}")
+            finally:
+                for _, proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            tmp = out.with_name(f"{tag}.tmp")
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(o) for o in objs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
+            log = "".join(logs) + proc.stdout + proc.stderr
+            for obj in objs:
+                obj.unlink(missing_ok=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{log}")
             os.replace(tmp, out)    # atomic: concurrent builders agree
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _build = KernelBuild(lib, out, seconds, log)
         return _build
 

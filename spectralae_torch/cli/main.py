@@ -1,12 +1,15 @@
 """Command-line interface of the port: info / train / export / serve.
 
-Port of the serving and step-mode training subcommands of
-:mod:`spectralae.cli.main`, with the same flags:
+Port of the serving and training subcommands of :mod:`spectralae.cli.main`,
+with the same flags:
 
   - ``spectralae-torch info``   — print the network structure ('i' key).
-  - ``spectralae-torch train``  — headless batched training, ``--mode
-    step`` (the burst and stream trainers are not ported yet), on a device
-    (``--device``, default ``cuda``), with checkpoints and resume.
+  - ``spectralae-torch train``  — headless training on a device
+    (``--device``, default ``cuda``), with checkpoints and resume:
+    ``--mode step`` (batched autodiff), ``--mode burst`` (per-batch
+    100-iteration FFT bursts) and ``--mode stream`` (K frames × one fused
+    burst each, fft domain).  What still exits, and where ROADMAP.md has
+    it, is listed in ``_TRAIN_NOT_PORTED``.
   - ``spectralae-torch export`` — write a serving artifact (manifest +
     weights) from a checkpoint or a freshly initialised net.
   - ``spectralae-torch serve``  — run inference from an artifact on a
@@ -28,6 +31,7 @@ import math
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -136,12 +140,12 @@ def _ckpt_dispatch(args, path, params, spec, opt, step_n, *, final=False,
 
 # what train flags need that is not ported yet, and where the ROADMAP has it
 _TRAIN_NOT_PORTED = (
-    (lambda a: a.mode != "step",
-     "train --mode {mode}: the burst and stream trainers are not ported yet "
-     "(ROADMAP A5-A7)"),
-    (lambda a: a.bf16,
-     "train --bf16: bf16 operands are not ported yet (ROADMAP queue B, "
-     "'B1 bf16 operands')"),
+    (lambda a: a.mode == "step" and a.bf16,
+     "train --bf16 (step mode): bf16 operands are not ported yet (ROADMAP "
+     "queue B, 'B1 bf16 operands')"),
+    (lambda a: a.mode == "stream" and a.domain == "coord",
+     "train --mode stream --domain coord: coordinate-domain streaming needs "
+     "train/coord.py (ROADMAP A9)"),
     (lambda a: a.pallas_fft,
      "train --pallas-fft: the Pallas four-step rfft2 is not ported yet "
      "(ROADMAP A8 and B5)"),
@@ -167,7 +171,13 @@ def cmd_train(args):
     trace_ctx = (device_trace(args.trace) if args.trace
                  else contextlib.nullcontext())
     with trace_ctx:
-        return _train_steps(args, device)
+        if args.mode == "step":
+            return _train_steps(args, device)
+        # the bursts compute their own gradients: no autograd graph
+        with torch.no_grad():
+            if args.mode == "burst":
+                return _train_bursts(args, device)
+            return _train_stream(args, device)
 
 
 def _train_steps(args, device):
@@ -281,6 +291,275 @@ def _train_steps(args, device):
               flush=True)
 
 
+def _resume_or_net(args, device):
+    """Start params/spec/step for the burst/stream trainers: --resume
+    restores them from a checkpoint (the net structure comes from the
+    checkpoint, not the CLI flags); otherwise a fresh net on ``device``."""
+    from ..core.types import AEParams
+    from ..io import checkpoint as ckpt
+    if args.resume:
+        params, spec, _, extra = ckpt.load(args.resume, device=device)
+        start = int(extra.get("step", 0))
+        _sync_args_to_spec(args, spec)
+        print(f"resumed from {args.resume} at step {start}", flush=True)
+        return params, spec, start
+    params, spec = _make_net(args)
+    return AEParams.from_leaves([t.to(device) for t in params.leaves()]), \
+        spec, 0
+
+
+def _save_params_ckpt(args, params, spec, step_n, final=False):
+    """Burst/stream trainer checkpointing (no optimizer state — burst
+    momentum is per-pair and restarts on resume, as in the JAX package)."""
+    _ckpt_dispatch(args, args.ckpt, params, spec, None, step_n,
+                   final=final)
+    if final:
+        print(f"checkpoint written to {args.ckpt} at step {step_n}",
+              flush=True)
+
+
+def _selected_pairs(args, spec) -> list[int]:
+    if args.train_pair == "all":
+        return list(range(spec.n_pairs))
+    n_l = int(args.train_pair)
+    if not 0 <= n_l < spec.n_pairs:
+        raise SystemExit(f"--train-pair {n_l} out of range "
+                         f"(net has {spec.n_pairs} pairs)")
+    return [n_l]
+
+
+def _mses_host(mses: torch.Tensor) -> np.ndarray:
+    """The MSE trajectories on the host (one device sync)."""
+    return mses.detach().cpu().numpy().astype(np.float64)
+
+
+def _train_bursts(args, device):
+    """Headless reference-style training: per-batch frozen-input FFT bursts
+    with batch-averaged gradients (train/fft_dp).
+
+    The burst's internal model is the pool-free two-stage spectral conv, so
+    — as in the JAX package's ``Engine._train`` and the reference
+    (autoencoder.cpp:158-197) — the selected pair trains on its *pooled*
+    input activation and the pre-unpool decoder output.  On the card the
+    burst is the correlation-space one (``fft_burst_dp(use_pallas=None)``
+    takes it for CUDA tensors) anchored on that explicit output.
+    """
+    from ..core.profiling import MetricsLogger
+    from ..core.types import ConvStage
+    from ..data import pipeline
+    from ..model import autoencoder as model
+    from ..train.fft_dp import fft_burst_dp
+    params, spec, start_step = _resume_or_net(args, device)
+    pairs = _selected_pairs(args, spec)
+    pf = pipeline.DevicePrefetcher(
+        pipeline.synthetic_frames(args.nx, args.ny, seed=args.seed),
+        args.nx, args.ny, batch=args.batch, device=device)
+    metrics = MetricsLogger(args.metrics or None)
+    # zeroed per burst (reference semantics) unless --carry-momentum
+    moms = {n_l: None for n_l in pairs}
+    # failure detection (SURVEY.md §5.3): params/moms last verified finite
+    # at a log step — rolled back to (and saved) on divergence.  Reading
+    # the mses syncs with the device, so the check rides the log cadence
+    good_params, good_moms, good_step = params, dict(moms), start_step
+    last_step = start_step
+    diverged = False
+    try:
+        for step_i, batch in enumerate(pf, start=start_step):
+            if step_i >= args.steps or diverged:
+                break
+            last_step = step_i + 1
+            for n_l in pairs:
+                # refresh activations between pairs — an inner pair's
+                # burst changes every outer pair's target
+                _, layers = model.forward_fft(params, batch, spec.scales,
+                                              return_layers=True)
+                in_b = layers[2 * n_l + 1]
+                out_b = layers[len(layers) - 2 - 2 * n_l]
+                enc, dec = params.pair(n_l)
+                res = fft_burst_dp(in_b, None, out_b, enc.c, dec.c,
+                                   enc.b, dec.b, moms[n_l], lr=args.lr,
+                                   alpha=args.alpha, iters=args.iters,
+                                   maxdiff=args.maxdiff,
+                                   reanchor_every=args.reanchor or None)
+                if args.carry_momentum:
+                    moms[n_l] = res.mom
+                params = params.replace_pair(
+                    n_l, ConvStage(c=res.c, b=res.b),
+                    ConvStage(c=res.f, b=res.p))
+                if step_i % args.log_every == 0:
+                    # the per-inner-iteration MSE trajectory, the
+                    # reference's per-iter "mse" stream
+                    # (fft_backproplib.cu:1463-1464), once per burst
+                    mses = _mses_host(res.mses)
+                    if not np.isfinite(mses).all():
+                        # a non-finite entry poisons this burst's updates
+                        print(json.dumps({"step": step_i, "pair": n_l,
+                                          "error": "non-finite mse",
+                                          "mseN": float(mses[-1])}),
+                              flush=True)
+                        params, moms = good_params, good_moms
+                        last_step = good_step
+                        diverged = True
+                        break
+                    metrics.log(step=step_i, pair=n_l,
+                                mse0=float(mses[0]), mseN=float(mses[-1]),
+                                mses=[float(v) for v in mses])
+            if not diverged and step_i % args.log_every == 0:
+                good_params, good_moms, good_step = (params, dict(moms),
+                                                     last_step)
+            if (args.ckpt and args.ckpt_every > 0 and not diverged and step_i
+                    and step_i % args.ckpt_every == 0):
+                _save_params_ckpt(args, params, spec, last_step)
+    finally:
+        pf.close()
+        metrics.close()
+    if args.ckpt:
+        _save_params_ckpt(args, params, spec, last_step, final=True)
+
+
+def _train_stream(args, device):
+    """Streaming burst training: K frames × one fused burst each
+    (train/streaming.py), the frames buffered ``--stream-k`` at a time.
+
+    Trains the selected stage pair on its pooled input activation —
+    ``forward_fft``'s ``layers[2·n_l+1]``, the same activation burst mode
+    trains on — with the anchor output being the pair's own two-stage
+    forward (the fused re-anchoring each frame, one K4 launch per frame and
+    anchor segment on the card).  Pair 0 with unit pooling scale feeds on
+    the frames directly; every other case computes the activation from the
+    frozen outer encoder stages per frame (``stream_bursts_pair``).
+    ``--train-pair all`` round-robins the pairs one flush block at a time
+    (``--pair-sweep block``) or trains every pair on every frame
+    (``--pair-sweep frame``).  ``--bf16`` streams the precompute's signal
+    spectra bf16 through K4.
+    """
+    from ..core.profiling import MetricsLogger
+    from ..core.types import ConvStage
+    from ..data import pipeline
+    from ..train.streaming import (fft_stream, fft_stream_pair,
+                                   fft_stream_sweep)
+    params, spec, start_step = _resume_or_net(args, device)
+    sweep = args.train_pair == "all"
+    frame_sweep = sweep and args.pair_sweep == "frame"
+    pw = "bf16" if args.bf16 else None
+    if args.pair_sweep == "frame" and not sweep:
+        raise SystemExit("--pair-sweep frame requires --train-pair all "
+                         "(a single selected pair has nothing to sweep)")
+    pairs = _selected_pairs(args, spec)
+    pf = pipeline.DevicePrefetcher(
+        pipeline.synthetic_frames(args.nx, args.ny, seed=args.seed),
+        args.nx, args.ny, batch=args.batch, device=device)
+    metrics = MetricsLogger(args.metrics or None)
+    burst_kw = dict(lr=args.lr, alpha=args.alpha, iters=args.iters,
+                    maxdiff=args.maxdiff,
+                    carry_momentum=args.carry_momentum,
+                    reanchor_every=args.reanchor or None, pallas_windows=pw)
+    # per-pair momentum (zeroed on pair switch unless carried)
+    moms = {n: None for n in pairs}
+    sweep_moms = None   # frame-sweep mode: per-pair tuples, pair order
+    step_i = start_step
+    block_i = 0     # sweep mode round-robins one pair per flush block
+    buf = []
+    # pair 0's input is the SPECTRAL pooling of the frame; feeding frames
+    # directly is exact only at pooling scale 1
+    pool0_direct = (not sweep and pairs[0] == 0
+                    and abs(spec.scales[0]) == 1)
+
+    def bad_frame(mses) -> int | None:
+        """The first frame of a block whose MSEs are not all finite."""
+        ok = np.isfinite(mses).reshape(mses.shape[0], -1).all(axis=1)
+        return None if ok.all() else int(np.argmin(ok))
+
+    def flush_frame_sweep(xs):
+        nonlocal params, sweep_moms, step_i
+        r = fft_stream_sweep(xs, params, spec.scales, moms=sweep_moms,
+                             **burst_kw)
+        mses = _mses_host(r.mses)                 # [K, n_pairs, iters+1]
+        bad = bad_frame(mses)
+        if bad is not None:
+            print(json.dumps({"step": step_i + bad, "pair": "all",
+                              "error": "non-finite mse",
+                              "mseN": float(mses[bad, -1, -1])}),
+                  flush=True)
+            return False
+        params = r.params
+        if args.carry_momentum:
+            sweep_moms = r.moms
+        for k in range(xs.shape[0]):
+            if (step_i + k) % args.log_every == 0:
+                for n_l in pairs:
+                    metrics.log(step=step_i + k, pair=n_l,
+                                mse0=float(mses[k, n_l, 0]),
+                                mseN=float(mses[k, n_l, -1]))
+        step_i += xs.shape[0]
+        return True
+
+    def flush():
+        nonlocal params, step_i, block_i, buf
+        xs = torch.stack(buf)
+        buf = []
+        if frame_sweep:
+            return flush_frame_sweep(xs)
+        n_l = pairs[block_i % len(pairs)]
+        block_i += 1
+        if pool0_direct:
+            enc, dec = params.pair(0)
+            r = fft_stream(xs, enc.c, dec.c, enc.b, dec.b, moms[0],
+                           **burst_kw)
+        else:
+            r = fft_stream_pair(xs, params, spec.scales, n_l,
+                                mom=moms[n_l], **burst_kw)
+        mses = _mses_host(r.mses)                 # [K, iters+1]
+        bad = bad_frame(mses)
+        if bad is not None:
+            # the per-frame MSE trajectories certify the block's updates:
+            # keep the block-start weights, so the final checkpoint stays
+            # finite, and halt
+            print(json.dumps({"step": step_i + bad, "pair": n_l,
+                              "error": "non-finite mse",
+                              "mseN": float(mses[bad, -1])}), flush=True)
+            return False
+        params = params.replace_pair(n_l, ConvStage(c=r.c, b=r.b),
+                                     ConvStage(c=r.f, b=r.p))
+        if args.carry_momentum:
+            moms[n_l] = r.mom
+        for k in range(xs.shape[0]):
+            if (step_i + k) % args.log_every == 0:
+                metrics.log(step=step_i + k, pair=n_l,
+                            mse0=float(mses[k, 0]),
+                            mseN=float(mses[k, -1]))
+        step_i += xs.shape[0]
+        return True
+
+    diverged = False
+    # ckpt_every <= 0 disables mid-run saves (the final save still runs)
+    next_ckpt = (start_step + args.ckpt_every if args.ckpt_every > 0
+                 else float("inf"))
+    try:
+        for batch in pf:
+            if step_i >= args.steps:
+                break
+            buf.append(batch)
+            if len(buf) < args.stream_k and step_i + len(buf) < args.steps:
+                continue
+            if not flush():
+                diverged = True
+                break
+            if args.ckpt and step_i >= next_ckpt:
+                # mid-run checkpoint at block granularity
+                _save_params_ckpt(args, params, spec, step_i)
+                next_ckpt += args.ckpt_every * (
+                    (step_i - next_ckpt) // args.ckpt_every + 1)
+        if buf and not diverged:
+            # a finite source ended mid-block: train on the remainder
+            flush()
+    finally:
+        pf.close()
+        metrics.close()
+    if args.ckpt:
+        _save_params_ckpt(args, params, spec, step_i, final=True)
+
+
 def cmd_export(args):
     """Export a serving artifact from a checkpoint (or a fresh net)."""
     from ..io import checkpoint as ckpt
@@ -385,21 +664,45 @@ def main(argv=None):
                    help="the autodiff domain of the step")
     p.add_argument("--mode", choices=("step", "burst", "stream"),
                    default="step",
-                   help="step: batched autodiff training (burst and stream "
-                        "are not ported yet)")
-    # burst/stream flags: parsed for compatibility with the JAX CLI and,
-    # as there, ignored in step mode
-    p.add_argument("--stream-k", type=int, default=16)
-    p.add_argument("--train-pair", default="0")
-    p.add_argument("--patch-q", type=int, default=1)
+                   help="step: batched autodiff training; burst: the "
+                        "reference's per-batch 100-iteration FFT bursts; "
+                        "stream: K frames x one fused burst each")
+    # burst/stream flags; as in the JAX CLI, step mode ignores them
+    p.add_argument("--stream-k", type=int, default=16,
+                   help="stream mode: frames per flush block")
+    p.add_argument("--train-pair", default="0",
+                   help="burst/stream mode: stage pair to train; 'all' "
+                        "round-robins every pair — per batch in burst "
+                        "mode, per flush block in stream mode; inner pairs' "
+                        "activations come from the frozen outer stages")
+    p.add_argument("--patch-q", type=int, default=1,
+                   help="stream --domain coord (not ported yet, ROADMAP "
+                        "A9)")
     p.add_argument("--pair-sweep", choices=("block", "frame"),
-                   default="block")
-    p.add_argument("--iters", type=int, default=100)
-    p.add_argument("--carry-momentum", action="store_true")
-    p.add_argument("--maxdiff", action="store_true")
-    p.add_argument("--reanchor", type=int, default=0)
+                   default="block",
+                   help="stream mode with --train-pair all: 'block' "
+                        "round-robins one pair per flush block; 'frame' "
+                        "trains every pair on every frame")
+    p.add_argument("--iters", type=int, default=100,
+                   help="burst/stream mode: inner iterations per burst (the "
+                        "reference hard-codes 100, fft_backproplib.cu:1446)")
+    p.add_argument("--carry-momentum", action="store_true",
+                   help="burst/stream mode: carry the burst momentum across "
+                        "bursts instead of zeroing it per burst (the "
+                        "reference zeroes: fft_backproplib.cu:1420-1423)")
+    p.add_argument("--maxdiff", action="store_true",
+                   help="burst/stream mode: multiobjective kernel-diversity "
+                        "objective (the 'm' key; w0=1, w1=10 as "
+                        "fft_backproplib.cu:1252)")
+    p.add_argument("--reanchor", type=int, default=0,
+                   help="burst/stream mode: re-anchor the correlation "
+                        "decomposition every N inner iterations (keeps "
+                        "long bursts float32-accurate; 0 = never)")
     p.add_argument("--bf16", action="store_true",
-                   help="not ported yet (ROADMAP 'B1 bf16 operands')")
+                   help="stream mode: the burst precompute reads the signal "
+                        "spectra as bf16 planes (float32 arithmetic); burst "
+                        "mode ignores it; step mode: not ported yet "
+                        "(ROADMAP 'B1 bf16 operands')")
     p.add_argument("--pallas-fft", action="store_true",
                    help="not ported yet (ROADMAP A8, B5)")
     p.add_argument("--remat", action="store_true",

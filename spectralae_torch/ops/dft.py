@@ -22,10 +22,23 @@ unless ``torch.backends.cuda.matmul.allow_tf32`` is switched on.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """Run float32 matmuls in IEEE float32 (TF32 off) inside the block, and
+    restore the caller's setting after it."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,11 +92,19 @@ def lag_basis(nx: int, ny: int, hx: int, hy: int):
             np.asarray(w[:, None] * np.sin(ay), np.float32))
 
 
-def kernel_spectrum(c: torch.Tensor, nx: int, ny: int) -> torch.Tensor:
+def kernel_spectrum(c: torch.Tensor, nx: int, ny: int,
+                    precision=None) -> torch.Tensor:
     """``rfft2(kernel_pad(c))`` as two per-axis products.
 
     c: ``[..., Nk, Nl]`` real → ``[..., Nx, Ny//2+1]`` complex64.
+    ``precision``: the JAX package's matmul-precision hint (``"high"``,
+    ``"highest"``; the fused corr precompute passes ``"high"``).  Every
+    value runs the products in IEEE float32 with TF32 off, which is at
+    least as exact as any tier the hint names.
     """
+    if precision is not None:
+        with ieee_f32():
+            return kernel_spectrum(c, nx, ny)
     nk, nl = c.shape[-2], c.shape[-1]
     cx, sx, cy, sy, _ = _bases_on(nk, nl, nx, ny, c.device)
     # columns first: T = c · e^{-iθy}   [..., Nk, Nyr]

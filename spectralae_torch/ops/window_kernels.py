@@ -1,0 +1,311 @@
+"""Hand-written CUDA kernels for the burst precompute's lag windows (K3, K4).
+
+Counterpart of :mod:`spectralae.ops.pallas_windows`.  The correlation-space
+burst (:mod:`spectralae_torch.train.fft_corr`) needs only centred lag
+*windows* of the pairwise cross-correlations of a few half-spectra:
+
+    W[d, e, u, v] = mean_b Σ_ω w(ω_y) · conj(X[b,d,ω]) · Z[b,e,ω]
+                                     · cos/sin(2π(u ω_x/nx + v ω_y/ny))
+
+(the separable restricted iDFT of :func:`spectralae_torch.ops.dft.lag_basis`
+— the replacement for the reference's full-grid inverse FFTs around
+``shrink_k``, source/fft_backproplib.cu:535-565, 1219-1226, of which the
+burst only ever reads a (2h+1)² window).
+
+- K3 :func:`corr_pair_windows` fuses the products and the window transform.
+- K4 :func:`anchor_windows` is the whole fused-anchor precompute in one read
+  of the signal spectra: the anchor spectra from the composed taps, the
+  continuum error ``EG = s1·K̂₀X − X``, the XX and EG windows, ``Σw|EG|²``
+  and the DC scalars.  Neither K̂₀ nor EG reaches device memory.
+
+Both live in ``csrc/corr_windows.cu``, whose header note says what bounds
+them and how they are laid out.  Each has a plain PyTorch version here
+(:func:`corr_pair_windows_plain`, :func:`anchor_windows_plain`), which the
+wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
+raise.  :data:`LAUNCHES` counts kernel launches by kernel: one per call of a
+kernel's C entry point, which runs its grids (two for K3, three for K4).
+
+Every product here runs in IEEE float32: the plain versions disable TF32
+around their matmuls, the kernels never use tensor cores.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from . import dft
+from .spectral import _hermitian_weights
+
+#: kernel launches since import (or the last reset), by kernel
+LAUNCHES = {"corr_pair_windows": 0, "anchor_windows": 0}
+
+
+def _window_basis(nx: int, ny: int, hx: int, hy: int):
+    """Host-side lag-window bases (:func:`dft.lag_basis`) packed for the
+    kernels: ``(byc [nyr, vy], bys, bxcT [vx, nx], bxsT)``, numpy float32.
+    The kernels' y-stage contracts ω_y against the Hermitian-weighted
+    ``byc``/``bys``; their x-stage ω_x against ``bxcT``/``bxsT``; the two
+    fold into ``Σ bxc·sr − bxs·si`` (:func:`_combine_windows`)."""
+    bxc, bxs, byc, bys = dft.lag_basis(nx, ny, hx, hy)
+    return byc, bys, np.ascontiguousarray(bxc.T), np.ascontiguousarray(bxs.T)
+
+
+def _combine_windows(sr: torch.Tensor, si: torch.Tensor, bxc: torch.Tensor,
+                     bxs: torch.Tensor) -> torch.Tensor:
+    """x-stage: fold the y-stage sums ``sr, si [planes, nx, vy]`` into the
+    windows ``[planes, vx, vy]``."""
+    return (torch.einsum("pxv,xu->puv", sr, bxc)
+            - torch.einsum("pxv,xu->puv", si, bxs))
+
+
+@functools.lru_cache(maxsize=None)
+def _lag_bases_on(nx: int, ny: int, hx: int, hy: int, device: torch.device):
+    """:func:`dft.lag_basis` as float32 tensors on ``device``, with the
+    stacked y-stage basis ``[[byc bys], [−bys byc]]`` ``[2·nyr, 2·vy]``."""
+    bxc, bxs, byc, bys = dft.lag_basis(nx, ny, hx, hy)
+    ybasis = np.concatenate([np.concatenate([byc, bys], axis=1),
+                             np.concatenate([-bys, byc], axis=1)], axis=0)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in (bxc, bxs, ybasis))
+
+
+@dft.ieee_f32()
+def _corr_windows(prods: torch.Tensor, nx: int, ny: int, hx: int,
+                  hy: int) -> torch.Tensor:
+    """Centred lag windows ``[planes, 2hx+1, 2hy+1]`` of the circular
+    cross-correlations whose half-spectra are ``prods [planes, nx, nyr]``
+    (complex).
+
+    The y-stage runs as ONE stacked real product
+    ``[p·nx, 2·nyr] @ [2·nyr, 2·vy]`` computing [sr si] together; the
+    x-stage output is window-sized.
+    """
+    bxc, bxs, ybasis = _lag_bases_on(nx, ny, hx, hy, prods.device)
+    p = prods.shape[0]
+    vy = 2 * hy + 1
+    ops = torch.cat([prods.real, prods.imag], dim=-1)       # [p, nx, 2nyr]
+    s = (ops.reshape(p * nx, -1) @ ybasis).reshape(p, nx, 2 * vy)
+    return _combine_windows(s[..., :vy], s[..., vy:], bxc, bxs)
+
+
+def _mean_products(X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """``mean_b conj(X[b,d])·Z[b,e]`` as ``[D·E, nx, nyr]`` planes."""
+    prods = torch.mean(X.conj()[:, :, None] * Z[:, None], dim=0)
+    return prods.reshape(-1, X.shape[-2], X.shape[-1])
+
+
+# ------------------------------------------------------------------- K3
+
+def corr_pair_windows_plain(X: torch.Tensor, Z: torch.Tensor, nx: int,
+                            ny: int, hx: int, hy: int) -> torch.Tensor:
+    """Plain version of :func:`corr_pair_windows`: the batch-mean products
+    ``mean_b conj(X)·Z`` followed by :func:`_corr_windows`."""
+    D, E = X.shape[1], Z.shape[1]
+    return _corr_windows(_mean_products(X, Z), nx, ny, hx, hy).reshape(
+        D, E, 2 * hx + 1, 2 * hy + 1)
+
+
+def _check_spectra(name: str, X: torch.Tensor, nx: int, ny: int) -> None:
+    if X.dtype != torch.complex64 or X.dim() != 4:
+        raise TypeError(f"{name}: spectra must be complex64 [B, C, nx, nyr], "
+                        f"got {X.dtype} {tuple(X.shape)}")
+    if X.shape[-2:] != (nx, ny // 2 + 1):
+        raise ValueError(f"{name}: spectra {tuple(X.shape)} do not match "
+                         f"nx={nx}, ny={ny} (nyr={ny // 2 + 1})")
+
+
+@functools.lru_cache(maxsize=None)
+def _consts_on(kind: str, nx: int, ny: int, a: int, b: int,
+               device: torch.device) -> torch.Tensor:
+    """The packed float32 constants of a kernel's entry point (the layout
+    its C signature states), kept on ``device``.  ``pair``: ``a, b`` are
+    the window half-extents; ``anchor``: the composed-tap extents."""
+    if kind == "pair":
+        parts = _window_basis(nx, ny, a, b)
+    else:
+        nk2, nl2 = a, b
+        cx, sx, cy, sy, w = dft._axis_bases(nk2, nl2, nx, ny)
+        parts = ((cx, sx, cy, sy, w)
+                 + _window_basis(nx, ny, nk2 - 1, nl2 - 1)
+                 + _window_basis(nx, ny, nk2 // 2, nl2 // 2))
+    flat = np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
+    with torch.inference_mode(False):
+        return torch.as_tensor(flat, device=device)
+
+
+def _scratch(anchor: bool, B, D, E, nx, nyr, nk2=0, nl2=0, vy=0,
+             same=False, device=None) -> torch.Tensor:
+    n = _kernels.lib().corr_windows_scratch_floats(
+        int(anchor), B, D, E, nx, nyr, nk2, nl2, vy, int(same))
+    if n <= 0:
+        raise ValueError("corr_windows: the shape does not fit the kernel's "
+                         "shared memory")
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def corr_pair_windows(X: torch.Tensor, Z: torch.Tensor, nx: int, ny: int,
+                      hx: int, hy: int) -> torch.Tensor:
+    """Batch-mean centred lag windows of ``conj(X[b,d])·Z[b,e]`` (K3).
+
+    X: ``[B, D, nx, nyr]`` complex64; Z: ``[B, E, nx, nyr]`` complex64 (pass
+    the SAME tensor for the autocorrelation case — the kernel then reads
+    one input and forms the pairs d ≤ e only, mirroring the others as
+    ``W[e,d](l) = W[d,e](−l)``).  Returns ``[D, E, 2hx+1, 2hy+1]`` float32, equal to float32
+    tolerance to::
+
+        _corr_windows(mean_b(conj(X)[:, :, None] * Z[:, None]), ...)
+
+    CPU tensors take :func:`corr_pair_windows_plain`; CUDA tensors launch
+    the kernel.
+    """
+    _check_spectra("corr_pair_windows", X, nx, ny)
+    _check_spectra("corr_pair_windows", Z, nx, ny)
+    if X.shape[0] != Z.shape[0] or X.device != Z.device:
+        raise ValueError(f"X {tuple(X.shape)} on {X.device} and Z "
+                         f"{tuple(Z.shape)} on {Z.device} do not pair")
+    if X.device.type == "cpu":
+        return corr_pair_windows_plain(X, Z, nx, ny, hx, hy)
+    if X.device.type != "cuda":
+        raise ValueError(f"corr_pair_windows runs on cpu or cuda, not "
+                         f"{X.device}")
+    same = Z is X
+    X = X.resolve_conj().contiguous()
+    Z = X if same else Z.resolve_conj().contiguous()
+    B, D, _, nyr = X.shape
+    E = Z.shape[1]
+    vx, vy = 2 * hx + 1, 2 * hy + 1
+    out = torch.empty((D, E, vx, vy), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        scratch = _scratch(False, B, D, E, nx, nyr, vy=vy, same=same,
+                           device=X.device)
+        err = _kernels.lib().corr_pair_windows_launch(
+            X.data_ptr(), Z.data_ptr(),
+            _consts_on("pair", nx, ny, hx, hy, X.device).data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B, D, E, nx, nyr, hx, hy,
+            int(same), torch.cuda.current_stream().cuda_stream)
+    _kernels.check(err, "corr_pair_windows")
+    LAUNCHES["corr_pair_windows"] += 1
+    return out
+
+
+# ------------------------------------------------------------------- K4
+
+def _round_signal(X: torch.Tensor, signal_dtype) -> torch.Tensor:
+    """``X`` with its real and imaginary planes rounded to
+    ``signal_dtype`` and back to float32."""
+    return torch.complex(X.real.to(signal_dtype).float(),
+                         X.imag.to(signal_dtype).float())
+
+
+@dft.ieee_f32()
+def anchor_windows_plain(X: torch.Tensor, K0taps: torch.Tensor, nx: int,
+                         ny: int, hx2: int, hy2: int, s1: float, *,
+                         signal_dtype=None):
+    """Plain version of :func:`anchor_windows`: the XLA branch of the JAX
+    package's fused precompute (fft_corr.py:504-527) with
+    :func:`anchor_windows`'s outputs.  The anchor spectra and the EG planes
+    are materialised at full resolution.
+
+    ``signal_dtype``: round the signal's real and imaginary planes to it
+    first (the bf16 signal route of the kernel).
+    """
+    if signal_dtype is not None:
+        X = _round_signal(X, signal_dtype)
+    D = X.shape[1]
+    hx4, hy4 = 2 * hx2, 2 * hy2
+    K0f = dft.kernel_spectrum(K0taps, nx, ny, precision="high")
+    wv = torch.as_tensor(_hermitian_weights(nx, ny), device=X.device)
+    # the continuum error, bin by bin (the anchoring precision invariant):
+    # an elementwise multiply-reduce over d, no matmul
+    EG = torch.sum(K0f[None] * X[:, None], dim=2) * s1 - X
+    XX = _corr_windows(_mean_products(X, X), nx, ny, hx4, hy4)
+    EGw = _corr_windows(_mean_products(X, EG), nx, ny, hx2, hy2)
+    seg = torch.mean(torch.sum((EG.real ** 2 + EG.imag ** 2) * wv,
+                               dim=(-3, -2, -1)))
+    e0 = torch.mean(EG[:, :, 0, 0].real, dim=0)
+    return (XX.reshape(D, D, 2 * hx4 + 1, 2 * hy4 + 1),
+            EGw.reshape(D, D, 2 * hx2 + 1, 2 * hy2 + 1), seg, e0)
+
+
+def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
+                   hx2: int, hy2: int, s1: float, *, row_slab=None,
+                   signal_dtype=None, mixed: bool = False):
+    """Whole fused-anchor precompute pass in one kernel (K4).
+
+    Given the signal half-spectra ``X [B, D, nx, nyr]`` and the composed
+    anchor taps ``K0taps [D, D, 2hx2+1, 2hy2+1]``, returns
+
+    - ``XX  [D, D, 4hx2+1, 4hy2+1]`` — lag windows of conj(X_d)·X_e,
+    - ``EGw [D, D, 2hx2+1, 2hy2+1]`` — lag windows of conj(X_d)·EG_e,
+    - ``seg`` — mean_b Σ_ω w·|EG|² (summed over channels),
+    - ``e0  [D]`` — mean_b EG[b, :, 0, 0].real,
+
+    where ``EG = s1·K̂₀X − X`` is the continuum anchor error
+    (:func:`spectralae_torch.train.fft_corr.corr_precompute_fused`).
+
+    ``signal_dtype=torch.bfloat16``: the kernel reads the signal's re/im
+    planes rounded to bf16 (half the bytes); every product and sum stays
+    float32, and EG is the exact continuum error of the rounded signal.
+    The kernel splits ω_y into chunks of its own where a row does not fit
+    in its shared memory (the JAX package's ``y_chunk`` VMEM budget has no
+    counterpart here).
+
+    CPU tensors take :func:`anchor_windows_plain`; CUDA tensors launch the
+    kernel.  ``mixed`` (the Pallas FFT's bin order) is ROADMAP A8 and
+    ``row_slab`` (the tensor-parallel partials) ROADMAP A12: both raise.
+    """
+    if mixed:
+        raise NotImplementedError("anchor_windows(mixed=True): the four-step "
+                                  "FFT's mixed bin order is ROADMAP A8 (B5)")
+    if row_slab is not None:
+        raise NotImplementedError("anchor_windows(row_slab=...): the "
+                                  "tensor-parallel partials are ROADMAP A12")
+    _check_spectra("anchor_windows", X, nx, ny)
+    B, D, _, nyr = X.shape
+    nk2, nl2 = K0taps.shape[-2], K0taps.shape[-1]
+    if tuple(K0taps.shape) != (D, D, 2 * hx2 + 1, 2 * hy2 + 1):
+        raise ValueError(
+            f"hx2/hy2 must be the composed-tap half-extents of [D, D] taps: "
+            f"K0taps is {tuple(K0taps.shape)}, D={D}, hx2={hx2}, hy2={hy2}")
+    if signal_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"signal_dtype must be None, float32 or bfloat16, "
+                        f"not {signal_dtype}")
+    if signal_dtype == torch.float32:
+        signal_dtype = None
+    if X.device.type == "cpu":
+        return anchor_windows_plain(X, K0taps, nx, ny, hx2, hy2, s1,
+                                    signal_dtype=signal_dtype)
+    if X.device.type != "cuda":
+        raise ValueError(f"anchor_windows runs on cpu or cuda, not "
+                         f"{X.device}")
+    X = X.resolve_conj().contiguous()
+    taps = K0taps.to(device=X.device, dtype=torch.float32).contiguous()
+    bf16 = signal_dtype is not None
+    if bf16:
+        planes = (X.real.to(torch.bfloat16).contiguous(),
+                  X.imag.to(torch.bfloat16).contiguous())
+        ptrs = (None, planes[0].data_ptr(), planes[1].data_ptr())
+    else:
+        ptrs = (X.data_ptr(), None, None)
+    vx4, vy4, vx2, vy2 = 2 * nk2 - 1, 2 * nl2 - 1, nk2, nl2
+    n_xx, n_eg = D * D * vx4 * vy4, D * D * vx2 * vy2
+    out = torch.empty(n_xx + n_eg + 1 + D, dtype=torch.float32,
+                      device=X.device)
+    with torch.cuda.device(X.device):
+        scratch = _scratch(True, B, D, D, nx, nyr, nk2, nl2, device=X.device)
+        err = _kernels.lib().anchor_windows_launch(
+            *ptrs, taps.data_ptr(),
+            _consts_on("anchor", nx, ny, nk2, nl2, X.device).data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B, D, nx, nyr, nk2, nl2,
+            float(s1), int(bf16),
+            torch.cuda.current_stream().cuda_stream)
+    _kernels.check(err, "anchor_windows")
+    LAUNCHES["anchor_windows"] += 1
+    return (out[:n_xx].reshape(D, D, vx4, vy4),
+            out[n_xx:n_xx + n_eg].reshape(D, D, vx2, vy2),
+            out[n_xx + n_eg], out[n_xx + n_eg + 1:])
