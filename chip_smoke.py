@@ -25,7 +25,18 @@ Phases (any failure raises and exits non-zero):
    bf16 signal) against their plain versions at the burst precompute's
    shapes: pair 0's input of the default net at 128^2 batch 8, 512^2 batch 4
    and 1024^2 batch 1 (256^2, 1024^2 and 2048^2 frames).
-3b. Bursts: host and device time of one fused burst and of one 16-frame
+3b. The four-step rfft2 (B5, ``csrc/rfft2_mixed.cu``) at the same pair-0
+   inputs: the y-leaf, the x-leaf (float32 and bf16 out) and the whole
+   transform against their plain versions on the live lanes, timed beside
+   the plain version, cuFFT and the bound; the natural-order transform
+   against ``torch.fft.rfft2``.  The butterfly rounds and the complex
+   y-leaf (B5c-e) with ``_MAX_M1`` forced to 8, then in the [3, 4096, 4096]
+   transform (one round on each axis) against cuFFT, with its peak memory
+   and each kernel timed.  K4 on the mixed planes (float32 and bf16,
+   gathered to natural order; the gather timed on its own) against its
+   plain version and against K4 on cuFFT's spectra; the fused
+   precompute's "fft" and "fft-bf16" routes against the default one.
+3c. Bursts: host and device time of one fused burst and of one 16-frame
    stream flush at 256^2 batch 8, with the inner iterations per second,
    each beside the same call with the windows on their plain version
    (``pallas_windows=False``); the fused precompute alone, K4 against the
@@ -43,20 +54,24 @@ Phases (any failure raises and exits non-zero):
    the same run on the CPU in parameters, momentum and raw gradient.
 6. Stream and burst training: ``train --mode stream`` through the CLI at
    256^2 batch 8 with a checkpoint and a resume, with ``--bf16``, and with
-   ``--train-pair all --pair-sweep frame``; then ``train --mode burst``.
+   ``--train-pair all --pair-sweep frame``; all of these again with
+   ``--pallas-fft`` (the stream_fft path); then ``train --mode burst``, and
+   ``--mode burst --pallas-fft``, which must exit with its reason.
    The MSE must fall, the resume must go on from the saved weights, K4 must
-   launch exactly once per frame and pair (no anchor window may run its
-   plain version), K1 and K3 exactly as the paths use them; and a 3-frame
-   stream on the card must match the same stream on the CPU in weights,
-   momentum and MSE trajectories at 10 iterations a frame, and within the
-   spread of the training map at 100.
+   launch exactly once per frame and pair (with ``--pallas-fft`` one y-leaf
+   and one x-leaf with it; no kernel may run its plain version on the
+   card), K1 and K3 exactly as the paths use them; and a 3-frame stream on
+   the card must match the same stream on the CPU in weights, momentum and
+   MSE trajectories at 10 iterations a frame (the default route and the
+   "fft" route), and within the spread of the training map at 100.
 
 The line before the last is a JSON object with each kernel's launches on
-every path (serve, train, stream, burst), its largest error, and its time,
-plain time, bound and library time: K1 and K2 per 256^2 batch-8 train step
-(forward and backward; the rows of phase 3 at the shapes of the launches
-one such step made, summed), K3 per precompute of a burst and K4 per launch
-at 256^2 batch-8 frames; the last line is
+every path (serve, train, stream, stream_fft, burst), its largest error,
+and its time, plain time, bound and library time: K1 and K2 per 256^2
+batch-8 train step (forward and backward; the rows of phase 3 at the shapes
+of the launches one such step made, summed), K3 per precompute of a burst,
+K4, B5a and B5b per launch at 256^2 batch-8 frames, B5c-e per launch in the
+4096^2 transform; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -126,6 +141,21 @@ K1_PER_FFT_STEP, K2_PER_COORD_STEP = 17, 2
 STREAM_STEPS, STREAM_RESUME = 32, 16
 # burst precompute shapes: (frame size, batch) -> pair 0's input at half
 WINDOW_SIZES = ((256, 8), (1024, 4), (2048, 1))
+# the four-step rfft2 (B5) against its plain versions: the same float32
+# products summed in another order (at most 2·512 terms a bin)
+TOL_B5 = 1e-5
+# bf16 planes against the plain float32 ones: the 2^-9 storage rounding
+TOL_B5_BF16 = 6e-3
+# the natural-order transform against cuFFT: two float32 DFT algorithms
+TOL_B5_CUFFT = 1e-5
+# K4 and the fused precompute on the four-step spectra against the cuFFT
+# ones: the two transforms' float32 rounding (~1e-6) through the windows;
+# the bf16 planes: the band of tests/test_torch_windows.py
+TOL_FFT_ROUTE, TOL_FFT_ROUTE_BF16 = 1e-4, 2e-2
+# the pallas-fft stream phase: frames of the first run and of the resumed
+STREAM_FFT_STEPS, STREAM_FFT_RESUME = 16, 8
+# the recursion on the card: pair 0's input of 8192^2 frames, batch 1
+RECURSION_N = 4096
 
 
 def check(ok: bool, msg: str) -> None:
@@ -136,21 +166,28 @@ def check(ok: bool, msg: str) -> None:
 def reset_counts() -> None:
     """Set every kernel's launch counter to 0."""
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     sk.LAUNCHES = 0
     ck.LAUNCHES = 0
     wk.LAUNCHES.update(dict.fromkeys(wk.LAUNCHES, 0))
+    fk.LAUNCHES.update(dict.fromkeys(fk.LAUNCHES, 0))
 
 
 def counts() -> dict:
     """Every kernel's launch counter, by kernel key."""
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     return {"k1": sk.LAUNCHES, "k2": ck.LAUNCHES,
             "k3": wk.LAUNCHES["corr_pair_windows"],
-            "k4": wk.LAUNCHES["anchor_windows"]}
+            "k4": wk.LAUNCHES["anchor_windows"],
+            "b5a": fk.LAUNCHES["rfft_y_mixed"],
+            "b5b": fk.LAUNCHES["fft_x_mixed"],
+            "b5c": fk.LAUNCHES["bfly_lanes"],
+            "b5d": fk.LAUNCHES["bfly_rows"], "b5e": fk.LAUNCHES["fft_yc"]}
 
 
 def grown(before: dict) -> dict:
@@ -717,6 +754,326 @@ def phase_windows(gen: torch.Generator) -> tuple[dict, dict]:
     return rows, errs
 
 
+# ------------------------------------------ B5: the four-step rfft2
+
+B5_ROWS = (  # counter key, kernel, the Pallas function it replaces
+    ("b5a", "rfft_y_mixed", "spectralae/ops/pallas_fft.py:461"),
+    ("b5b", "fft_x_mixed", "spectralae/ops/pallas_fft.py:513"),
+    ("b5c", "bfly_lanes", "spectralae/ops/pallas_fft.py:300"),
+    ("b5d", "bfly_rows", "spectralae/ops/pallas_fft.py:352"),
+    ("b5e", "fft_yc", "spectralae/ops/pallas_fft.py:425"))
+
+
+def b5_round_cost(bd: int, a: int, n: int, real: bool):
+    """One butterfly round over ``[bd, a, n]`` (lanes) or ``[bd, n, a]``
+    (rows): the input planes read once (one when real), the four twiddled
+    streams written once (two float32 planes); 12 float32 operations per
+    element, the count of spectralae/core/roofline.py:165-219."""
+    elems = bd * a * n
+    return 12.0 * elems, 4.0 * elems * ((1 if real else 2) + 2)
+
+
+def b5_yleaf_cost(bd: int, r: int, n: int, real: bool):
+    """The y-leaf over ``[bd, r, n]``: 12 real dots ``[r, m1] x [m1, k1p]``
+    per plane for real input (S0, S2 real, S3 = conj S1), 16 for complex;
+    the input read once, the ``[bd, 4, r, k1p]`` re/im planes written
+    once."""
+    from spectralae_torch.ops import fft_kernels as fk
+    m1, k1p = n // 4, fk._k1p(n)
+    return ((12 if real else 16) * 2.0 * bd * r * m1 * k1p,
+            4.0 * bd * r * n * (1 if real else 2) + 8.0 * bd * 4 * r * k1p)
+
+
+def b5_xleaf_cost(bd: int, nx: int, lanes: int, out_bytes: int):
+    """The x-leaf over ``[bd, nx, L]``: 16 real dots ``[m1, m1] x [m1, L]``
+    per plane; the re/im planes read once, the output written once."""
+    m1 = nx // 4
+    return (16 * 2.0 * bd * m1 * m1 * lanes,
+            8.0 * bd * nx * lanes + 2.0 * out_bytes * bd * nx * lanes)
+
+
+def _plain_rfft2_mixed(x: torch.Tensor, out_dtype=None):
+    """The whole transform through the plain versions (one leaf an axis)."""
+    from spectralae_torch.ops import fft_kernels as fk
+    nx, ny = x.shape[-2], x.shape[-1]
+    yr, yi = fk.rfft_y_mixed_plain(x.reshape(-1, nx, ny))
+    k1p = yr.shape[-1]
+    xr, xi = fk.fft_x_mixed_plain(yr.reshape(-1, nx, k1p),
+                                  yi.reshape(-1, nx, k1p), out_dtype)
+    lead = tuple(x.shape[:-2])
+    return tuple(a.reshape(lead + (4, nx, k1p)).movedim(-3, -2)
+                 .reshape(lead + (nx, 4 * k1p)) for a in (xr, xi))
+
+
+def _on_live(planes, live) -> torch.Tensor:
+    """The re/im planes as one float32 vector, the dead lanes zeroed."""
+    return torch.cat([torch.where(live, a.float(), 0.0).reshape(-1)
+                      for a in planes])
+
+
+def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
+    """B5 at the stream's shapes: pair 0's input (D=3) at each of
+    WINDOW_SIZES.  The y-leaf (real input), the x-leaf and the whole
+    transform (float32 and bf16 out) against their plain versions,
+    norm-relative on the live lanes, each timed beside its plain version,
+    its library call (cuFFT: ``torch.fft.rfft`` along lanes, ``fft`` along
+    rows, ``rfft2``) and its bound; the natural-order transform against
+    ``torch.fft.rfft2``.  Returns the rows by (kernel, frame size, variant)
+    and each kernel's largest absolute error."""
+    from spectralae_torch.ops import fft_kernels as fk
+    rows, errs = {}, {"b5a": 0.0, "b5b": 0.0}
+    for frames, batch in WINDOW_SIZES:
+        n = frames // 2
+        tag = f"{n}x{n} b{batch} D=3 ({frames}^2 frames)"
+        x = torch.rand(batch, 3, n, n, device="cuda", generator=gen) * 255
+        xb = x.reshape(-1, n, n)
+        bd, k1p = xb.shape[0], fk._k1p(n)
+        live = torch.as_tensor(fk.perm_y(n) >= 0, device="cuda")
+        live4 = live.reshape(4, 1, k1p)
+        row = measure(
+            f"B5a rfft_y_mixed (y-leaf) {tag}",
+            _on_live(fk._y_leaf(xb, None), live4),
+            _on_live(fk.rfft_y_mixed_plain(xb), live4),
+            lambda: fk._y_leaf(xb, None), lambda: fk.rfft_y_mixed_plain(xb),
+            bound_ms(*b5_yleaf_cost(bd, n, n, True)), TOL_B5,
+            library=lambda: torch.fft.rfft(xb, dim=-1))
+        rows[("b5a", frames, "f32")] = row
+        errs["b5a"] = max(errs["b5a"], row["abs"])
+        yr, yi = (a.reshape(-1, n, k1p) for a in fk._y_leaf(xb, None))
+        yc = torch.complex(yr, yi)
+        for variant, od, tol in (("f32", None, TOL_B5),
+                                 ("bf16", torch.bfloat16, TOL_B5_BF16)):
+            def kern(od=od):
+                return fk.fft_x_mixed(yr, yi, out_dtype=od)
+
+            def plain(od=od):
+                return fk.fft_x_mixed_plain(yr, yi, od)
+
+            def view(planes):
+                return [a.reshape(bd, 4, n, k1p) for a in planes]
+            row = measure(
+                f"B5b fft_x_mixed (x-leaf) {variant} out {tag} "
+                f"{4 * bd} planes x {k1p} lanes",
+                _on_live(view(kern()), live4),
+                _on_live(view(fk.fft_x_mixed_plain(yr, yi)), live4), kern,
+                plain, bound_ms(*b5_xleaf_cost(4 * bd, n, k1p,
+                                               2 if od else 4)), tol,
+                library=lambda: torch.fft.fft(yc, dim=-2))
+            rows[("b5b", frames, variant)] = row
+            errs["b5b"] = max(errs["b5b"], row["abs"])
+            fy, by = b5_yleaf_cost(bd, n, n, True)
+            fx, bx = b5_xleaf_cost(4 * bd, n, k1p, 2 if od else 4)
+
+            def whole(od=od):
+                return fk.rfft2_mixed(x, out_dtype=od)
+            leaves = device_ms(whole, ("dft_leaf_kernel",))
+            row = measure(
+                f"B5 rfft2_mixed (whole transform) {variant} out {tag}",
+                _on_live(whole(), live), _on_live(_plain_rfft2_mixed(x), live),
+                whole, lambda od=od: _plain_rfft2_mixed(x, od),
+                bound_ms(fy + fx, by + bx), tol,
+                library=lambda: torch.fft.rfft2(x),
+                extra=f"; the two leaves {leaves:.4f} ms of it")
+            rows[("rfft2", frames, variant)] = row
+        err = rel_err(fk.rfft2_pallas(x), torch.fft.rfft2(x))
+        print(f"B5 rfft2_pallas {tag} against torch.fft.rfft2: rel "
+              f"{err:.3e} (tol {TOL_B5_CUFFT:g})", flush=True)
+        check(err <= TOL_B5_CUFFT, f"rfft2_pallas {tag}: {err:.3e}")
+    return rows, errs
+
+
+def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
+    """The butterfly rounds and the complex y-leaf (B5c-e), which the
+    transform runs only on an axis longer than 4·_MAX_M1 = 2048.  First at
+    [2, 3, 256, 256] with ``_MAX_M1`` forced to 8 (two rounds on each
+    axis): each kernel against its plain version, the whole transform
+    against the CPU's plain pipeline and cuFFT.  Then [3, 4096, 4096]
+    (pair 0's input of 8192^2 frames) at the real ``_MAX_M1``, one round on
+    each axis: against cuFFT, with its peak memory, and each of its kernels
+    timed at the shapes it ran at.  Returns the rows by kernel, the largest
+    absolute errors and the launches of the 4096^2 transform."""
+    from spectralae_torch.ops import fft_kernels as fk
+    errs = dict.fromkeys(("b5c", "b5d", "b5e"), 0.0)
+
+    def hold(label, key, got, want, tol):
+        err = rel_err(_flat(got), _flat(want))
+        errs[key] = max(errs[key], float((_flat(got) - _flat(want)).abs()
+                                         .max()))
+        print(f"{label}: rel {err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"{label} disagrees: {err:.3e}")
+    real_max = fk._MAX_M1
+    try:
+        fk._MAX_M1 = 8
+        x = torch.rand(2, 3, 256, 256, device="cuda", generator=gen) * 255
+        xb = x.reshape(-1, 256, 256)
+        xi = torch.randn(6, 256, 256, device="cuda", generator=gen) * 50
+        for kind, im in (("real", None), ("complex", xi)):
+            hold(f"B5c bfly_lanes {kind} [6, 256, 256]", "b5c",
+                 fk._bfly_lanes(xb, im, 256),
+                 fk._bfly_lanes_plain(xb, im, 256), TOL_B5)
+        yr, yi = xb.transpose(1, 2).contiguous(), xi.transpose(1, 2)
+        hold("B5d bfly_rows [6, 256, 256]", "b5d",
+             fk._bfly_rows(yr, yi.contiguous(), 256),
+             fk._bfly_rows_plain(yr, yi, 256), TOL_B5)
+        zr, zi = xb.reshape(-1, 256, 32), xi.reshape(-1, 256, 32)
+        hold("B5e fft_yc (complex y-leaf) [48, 256, 32]", "b5e",
+             fk._y_leaf(zr, zi), fk._fft_yc_plain(zr, zi), TOL_B5)
+        live = torch.as_tensor(fk.perm_y(256) >= 0, device="cuda")
+        for od, tol in ((None, TOL_B5), (torch.bfloat16, TOL_B5_BF16)):
+            before = counts()
+            got = fk.rfft2_mixed(x, out_dtype=od)
+            torch.cuda.synchronize()
+            grew = grown(before)
+            want = fk.rfft2_mixed(x.cpu(), out_dtype=od)
+            err = rel_err(_on_live(got, live).cpu(),
+                          _on_live(want, live.cpu()))
+            nat = rel_err(fk.to_natural(got, 256, 256), torch.fft.rfft2(x))
+            print(f"B5 rfft2_mixed [2, 3, 256, 256] at _MAX_M1 = 8, "
+                  f"{'bf16' if od else 'f32'} out: card vs the CPU's plain "
+                  f"pipeline rel {err:.3e} (tol {tol:g}), natural order vs "
+                  f"cuFFT {nat:.3e}; launches {grew}", flush=True)
+            check(err <= tol and nat <= (tol if od else TOL_B5_CUFFT),
+                  "forced recursion disagrees")
+            check(grew["b5c"] == 2 and grew["b5d"] == 2 and grew["b5e"] == 1
+                  and grew["b5b"] == 1 and grew["b5a"] == 0,
+                  f"forced recursion launched {grew}")
+    finally:
+        fk._MAX_M1 = real_max
+
+    n = RECURSION_N
+    tag = f"[3, {n}, {n}] (8192^2 frames' pair-0 input, b1)"
+    x4 = torch.rand(3, n, n, device="cuda", generator=gen) * 255
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = counts()
+    got = fk.rfft2_mixed(x4)
+    torch.cuda.synchronize()
+    launched = grown(before)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    err = rel_err(fk.to_natural(got, n, n), torch.fft.rfft2(x4))
+    del got
+    whole_ms = device_ms(lambda: fk.rfft2_mixed(x4))
+    cufft_ms = device_ms(lambda: torch.fft.rfft2(x4))
+    print(f"B5 rfft2_mixed {tag}: natural order vs cuFFT rel {err:.3e} "
+          f"(tol {TOL_B5_CUFFT:g}); launches {launched}; peak {peak:.1f} MiB "
+          f"above the input; device {whole_ms:.4f} ms, cuFFT "
+          f"{cufft_ms:.4f} ms", flush=True)
+    check(err <= TOL_B5_CUFFT, f"rfft2_mixed {tag}: {err:.3e}")
+    check(launched["b5c"] == 1 and launched["b5d"] == 1
+          and launched["b5e"] == 1 and launched["b5b"] == 1
+          and launched["b5a"] == 0, f"{tag} launched {launched}")
+    rows = {}
+    m = n // 4
+    rows["b5c"] = measure(
+        f"B5c bfly_lanes (real lane round) [3, {n}, {n}]",
+        _flat(fk._bfly_lanes(x4, None, n)),
+        _flat(fk._bfly_lanes_plain(x4, None, n)),
+        lambda: fk._bfly_lanes(x4, None, n),
+        lambda: fk._bfly_lanes_plain(x4, None, n),
+        bound_ms(*b5_round_cost(3, n, n, True)), TOL_B5, library=None)
+    zr, zi = (a.reshape(-1, n, m) for a in fk._bfly_lanes(x4, None, n))
+    zc = torch.complex(zr, zi)
+    live = torch.as_tensor(fk.perm_y(m) >= 0, device="cuda").reshape(
+        4, 1, -1)
+    rows["b5e"] = measure(
+        f"B5e fft_yc (complex y-leaf) [12, {n}, {m}]",
+        _on_live(fk._y_leaf(zr, zi), live),
+        _on_live(fk._fft_yc_plain(zr, zi), live),
+        lambda: fk._y_leaf(zr, zi), lambda: fk._fft_yc_plain(zr, zi),
+        bound_ms(*b5_yleaf_cost(12, n, m, False)), TOL_B5,
+        library=lambda: torch.fft.fft(zc, dim=-1),
+        extra="; library: all m bins of each stream")
+    sr, si = fk._y_leaf(zr, zi)
+    k1p = sr.shape[-1]
+    yr, yi = sr.reshape(-1, n, k1p), si.reshape(-1, n, k1p)
+    del zc, sr, si
+    rows["b5d"] = measure(
+        f"B5d bfly_rows (row round) [{yr.shape[0]}, {n}, {k1p}]",
+        _flat(fk._bfly_rows(yr, yi, n)),
+        _flat(fk._bfly_rows_plain(yr, yi, n)),
+        lambda: fk._bfly_rows(yr, yi, n),
+        lambda: fk._bfly_rows_plain(yr, yi, n),
+        bound_ms(*b5_round_cost(yr.shape[0], k1p, n, False)), TOL_B5,
+        library=None)
+    for key in ("b5c", "b5d", "b5e"):
+        errs[key] = max(errs[key], rows[key]["abs"])
+    return rows, errs, launched
+
+
+def phase_windows_mixed(gen: torch.Generator) -> dict:
+    """K4 on the four-step FFT's mixed planes (float32 and bf16, gathered
+    to natural order first) against its plain version and against K4 on
+    cuFFT's spectra of the same frames, at WINDOW_SIZES, with the gather's
+    own device ms; then the fused precompute through the "fft" and
+    "fft-bf16" routes against the default route: T dicts, host ms (in
+    turns) and device ms.  Returns the rows by (frame size, variant)."""
+    from spectralae_torch.ops import fft_kernels as fk
+    from spectralae_torch.ops import window_kernels as wk
+    from spectralae_torch.train import fft_corr
+    params, _ = _net(256)
+    enc, dec = params.pair(0)
+    w = (enc.c, dec.c, enc.b, dec.b)
+    d, m, nk = 3, 10, 5
+    taps = fft_corr._composed_taps(enc.c, dec.c,
+                                   fft_corr._maps_on(nk, nk, enc.c.device),
+                                   d, m, nk * nk)
+    nk2 = taps.shape[-1]
+    h2, s1 = nk2 // 2, 1.0 / (m * d)
+    rows = {}
+    for frames, batch in WINDOW_SIZES:
+        n = frames // 2
+        tag = f"{n}x{n} b{batch} ({frames}^2 frames)"
+        x = torch.rand(batch, d, n, n, device="cuda", generator=gen) * 255
+        natural = _flat(wk.anchor_windows(torch.fft.rfft2(x), taps, n, n, h2,
+                                          h2, s1))
+        for variant, od, tol in (("f32", None, TOL_FFT_ROUTE),
+                                 ("bf16", torch.bfloat16,
+                                  TOL_FFT_ROUTE_BF16)):
+            planes = fk.rfft2_mixed(x, out_dtype=od)
+
+            def kern(planes=planes):
+                return wk.anchor_windows(planes, taps, n, n, h2, h2, s1,
+                                         mixed=True)
+
+            def plain(planes=planes):
+                return wk.anchor_windows_plain(planes, taps, n, n, h2, h2,
+                                               s1, mixed=True)
+            vs = rel_err(_flat(kern()), natural)
+            gather_ms = device_ms(
+                lambda planes=planes: fk.gather_natural(planes, n, n))
+            rows[(frames, variant)] = measure(
+                f"K4 anchor_windows mixed {variant} planes {tag} D={d} taps "
+                f"{nk2}x{nk2}", _flat(kern()), _flat(plain()), kern, plain,
+                k4_bound(batch, d, n, nk2, od is not None), TOL_WINDOWS,
+                library=None, names=K4_GRIDS,
+                extra=f"; vs K4 on cuFFT's spectra {vs:.3e} (tol {tol:g}); "
+                f"the gather to natural order {gather_ms:.4f} ms")
+            rows[(frames, variant)]["gather_ms"] = gather_ms
+            check(vs <= tol, f"K4 mixed {variant} {tag} vs natural: {vs:.3e}")
+        T = {pw: fft_corr.corr_precompute_fused(x, *w, pallas_windows=pw)
+             for pw in (None, "fft", "fft-bf16")}
+        for pw, tol in (("fft", TOL_FFT_ROUTE),
+                        ("fft-bf16", TOL_FFT_ROUTE_BF16)):
+            worst = max((rel_err(T[pw][k], T[None][k]), k) for k in T[None])
+            check(worst[0] <= tol, f"fused precompute {pw} {tag}: {worst}")
+            print(f"fused precompute {pw!r} {tag} vs the default route: "
+                  f"largest rel {worst[0]:.3e} ({worst[1]}; tol {tol:g})",
+                  flush=True)
+        host = {}
+        for pw in (None, "fft", "fft-bf16", "fft-bf16", "fft", None):
+            host.setdefault(pw, []).append(_host_ms(
+                lambda pw=pw: fft_corr.corr_precompute_fused(
+                    x, *w, pallas_windows=pw), 20))
+        dev = {pw: device_ms(lambda pw=pw: fft_corr.corr_precompute_fused(
+            x, *w, pallas_windows=pw)) for pw in host}
+        print(f"fused precompute {tag}, host / device ms (host: the faster "
+              "of two turns): " + "; ".join(
+                  f"{pw or 'default (cuFFT, K4)'} {min(host[pw]):.4f} / "
+                  f"{dev[pw]:.4f}" for pw in host), flush=True)
+    return rows
+
+
 def _host_ms(fn, reps: int) -> float:
     """Host ms per call of ``fn`` in a synchronised loop, after one call."""
     fn()
@@ -747,9 +1104,11 @@ def _alternate(label: str, calls: dict, rounds: int, reps: int,
 def phase_bursts(gen: torch.Generator) -> None:
     """Where a burst's time goes at 256^2 batch 8 (pair 0's input of the
     default net, 128^2): one fused 100-iteration burst and one 16-frame
-    stream flush through K4 (host, device, busy share, top kernels and host
-    operations); both again in turns with the windows on their plain
-    version (``pallas_windows=False``), and the iteration loop alone; the
+    stream flush through K4, and the flush with ``--pallas-fft``'s route
+    (host, device, busy share, top kernels and host operations); both again
+    in turns with the windows on their plain version
+    (``pallas_windows=False``; the flush with the "fft" route too), and the
+    iteration loop alone; the
     fused precompute alone, K4 against the plain version, at every
     WINDOW_SIZES; and the burst's TF32 guard."""
     from spectralae_torch.train import fft_corr, streaming
@@ -772,12 +1131,16 @@ def phase_bursts(gen: torch.Generator) -> None:
                burst(None), reps=5)
     _breakdown(f"stream flush 16 frames 256x256 b8 pair 0, {iters} "
                "iterations, K4", flush(None), reps=1)
+    _breakdown(f"stream flush 16 frames 256x256 b8 pair 0, {iters} "
+               "iterations, --pallas-fft (B5 and K4 in mixed order)",
+               flush("fft"), reps=1)
     # host time varies by tens of percent between calls on this machine:
     # compare the routes only in turns
     _alternate(f"fused burst {iters} iterations", {
         "K4": burst(None), "plain windows": burst(False)}, 4, 5, iters)
     _alternate(f"stream flush 16 frames x {iters} iterations", {
-        "K4": flush(None), "plain windows": flush(False)}, 2, 1, 16 * iters)
+        "K4": flush(None), "plain windows": flush(False),
+        "--pallas-fft": flush("fft")}, 2, 1, 16 * iters)
     T = fft_corr.corr_precompute_fused(x, *w)
     _alternate(f"iteration loop alone ({iters} iterations)", {
         "corr_iterate": lambda: fft_corr.corr_iterate(
@@ -813,39 +1176,72 @@ def phase_bursts(gen: torch.Generator) -> None:
           flush=True)
 
 
-def phase_stream_training(tmp: Path) -> tuple[dict, dict]:
-    """``train --mode stream`` and ``--mode burst`` through the CLI on the
-    card (see the module docstring).  Returns the launches of each path."""
+def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
+    """``train --mode stream`` (with and without ``--pallas-fft``) and
+    ``--mode burst`` through the CLI on the card (see the module
+    docstring).  Returns the launches of the stream, stream_fft and burst
+    paths."""
     from spectralae_torch.io import checkpoint as ckpt
+    from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import window_kernels as wk
     from spectralae_torch.train import fft_corr
     fallbacks = []
-    real_plain = wk.anchor_windows_plain
+    # no plain version of a kernel may run on the card
+    plains = {(wk, "anchor_windows_plain"): wk.anchor_windows_plain,
+              (fft_corr, "anchor_windows_plain"): wk.anchor_windows_plain}
+    for name in ("rfft_y_mixed_plain", "fft_x_mixed_plain", "_fft_yc_plain",
+                 "_bfly_lanes_plain", "_bfly_rows_plain"):
+        plains[(fk, name)] = getattr(fk, name)
 
-    def guard(X, *a, **kw):
-        if X.is_cuda:
-            fallbacks.append(tuple(X.shape))
-        return real_plain(X, *a, **kw)
+    def guarded(name, real):
+        def guard(X, *a, **kw):
+            t = X[0] if isinstance(X, (tuple, list)) else X
+            if t.is_cuda:
+                fallbacks.append((name, tuple(t.shape)))
+            return real(X, *a, **kw)
+        return guard
     common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
               "--seed", "0", "--log-every", "1"]
     stream = common + ["--mode", "stream", "--stream-k", "16"]
-    ck_dir = tmp / "stream"
+    fft = stream + ["--pallas-fft"]
+    ck_dir, ck_fft = tmp / "stream", tmp / "stream_fft"
     resume = STREAM_STEPS + STREAM_RESUME
-    runs = (  # label, argv, first step, frames, launches per frame
+    fft_resume = STREAM_FFT_STEPS + STREAM_FFT_RESUME
+    one_fft = {"k4": 1, "b5a": 1, "b5b": 1}
+    # label, argv, first step, frames, launches per frame, what to check:
+    # "first" (the mse falls, the checkpoint holds the last step),
+    # "resumed" (starts far below its first run), "falls"
+    stream_runs = (
         ("stream", stream + ["--steps", str(STREAM_STEPS), "--ckpt",
-                             str(ck_dir)], 0, STREAM_STEPS, {"k4": 1}),
+                             str(ck_dir)], 0, STREAM_STEPS, {"k4": 1},
+         "first"),
         ("stream resumed", stream + ["--steps", str(resume), "--resume",
                                      str(ck_dir), "--ckpt", str(ck_dir)],
-         STREAM_STEPS, STREAM_RESUME, {"k4": 1}),
+         STREAM_STEPS, STREAM_RESUME, {"k4": 1}, "resumed"),
         ("stream --bf16", stream + ["--steps", "16", "--bf16"], 0, 16,
-         {"k4": 1}),
+         {"k4": 1}, "falls"),
         ("stream --train-pair all --pair-sweep frame",
          stream + ["--steps", "4", "--stream-k", "4", "--train-pair", "all",
-                   "--pair-sweep", "frame"], 0, 4, {"k4": 3, "k1": 3}))
-    wk.anchor_windows_plain = fft_corr.anchor_windows_plain = guard
-    try:
+                   "--pair-sweep", "frame"], 0, 4, {"k4": 3, "k1": 3}, None))
+    fft_runs = (
+        ("stream --pallas-fft", fft + ["--steps", str(STREAM_FFT_STEPS),
+                                       "--ckpt", str(ck_fft)], 0,
+         STREAM_FFT_STEPS, one_fft, "first"),
+        ("stream --pallas-fft resumed",
+         fft + ["--steps", str(fft_resume), "--resume", str(ck_fft),
+                "--ckpt", str(ck_fft)], STREAM_FFT_STEPS, STREAM_FFT_RESUME,
+         one_fft, "resumed"),
+        ("stream --pallas-fft --bf16", fft + ["--steps", "16", "--bf16"], 0,
+         16, one_fft, "falls"),
+        ("stream --pallas-fft --train-pair all --pair-sweep frame",
+         fft + ["--steps", "4", "--stream-k", "4", "--train-pair", "all",
+                "--pair-sweep", "frame"], 0, 4,
+         {k: 3 for k in ("k4", "k1", "b5a", "b5b")}, None))
+
+    def drive(runs) -> dict:
         reset_counts()
-        for label, argv, first, frames, per_frame in runs:
+        loss0 = None
+        for label, argv, first, frames, per_frame, kind in runs:
             before = counts()
             t0 = time.perf_counter()
             recs = _cli_records(argv)
@@ -865,25 +1261,31 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict]:
                   f"{mse0[-1]:.6g}; launches {got}; {wall:.2f} s CLI wall, "
                   f"{100 * got['k4'] / wall:.0f} inner iterations/s",
                   flush=True)
-            if label == "stream":
-                loss0 = mse0[0]
+            if kind in ("first", "falls"):
                 check(mse0[-1] < mse0[0], f"{label}: the mse did not fall")
-                check(ckpt.load(ck_dir)[3]["step"] == STREAM_STEPS,
+            if kind == "first":
+                loss0 = mse0[0]
+                ck = Path(argv[argv.index("--ckpt") + 1])
+                check(ckpt.load(ck)[3]["step"] == first + frames,
                       f"{label}: checkpoint step")
-            elif label == "stream resumed":
+            elif kind == "resumed":
                 check(mse0[0] < 0.1 * loss0,
                       f"{label}: first entry mse {mse0[0]:.6g} is not far "
                       f"below the first run's {loss0:.6g}")
-            elif label == "stream --bf16":
-                check(mse0[-1] < mse0[0], f"{label}: the mse did not fall")
-        stream_launches = counts()
-        check(not fallbacks, f"anchor windows ran their plain version on "
-              f"the card for {fallbacks}")
+        return counts()
+
+    for (mod, name), real in plains.items():
+        setattr(mod, name, guarded(name, real))
+    try:
+        stream_launches = drive(stream_runs)
+        fft_launches = drive(fft_runs)
+        check(not fallbacks, f"plain versions ran on the card: {fallbacks}")
         reset_counts()
         before = counts()
         recs = _cli_records(common + ["--mode", "burst", "--steps", "3"])
         got = grown(before)
-        want = {"k1": 18, "k2": 0, "k3": 6, "k4": 0}
+        want = dict.fromkeys(got, 0)
+        want.update(k1=18, k3=6)
         check(got == want, f"burst: launches {got}, expected {want}")
         check([r["step"] for r in recs] == [0, 1, 2]
               and all(math.isfinite(r["mseN"]) for r in recs)
@@ -893,9 +1295,22 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict]:
               f"{recs[0]['mse0']:.6g} -> {recs[-1]['mse0']:.6g}; launches "
               f"{got} (K1 6 per step through forward_fft, K3 2 per burst "
               "precompute)", flush=True)
-        return stream_launches, counts()
+        burst_launches = counts()
+        try:
+            _cli_records(common + ["--mode", "burst", "--steps", "1",
+                                   "--pallas-fft"])
+            refused = None
+        except SystemExit as exc:
+            refused = exc.code
+        check(isinstance(refused, str) and "burst mode anchors" in refused,
+              f"train --mode burst --pallas-fft did not exit with its "
+              f"reason: {refused!r}")
+        print(f"train --mode burst --pallas-fft exits non-zero: {refused}",
+              flush=True)
+        return stream_launches, fft_launches, burst_launches
     finally:
-        wk.anchor_windows_plain = fft_corr.anchor_windows_plain = real_plain
+        for (mod, name), real in plains.items():
+            setattr(mod, name, real)
 
 
 def phase_stream_vs_cpu() -> None:
@@ -914,9 +1329,9 @@ def phase_stream_vs_cpu() -> None:
     on = {dev: AEParams.from_leaves([t.to(dev) for t in params.leaves()])
           for dev in ("cuda", "cpu")}
 
-    def run(dev, iters, frames=xs):
+    def run(dev, iters, frames=xs, pw=None):
         r = stream_bursts_pair(frames.to(dev), on[dev], spec.scales, 0,
-                               iters=iters)
+                               iters=iters, pallas_windows=pw)
         return r._replace(c=r.c.cpu(), f=r.f.cpu(), b=r.b.cpu(),
                           p=r.p.cpu(), mses=r.mses.cpu(),
                           mom=tuple(m.cpu() for m in r.mom))
@@ -926,17 +1341,24 @@ def phase_stream_vs_cpu() -> None:
 
     def last_ratio(r, ref):
         return (r.mses[:, -1].double() / ref.mses[:, -1].double()).tolist()
-    a, b = run("cuda", STREAM_CMP_ITERS), run("cpu", STREAM_CMP_ITERS)
-    errs = {"weights": (rel_err(weights(a), weights(b)), TOL_STREAM_W),
-            "momentum": (rel_err(_flat(a.mom), _flat(b.mom)),
-                         TOL_STREAM_MOM),
-            "mses": (float(((a.mses.double() - b.mses.double()).abs()
-                            / b.mses.double().abs()).max()), TOL_STREAM_MSE)}
-    print(f"stream 3 frames x {STREAM_CMP_ITERS} iterations, 256x256 b8 pair "
-          "0, card vs CPU port: " + ", ".join(f"{k} {e:.3e} (tol {t:g})"
-                               for k, (e, t) in errs.items()), flush=True)
-    for k, (e, t) in errs.items():
-        check(e <= t, f"stream card vs CPU: {k} {e:.3e} > {t:g}")
+    # the default route (cuFFT and K4) and the --pallas-fft one (the
+    # four-step rfft2's kernels and K4 in mixed order; on the CPU their
+    # plain versions)
+    for pw in (None, "fft"):
+        a = run("cuda", STREAM_CMP_ITERS, pw=pw)
+        b = run("cpu", STREAM_CMP_ITERS, pw=pw)
+        errs = {"weights": (rel_err(weights(a), weights(b)), TOL_STREAM_W),
+                "momentum": (rel_err(_flat(a.mom), _flat(b.mom)),
+                             TOL_STREAM_MOM),
+                "mses": (float(((a.mses.double() - b.mses.double()).abs()
+                                / b.mses.double().abs()).max()),
+                         TOL_STREAM_MSE)}
+        print(f"stream 3 frames x {STREAM_CMP_ITERS} iterations, 256x256 b8 "
+              f"pair 0, pallas_windows={pw!r}, card vs CPU port: "
+              + ", ".join(f"{k} {e:.3e} (tol {t:g})"
+                          for k, (e, t) in errs.items()), flush=True)
+        for k, (e, t) in errs.items():
+            check(e <= t, f"stream {pw!r} card vs CPU: {k} {e:.3e} > {t:g}")
     a, b = run("cuda", STREAM_LONG_ITERS), run("cpu", STREAM_LONG_ITERS)
     moved = run("cpu", STREAM_LONG_ITERS, xs * (1 + 1e-7))
     w_err = rel_err(weights(a), weights(b))
@@ -1152,13 +1574,18 @@ def main() -> int:
           f"{spills} bytes of spill stores", flush=True)
 
     # 3. kernels against their plain versions; forwards and train steps;
-    # 3b. the window kernels and the bursts
+    # 3b. the window kernels, the four-step rfft2; 3c. the bursts
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed, errs = phase_kernels(gen)
     phase_forward()
     step = per_step(timed, phase_train_step())
     windows, werrs = phase_windows(gen)
     errs.update(werrs)
+    fft_rows, ferrs = phase_fft(gen)
+    rec_rows, rerrs, rec_launched = phase_fft_recursion(gen)
+    errs.update(ferrs, **rerrs)
+    mixed = phase_windows_mixed(gen)
+    errs["k4"] = max(errs["k4"], *(r["abs"] for r in mixed.values()))
     phase_bursts(gen)
 
     # 4. the serving path; 5. the training path; 6. stream and burst
@@ -1167,13 +1594,15 @@ def main() -> int:
         by_path = {"serve": phase_serving(tmp)}
         by_path["train"], per_step_seen = phase_training(tmp)
         phase_train_vs_cpu(tmp)
-        by_path["stream"], by_path["burst"] = phase_stream_training(tmp)
+        (by_path["stream"], by_path["stream_fft"],
+         by_path["burst"]) = phase_stream_training(tmp)
         phase_stream_vs_cpu()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # every kernel that a path runs was launched in that path's run
     uses = {"serve": ("k1", "k2"), "train": ("k1", "k2"),
-            "stream": ("k1", "k4"), "burst": ("k1", "k3")}
+            "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
+            "burst": ("k1", "k3")}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
               f"launches on the {path} path: {by_path[path]}")
@@ -1228,6 +1657,52 @@ def main() -> int:
                             for v in (("xx", "eg") if key == "k3"
                                       else ("f32", "bf16"))}
                 for size, _ in WINDOW_SIZES}
+            if key == "k4":
+                # on the four-step FFT's mixed planes (the stream_fft path)
+                for size, _ in WINDOW_SIZES:
+                    row["by_frame_size"][str(size)].update({
+                        f"mixed_{v}": {k: mixed[(size, v)][k]
+                                       for k in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms",
+                                                 "gather_ms")}
+                        for v in ("f32", "bf16")})
+        kernels.append(row)
+    timing = ("ms", "plain_ms", "bound_ms", "library_ms")
+    for key, name, replaces in B5_ROWS:
+        paths = {path: by_path[path][key] for path in by_path}
+        row = {"name": name, "route": "cuda",
+               "source": "spectralae_torch/csrc/rfft2_mixed.cu",
+               "replaces": replaces, "launches": sum(paths.values()),
+               "launches_by_path": paths, "max_abs_err": errs[key]}
+        if key in ("b5a", "b5b"):
+            r = fft_rows[(key, 256, "f32")]
+            row.update({k: r[k] for k in timing + ("bound_by",)})
+            # bf16 out is held against the plain float32 planes: its
+            # absolute error is the storage rounding of ~1e7-scale bins
+            row["max_norm_rel_err_f32"] = max(
+                v["rel"] for k, v in fft_rows.items()
+                if k[0] == key and k[2] == "f32")
+            row["per"] = ("one launch (one stream frame) at 256x256 batch-8 "
+                          "frames (pair 0's 128x128 input, D=3)")
+            row["by_frame_size"] = {
+                str(size): {v: {k: fft_rows[(key, size, v)][k]
+                                for k in timing}
+                            for v in (("f32", "bf16") if key == "b5b"
+                                      else ("f32",))}
+                for size, _ in WINDOW_SIZES}
+            if key == "b5b":
+                row["transform_by_frame_size"] = {
+                    str(size): {v: {k: fft_rows[("rfft2", size, v)][k]
+                                    for k in timing}
+                                for v in ("f32", "bf16")}
+                    for size, _ in WINDOW_SIZES}
+        else:
+            r = rec_rows[key]
+            row.update({k: r[k] for k in timing + ("bound_by",)})
+            row["per"] = (f"one launch in the [3, {RECURSION_N}, "
+                          f"{RECURSION_N}] transform (8192^2 frames' pair-0 "
+                          "input); the main path at 256^2 runs none")
+            row["launches_recursion_run"] = rec_launched[key]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

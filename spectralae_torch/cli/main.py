@@ -146,9 +146,6 @@ _TRAIN_NOT_PORTED = (
     (lambda a: a.mode == "stream" and a.domain == "coord",
      "train --mode stream --domain coord: coordinate-domain streaming needs "
      "train/coord.py (ROADMAP A9)"),
-    (lambda a: a.pallas_fft,
-     "train --pallas-fft: the Pallas four-step rfft2 is not ported yet "
-     "(ROADMAP A8 and B5)"),
     (lambda a: a.source != "synthetic",
      "train --source {source}: only 'synthetic' is ported yet (file and "
      "camera sources: ROADMAP A13)"),
@@ -349,6 +346,11 @@ def _train_bursts(args, device):
     from ..data import pipeline
     from ..model import autoencoder as model
     from ..train.fft_dp import fft_burst_dp
+    if args.pallas_fft:
+        raise SystemExit("--pallas-fft applies to --mode stream (the "
+                         "fused-anchor precompute); burst mode anchors "
+                         "on an explicit out0, where the signal-spectrum "
+                         "routing does not exist")
     params, spec, start_step = _resume_or_net(args, device)
     pairs = _selected_pairs(args, spec)
     pf = pipeline.DevicePrefetcher(
@@ -431,7 +433,9 @@ def _train_stream(args, device):
     ``--train-pair all`` round-robins the pairs one flush block at a time
     (``--pair-sweep block``) or trains every pair on every frame
     (``--pair-sweep frame``).  ``--bf16`` streams the precompute's signal
-    spectra bf16 through K4.
+    spectra bf16 through K4.  ``--pallas-fft`` takes them from the
+    four-step rfft2's kernels in mixed bin order (``"fft"``; with
+    ``--bf16``, ``"fft-bf16"``: the planes stored bf16).
     """
     from ..core.profiling import MetricsLogger
     from ..core.types import ConvStage
@@ -441,7 +445,10 @@ def _train_stream(args, device):
     params, spec, start_step = _resume_or_net(args, device)
     sweep = args.train_pair == "all"
     frame_sweep = sweep and args.pair_sweep == "frame"
-    pw = "bf16" if args.bf16 else None
+    if args.pallas_fft:
+        pw = "fft-bf16" if args.bf16 else "fft"
+    else:
+        pw = "bf16" if args.bf16 else None
     if args.pair_sweep == "frame" and not sweep:
         raise SystemExit("--pair-sweep frame requires --train-pair all "
                          "(a single selected pair has nothing to sweep)")
@@ -704,7 +711,11 @@ def main(argv=None):
                         "mode ignores it; step mode: not ported yet "
                         "(ROADMAP 'B1 bf16 operands')")
     p.add_argument("--pallas-fft", action="store_true",
-                   help="not ported yet (ROADMAP A8, B5)")
+                   help="stream mode, fft domain: compute the signal "
+                        "spectra with the radix-4 four-step rfft2 "
+                        "(ops/fft_kernels.py) instead of cuFFT; with "
+                        "--bf16 the planes stream bf16 straight from the "
+                        "FFT kernel; burst mode refuses it")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize per-stage blocks in the backward "
                         "(trades recompute for activation memory at "

@@ -1,0 +1,494 @@
+"""Hand-written CUDA kernels for the radix-4 four-step rfft2 (B5).
+
+Counterpart of :mod:`spectralae.ops.pallas_fft`.  The stream trainer's
+fused precompute (``pallas_windows="fft"|"fft-bf16"``) takes the signal
+half-spectra from these kernels instead of cuFFT, in the kernels' own
+"mixed" bin order, and gathers them to natural order for the anchor kernel
+K4 (:func:`gather_natural`).
+
+Factorization (both axes, fixed split radix 4, decimation in frequency)::
+
+    n = 4·M1,   j = j2·M1 + j1   (j2 ∈ [0,4) selects a contiguous block)
+    ω = 4·k1 + k2
+
+    X[4k1+k2] = Σ_{j1} W_{M1}^{j1 k1} · W_n^{j1 k2} · S[k2][j1]
+    S[k2]     = Σ_{j2} W_4^{j2 k2} · x[j2·M1 + j1]     (radix-4 butterfly)
+
+ω = 4·k1 + k2 lands at block k2, position k1: :func:`perm_x` and
+:func:`perm_y` give the bin of every mixed row and lane;
+:func:`gather_natural` and :func:`rfft2_pallas` bring the output to
+natural order.  The y-stage
+emits ω_y ≤ ny/2 only (k1 < k1p columns per block).  An axis longer than
+``4·_MAX_M1`` peels wrapper-level butterfly rounds until the leaf fits
+(ω = k2 + 4·ω′ per round).
+
+Three kernels in ``csrc/rfft2_mixed.cu`` carry the five Pallas bodies: the
+leaf contraction (real and complex y-leaf, the x-leaf) and one butterfly
+round along lanes or rows.  Each has a plain PyTorch version here
+(:func:`rfft_y_mixed_plain`, :func:`_fft_yc_plain`,
+:func:`fft_x_mixed_plain`, :func:`_bfly_lanes_plain`,
+:func:`_bfly_rows_plain`): the same butterfly, twiddle and matmul against
+the same bases, so even the lanes past Nyquist that some radix blocks carry
+hold the kernel's values.  The wrappers run the plain version for CPU
+tensors; for CUDA tensors they launch the kernel or raise.
+:data:`LAUNCHES` counts launches by kernel.
+
+``precision`` accepts the JAX tiers ``"default"``, ``"high"``,
+``"highest"`` (or None) and changes nothing: every product runs as an
+IEEE float32 FMA on CUDA cores, at least as exact as each tier, and TF32
+is never used.  The JAX
+package's bf16-operand DEFAULT tier and its manual bf16×3 HIGH split exist
+to feed the TPU's matrix unit: they come back when the DFT contractions
+move onto tensor cores.  ``out_dtype=torch.bfloat16`` rounds the stored
+planes, as the JAX kernel's store does.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from . import dft
+
+#: kernel launches since import (or the last reset), by kernel
+LAUNCHES = {"rfft_y_mixed": 0, "fft_x_mixed": 0, "bfly_lanes": 0,
+            "bfly_rows": 0, "fft_yc": 0}
+
+_LANE = 128
+
+# largest leaf contraction length n/4; longer axes peel butterfly rounds
+# (one extra pass over the planes each).  The tests shrink it to force the
+# recursion at small sizes.
+_MAX_M1 = 512
+
+_PRECISIONS = (None, "default", "high", "highest")
+
+
+def _k1p(ny: int) -> int:
+    """Padded per-block k1 width of the y-stage: K1 = ny//8 + 1 columns
+    (ω = 4·k1 ≤ ny/2 incl. Nyquist), padded to a lane-friendly width."""
+    k1 = ny // 8 + 1
+    pad = _LANE // 4 if ny % (2 * _LANE) == 0 else 8
+    return -(-k1 // pad) * pad
+
+
+def ny_padded(ny: int) -> int:
+    """Total mixed-order lane count of the rfft2 output (≥ ny//2+1)."""
+    return len(perm_y(ny))
+
+
+def perm_y(ny: int) -> np.ndarray:
+    """ωy of each mixed-order lane; −1 marks a lane that holds no needed
+    bin (give it zero weight and basis downstream).  Recursive over the
+    wrapper's butterfly rounds: a peeled round contributes the least
+    significant base-4 digit, ω = k2 + 4·ω′."""
+    if ny // 4 > _MAX_M1:
+        sub = perm_y(ny // 4)
+        parts = []
+        for k2 in range(4):
+            w = np.where(sub >= 0, k2 + 4 * sub, -1)
+            parts.append(np.where((w >= 0) & (w <= ny // 2), w, -1))
+        return np.concatenate(parts)
+    k1p = _k1p(ny)
+    out = np.full(4 * k1p, -1, np.int64)
+    for k2 in range(4):
+        for k1 in range(k1p):
+            w = 4 * k1 + k2
+            if w <= ny // 2:
+                out[k2 * k1p + k1] = w
+    return out
+
+
+def perm_x(nx: int) -> np.ndarray:
+    """ωx of each mixed-order row: row k2·M1 + k1 holds ωx = 4·k1 + k2
+    (recursively, ω = k2 + 4·ω′ per peeled butterfly round)."""
+    if nx // 4 > _MAX_M1:
+        sub = perm_x(nx // 4)
+        return np.concatenate([k2 + 4 * sub for k2 in range(4)])
+    m1 = nx // 4
+    return np.concatenate([4 * np.arange(m1) + k2 for k2 in range(4)])
+
+
+@functools.lru_cache(maxsize=None)
+def _y_bases_np(ny: int):
+    """y-leaf bases ``bc, bs [m1, k1p]`` and twiddles ``twc, tws [4, m1]``."""
+    m1 = ny // 4
+    k1p = _k1p(ny)
+    j1 = np.arange(m1)[:, None]
+    k1 = np.arange(k1p)[None, :]
+    th = 2 * np.pi * (j1 * k1) / m1
+    # columns that are padding for EVERY k2 (4·k1 > ny/2 already at k2=0)
+    # emit exact zeros; columns valid for some-but-not-all k2 emit
+    # beyond-Nyquist bins there — perm_y marks them −1
+    dead = 4 * k1 > ny // 2
+    bc = np.where(dead, 0.0, np.cos(th)).astype(np.float32)
+    bs = np.where(dead, 0.0, np.sin(th)).astype(np.float32)
+    a = 2 * np.pi * np.arange(4)[:, None] * np.arange(m1)[None, :] / ny
+    return bc, bs, np.cos(a).astype(np.float32), np.sin(a).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _x_bases_np(nx: int):
+    """x-leaf bases ``bc, bs [k1, j1]`` (symmetric) and twiddles
+    ``twc, tws [4, m1, 1]``."""
+    m1 = nx // 4
+    th = 2 * np.pi * np.outer(np.arange(m1), np.arange(m1)) / m1  # [k1,j1]
+    a = 2 * np.pi * np.arange(4)[:, None] * np.arange(m1)[None, :] / nx
+    return (np.cos(th).astype(np.float32), np.sin(th).astype(np.float32),
+            np.cos(a).astype(np.float32)[:, :, None],
+            np.sin(a).astype(np.float32)[:, :, None])
+
+
+@functools.lru_cache(maxsize=None)
+def _bfly_tw_np(n: int):
+    """Butterfly round twiddles W_n^{j·k2}, j < n/4: (cos, sin) [4, m]."""
+    m = n // 4
+    a = 2 * np.pi * np.arange(4)[:, None] * np.arange(m)[None, :] / n
+    return np.cos(a).astype(np.float32), np.sin(a).astype(np.float32)
+
+
+def natural_gathers(nx: int, ny: int):
+    """(row_of [nx], lane_of [nyr]) index maps from natural (ωx, ωy) to
+    mixed-order positions — ``X_nat = X_mixed[row_of][:, lane_of]``."""
+    py = perm_y(ny)
+    lane_of = np.zeros(ny // 2 + 1, np.int64)
+    lane_of[py[py >= 0]] = np.nonzero(py >= 0)[0]
+    row_of = np.zeros(nx, np.int64)
+    row_of[perm_x(nx)] = np.arange(nx)
+    return row_of, lane_of
+
+
+# ------------------------------------------------------- plain versions
+
+def _bfly_twiddle(qr, qi, twc, tws):
+    """One DIF radix-4 round on the four quarters ``qr``/``qi`` (``qi``
+    None: real input): the butterfly, then the twiddle ``W_n^{j·k2}``
+    (``twc[k2]``, ``tws[k2]`` shaped to broadcast).  Returns the four
+    twiddled streams as (re, im) pairs, k2 order."""
+    if qi is None:
+        # real input: S0 and S2 are real, S3 = conj(S1)
+        e, o = qr[0] + qr[2], qr[1] + qr[3]
+        dr, di = qr[0] - qr[2], qr[3] - qr[1]
+        z = torch.zeros_like(e)
+        S = [(e + o, z), (dr, di), (e - o, z), (dr, -di)]
+    else:
+        e_r, e_i = qr[0] + qr[2], qi[0] + qi[2]
+        o_r, o_i = qr[1] + qr[3], qi[1] + qi[3]
+        d_r, d_i = qr[0] - qr[2], qi[0] - qi[2]
+        f_r, f_i = qr[1] - qr[3], qi[1] - qi[3]
+        S = [(e_r + o_r, e_i + o_i), (d_r + f_i, d_i - f_r),
+             (e_r - o_r, e_i - o_i), (d_r - f_i, d_i + f_r)]
+    return [(sr * twc[k] + si * tws[k], si * twc[k] - sr * tws[k])
+            for k, (sr, si) in enumerate(S)]
+
+
+_BASES = {"y": _y_bases_np, "x": _x_bases_np, "bfly": _bfly_tw_np}
+
+
+@functools.lru_cache(maxsize=None)
+def _bases_on(kind: str, n: int, device: torch.device):
+    """A kernel's bases and twiddles (``y``: :func:`_y_bases_np`, ``x``:
+    :func:`_x_bases_np`, ``bfly``: :func:`_bfly_tw_np`) as float32 tensors
+    kept on ``device``."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in _BASES[kind](n))
+
+
+def _bfly_lanes_plain(xr, xi, n: int):
+    """Plain version of the lane round: ``[BD, R, n]`` (real when ``xi`` is
+    None) → twiddled streams ``(re, im) [BD, 4, R, n/4]`` float32."""
+    m = n // 4
+    twc, tws = _bases_on("bfly", n, xr.device)
+    qr = xr.unflatten(-1, (4, m)).unbind(-2)
+    qi = None if xi is None else xi.unflatten(-1, (4, m)).unbind(-2)
+    S = _bfly_twiddle(qr, qi, twc, tws)
+    return (torch.stack([s[0] for s in S], dim=1),
+            torch.stack([s[1] for s in S], dim=1))
+
+
+def _bfly_rows_plain(yr, yi, n: int):
+    """Plain version of the row round: ``[BD, n, L]`` complex →
+    ``(re, im) [BD, 4, n/4, L]``."""
+    m = n // 4
+    twc, tws = _bases_on("bfly", n, yr.device)
+    qr = yr.unflatten(1, (4, m)).unbind(1)
+    qi = yi.unflatten(1, (4, m)).unbind(1)
+    S = _bfly_twiddle(qr, qi, twc[:, :, None], tws[:, :, None])
+    return (torch.stack([s[0] for s in S], dim=1),
+            torch.stack([s[1] for s in S], dim=1))
+
+
+@dft.ieee_f32()
+def _y_contract(pr, pi, n: int):
+    """The y-leaf's matmul DFT of the twiddled streams ``[..., m1]``
+    against the bases ``[m1, k1p]`` (``X = P·(bc − i·bs)``)."""
+    bc, bs = _bases_on("y", n, pr.device)[:2]
+    return pr @ bc + pi @ bs, pi @ bc - pr @ bs
+
+
+def rfft_y_mixed_plain(x: torch.Tensor):
+    """Plain version of the real y-leaf: ``x [BD, R, n]`` float32 →
+    ``(Yre, Yim) [BD, 4, R, k1p]``."""
+    return _y_contract(*_bfly_lanes_plain(x, None, x.shape[-1]), x.shape[-1])
+
+
+def _fft_yc_plain(yr: torch.Tensor, yi: torch.Tensor):
+    """Plain version of the complex y-leaf: ``[BD, R, n]`` →
+    ``(re, im) [BD, 4, R, k1p]`` (ω ≤ n/2)."""
+    return _y_contract(*_bfly_lanes_plain(yr, yi, yr.shape[-1]),
+                       yr.shape[-1])
+
+
+@dft.ieee_f32()
+def fft_x_mixed_plain(yr: torch.Tensor, yi: torch.Tensor, out_dtype=None):
+    """Plain version of the x-leaf: ``[BD, nx, L]`` complex →
+    ``(Xre, Xim) [BD, nx, L]`` in mixed row order, stored as
+    ``out_dtype`` (float32 by default)."""
+    BD, nx, L = yr.shape
+    pr, pi = _bfly_rows_plain(yr, yi, nx)                 # [BD, 4, m1, L]
+    bc, bs = _bases_on("x", nx, yr.device)[:2]          # [k1, j1]
+    out = torch.float32 if out_dtype is None else out_dtype
+    re = (bc @ pr + bs @ pi).reshape(BD, nx, L)
+    im = (bc @ pi - bs @ pr).reshape(BD, nx, L)
+    return re.to(out), im.to(out)
+
+
+# ----------------------------------------------------------- wrappers
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; any other device
+    raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _consts_on(kind: str, n: int, device: torch.device) -> torch.Tensor:
+    """:func:`_bases_on` packed flat, the layout the kernel's C entry point
+    states."""
+    with torch.inference_mode(False):
+        return torch.cat([a.reshape(-1) for a in _bases_on(kind, n, device)])
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def _launch(entry: str, key: str, xr, xi, kind: str, n: int, outs,
+            *ints) -> None:
+    dev = xr.device
+    with torch.cuda.device(dev):
+        err = getattr(_kernels.lib(), entry)(
+            xr.data_ptr(), None if xi is None else xi.data_ptr(),
+            _consts_on(kind, n, dev).data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), *ints,
+            torch.cuda.current_stream().cuda_stream)
+    _kernels.check(err, entry)
+    LAUNCHES[key] += 1
+
+
+def _bfly_lanes(xr, xi, n: int):
+    """One DIF radix-4 round along lanes (B5c): ``[BD, R, n] → [BD, 4, R,
+    n/4]`` twiddled streams, float32 (``xi=None`` for real input)."""
+    if not _on_card(xr, "_bfly_lanes"):
+        return _bfly_lanes_plain(xr, xi, n)
+    BD, R = xr.shape[0], xr.shape[1]
+    xr = _f32(xr)
+    xi = None if xi is None else _f32(xi)
+    outs = [torch.empty((BD, 4, R, n // 4), dtype=torch.float32,
+                        device=xr.device) for _ in range(2)]
+    _launch("bfly_round_launch", "bfly_lanes", xr, xi, "bfly", n, outs, BD,
+            R, n, 1)
+    return tuple(outs)
+
+
+def _bfly_rows(yr, yi, n: int):
+    """One DIF radix-4 round along rows (B5d): ``[BD, n, L] → [BD, 4, n/4,
+    L]``."""
+    if not _on_card(yr, "_bfly_rows"):
+        return _bfly_rows_plain(yr, yi, n)
+    BD, L = yr.shape[0], yr.shape[-1]
+    outs = [torch.empty((BD, 4, n // 4, L), dtype=torch.float32,
+                        device=yr.device) for _ in range(2)]
+    _launch("bfly_round_launch", "bfly_rows", _f32(yr), _f32(yi), "bfly", n,
+            outs, BD, L, n, 0)
+    return tuple(outs)
+
+
+def _y_leaf(xr, xi):
+    """The y-leaf (B5a real, B5e complex): ``[BD, R, n] → [BD, 4, R,
+    k1p]``."""
+    key = "rfft_y_mixed" if xi is None else "fft_yc"
+    if not _on_card(xr, key):
+        return (rfft_y_mixed_plain(xr) if xi is None
+                else _fft_yc_plain(xr, xi))
+    BD, R, n = xr.shape
+    k1p = _k1p(n)
+    xr = _f32(xr)
+    xi = None if xi is None else _f32(xi)
+    outs = [torch.empty((BD, 4, R, k1p), dtype=torch.float32,
+                        device=xr.device) for _ in range(2)]
+    _launch("rfft_y_leaf_launch", key, xr, xi, "y", n, outs, BD, R, n, k1p)
+    return tuple(outs)
+
+
+def _check_len(n: int, axis: str) -> None:
+    if n % 4:
+        raise ValueError(f"{axis} must be divisible by 4, got {n}")
+
+
+def _check_precision(precision) -> None:
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def _fft_yc(yr, yi, *, precision=None):
+    """Complex lane transform emitting ω ≤ n/2, group-leading:
+    ``[BD, R, n] → [BD, G, R, k1p]`` with G = 4^rounds."""
+    BD, R, n = yr.shape
+    _check_len(n, "the lane length")
+    if n // 4 > _MAX_M1:
+        Br, Bi = _bfly_lanes(yr, yi, n)
+        m = n // 4
+        sr, si = _fft_yc(Br.reshape(-1, R, m), Bi.reshape(-1, R, m),
+                         precision=precision)
+        g, k1p = sr.shape[-3], sr.shape[-1]
+        return (sr.reshape(BD, 4 * g, R, k1p), si.reshape(BD, 4 * g, R, k1p))
+    return _y_leaf(yr, yi)
+
+
+def rfft_y_mixed(x: torch.Tensor, *, precision=None):
+    """y-axis rfft of real ``x [..., nx, ny]`` float32 in mixed lane order.
+
+    Returns ``(Yre, Yim) [..., G, nx, k1p]`` — group g, column k1 holds
+    the ωy given by :func:`perm_y` at lane g·k1p + k1.  G = 4 when the leaf
+    fits (ny ≤ 4·_MAX_M1); longer axes peel butterfly rounds (G =
+    4^rounds).
+    """
+    _check_precision(precision)
+    if x.dtype != torch.float32:
+        raise TypeError(f"rfft_y_mixed takes float32, got {x.dtype}")
+    nx, ny = x.shape[-2], x.shape[-1]
+    _check_len(ny, "ny")
+    lead = tuple(x.shape[:-2])
+    xb = x.reshape(-1, nx, ny)
+    if ny // 4 > _MAX_M1:
+        Br, Bi = _bfly_lanes(xb, None, ny)
+        m = ny // 4
+        sr, si = _fft_yc(Br.reshape(-1, nx, m), Bi.reshape(-1, nx, m),
+                         precision=precision)
+        G = 4 * sr.shape[-3]
+    else:
+        sr, si = _y_leaf(xb, None)
+        G = 4
+    k1p = sr.shape[-1]
+    return (sr.reshape(lead + (G, nx, k1p)), si.reshape(lead + (G, nx, k1p)))
+
+
+def fft_x_mixed(Yre: torch.Tensor, Yim: torch.Tensor, *, precision=None,
+                out_dtype=None, lane_chunk=None):
+    """x-axis FFT of complex ``(Yre, Yim) [..., nx, L]`` in mixed row
+    order: output row k2·M1 + k1 holds ωx = 4·k1 + k2 (:func:`perm_x`).
+    The lane axis is carried through untouched (any meaning or order).
+
+    ``lane_chunk`` is the JAX kernel's lane tile; the result does not
+    depend on it, and the CUDA kernel tiles lanes by its own width.
+    """
+    _check_precision(precision)
+    if lane_chunk is not None and lane_chunk < 1:
+        raise ValueError(f"lane_chunk must be positive, got {lane_chunk}")
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be None, float32 or bfloat16, not "
+                        f"{out_dtype}")
+    nx, L = Yre.shape[-2], Yre.shape[-1]
+    _check_len(nx, "nx")
+    lead = tuple(Yre.shape[:-2])
+    yr = Yre.reshape(-1, nx, L)
+    yi = Yim.reshape(-1, nx, L)
+    if nx // 4 > _MAX_M1:
+        # peel one butterfly round (ω = k2 + 4·ω′) and recurse; the four
+        # twiddled streams ride the leading dim, so the recursive mixed
+        # rows land k2-major — exactly perm_x's recursive order
+        Br, Bi = _bfly_rows(yr, yi, nx)
+        m = nx // 4
+        sr, si = fft_x_mixed(Br.reshape(-1, m, L), Bi.reshape(-1, m, L),
+                             precision=precision, out_dtype=out_dtype)
+        return sr.reshape(lead + (nx, L)), si.reshape(lead + (nx, L))
+    if not _on_card(yr, "fft_x_mixed"):
+        sr, si = fft_x_mixed_plain(yr, yi, out_dtype)
+    else:
+        BD = yr.shape[0]
+        out = torch.float32 if out_dtype is None else out_dtype
+        outs = [torch.empty((BD, nx, L), dtype=out, device=yr.device)
+                for _ in range(2)]
+        _launch("fft_x_leaf_launch", "fft_x_mixed", _f32(yr), _f32(yi), "x",
+                nx, outs, BD, nx, L, int(out == torch.bfloat16))
+        sr, si = outs
+    return sr.reshape(lead + (nx, L)), si.reshape(lead + (nx, L))
+
+
+def rfft2_mixed(x: torch.Tensor, *, precision=None, out_dtype=None,
+                lead_chunk=None):
+    """Two-stage rfft2 of real ``x [..., nx, ny]`` in mixed order.
+
+    Returns ``(Xre, Xim) [..., nx, ny_padded(ny)]`` with row order
+    :func:`perm_x` and lane order :func:`perm_y`; the DC bin sits at (row
+    0, lane 0).  The y-group axis rides the x-stage as batch and is moved
+    back into lanes at the end (one copy).  ``out_dtype=torch.bfloat16``
+    rounds the stored planes.
+
+    ``lead_chunk`` is accepted for the JAX signature and ignored: there it
+    serializes the transform over the leading planes to fit a TPU's
+    memory, with a bit-equal result.
+    """
+    nx, ny = x.shape[-2], x.shape[-1]
+    lead = tuple(x.shape[:-2])
+    Yre, Yim = rfft_y_mixed(x, precision=precision)
+    G, k1p = Yre.shape[-3], Yre.shape[-1]
+    Xre, Xim = fft_x_mixed(Yre.reshape(-1, nx, k1p),
+                           Yim.reshape(-1, nx, k1p), precision=precision,
+                           out_dtype=out_dtype)
+    # [lead, G, nx, k1p] -> [lead, nx, G·k1p]
+    return tuple(a.reshape(lead + (G, nx, k1p)).movedim(-3, -2)
+                 .reshape(lead + (nx, G * k1p)) for a in (Xre, Xim))
+
+
+@functools.lru_cache(maxsize=None)
+def _natural_index(nx: int, ny: int, max_m1: int, device: torch.device):
+    """:func:`natural_gathers` as one flat index into a ``[nx, lanes]``
+    plane, on ``device`` (``max_m1``: the ``_MAX_M1`` that set the maps)."""
+    row_of, lane_of = natural_gathers(nx, ny)
+    flat = row_of[:, None] * ny_padded(ny) + lane_of[None, :]
+    with torch.inference_mode(False):
+        return torch.as_tensor(flat.ravel(), device=device)
+
+
+def gather_natural(planes, nx: int, ny: int):
+    """Mixed-order ``(Xre, Xim)`` planes ``[..., nx, ny_padded(ny)]``
+    gathered to natural order ``[..., nx, ny//2+1]``, one index_select per
+    plane; the dtype is kept."""
+    idx = _natural_index(nx, ny, _MAX_M1, planes[0].device)
+    return tuple(a.reshape(a.shape[:-2] + (-1,)).index_select(-1, idx)
+                 .unflatten(-1, (nx, ny // 2 + 1)) for a in planes)
+
+
+def to_natural(planes, nx: int, ny: int) -> torch.Tensor:
+    """Mixed-order ``(Xre, Xim)`` planes (float32 or bf16) gathered to the
+    natural-order complex64 half-spectra ``[..., nx, ny//2+1]``."""
+    re, im = gather_natural(planes, nx, ny)
+    return torch.complex(re.float(), im.float())
+
+
+def rfft2_pallas(x: torch.Tensor, *, precision=None) -> torch.Tensor:
+    """Natural-order complex64 rfft2 through the mixed-order kernels — the
+    drop-in for ``torch.fft.rfft2(x)`` over the last two axes."""
+    return to_natural(rfft2_mixed(x, precision=precision), x.shape[-2],
+                      x.shape[-1])

@@ -19,7 +19,9 @@ burst only ever reads a (2h+1)² window).
   and the DC scalars.  Neither K̂₀ nor EG reaches device memory.
 
 Both live in ``csrc/corr_windows.cu``, whose header note says what bounds
-them and how they are laid out.  Each has a plain PyTorch version here
+them and how they are laid out.  K4 also takes the four-step FFT's output
+(:func:`spectralae_torch.ops.fft_kernels.rfft2_mixed`, ``mixed=True``),
+gathered to natural bin order first.  Each has a plain PyTorch version here
 (:func:`corr_pair_windows_plain`, :func:`anchor_windows_plain`), which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts kernel launches by kernel: one per call of a
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from . import dft
+from . import dft, fft_kernels
 from .spectral import _hermitian_weights
 
 #: kernel launches since import (or the last reset), by kernel
@@ -108,6 +110,25 @@ def corr_pair_windows_plain(X: torch.Tensor, Z: torch.Tensor, nx: int,
     D, E = X.shape[1], Z.shape[1]
     return _corr_windows(_mean_products(X, Z), nx, ny, hx, hy).reshape(
         D, E, 2 * hx + 1, 2 * hy + 1)
+
+
+def _check_mixed(name: str, X, nx: int, ny: int) -> None:
+    """``X`` must be the ``(Xre, Xim)`` planes of ``rfft2_mixed``."""
+    if not (isinstance(X, (tuple, list)) and len(X) == 2):
+        raise TypeError(f"{name}(mixed=True): X must be the (Xre, Xim) pair "
+                        "of rfft2_mixed")
+    re, im = X
+    if (re.dtype not in (torch.float32, torch.bfloat16)
+            or im.dtype != re.dtype or re.dim() != 4
+            or im.shape != re.shape or im.device != re.device):
+        raise TypeError(f"{name}(mixed=True): Xre, Xim must be float32 or "
+                        f"bfloat16 [B, C, nx, lanes] alike, got {re.dtype} "
+                        f"{tuple(re.shape)} and {im.dtype} {tuple(im.shape)}")
+    lanes = fft_kernels.ny_padded(ny)
+    if re.shape[-2:] != (nx, lanes):
+        raise ValueError(f"{name}(mixed=True): planes {tuple(re.shape)} do "
+                         f"not match nx={nx}, ny={ny} ({lanes} mixed lanes; "
+                         "pass the rfft2_mixed output unsliced)")
 
 
 def _check_spectra(name: str, X: torch.Tensor, nx: int, ny: int) -> None:
@@ -205,15 +226,18 @@ def _round_signal(X: torch.Tensor, signal_dtype) -> torch.Tensor:
 @dft.ieee_f32()
 def anchor_windows_plain(X: torch.Tensor, K0taps: torch.Tensor, nx: int,
                          ny: int, hx2: int, hy2: int, s1: float, *,
-                         signal_dtype=None):
+                         signal_dtype=None, mixed: bool = False):
     """Plain version of :func:`anchor_windows`: the XLA branch of the JAX
     package's fused precompute (fft_corr.py:504-527) with
     :func:`anchor_windows`'s outputs.  The anchor spectra and the EG planes
     are materialised at full resolution.
 
     ``signal_dtype``: round the signal's real and imaginary planes to it
-    first (the bf16 signal route of the kernel).
+    first (the bf16 signal route of the kernel).  ``mixed``: ``X`` is the
+    ``(Xre, Xim)`` pair of ``rfft2_mixed``, gathered to natural order first.
     """
+    if mixed:
+        X = fft_kernels.to_natural(X, nx, ny)
     if signal_dtype is not None:
         X = _round_signal(X, signal_dtype)
     D = X.shape[1]
@@ -255,18 +279,30 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
     in its shared memory (the JAX package's ``y_chunk`` VMEM budget has no
     counterpart here).
 
+    ``mixed``: ``X`` is the ``(Xre, Xim)`` pair of
+    :func:`~spectralae_torch.ops.fft_kernels.rfft2_mixed`, float32 or bf16
+    planes, rows in ``perm_x`` and lanes in ``perm_y`` order.  One gather
+    per plane (:func:`~spectralae_torch.ops.fft_kernels.gather_natural`)
+    brings them to natural order: float32 planes become complex64, bf16
+    planes stay bf16 planes and take the bf16 signal route.
+
     CPU tensors take :func:`anchor_windows_plain`; CUDA tensors launch the
-    kernel.  ``mixed`` (the Pallas FFT's bin order) is ROADMAP A8 and
-    ``row_slab`` (the tensor-parallel partials) ROADMAP A12: both raise.
+    kernel.  ``row_slab`` (the tensor-parallel partials) is ROADMAP A12 and
+    raises.
     """
-    if mixed:
-        raise NotImplementedError("anchor_windows(mixed=True): the four-step "
-                                  "FFT's mixed bin order is ROADMAP A8 (B5)")
+    if mixed and row_slab is not None:
+        raise ValueError("mixed-order X has no row-slab (TP) variant")
     if row_slab is not None:
         raise NotImplementedError("anchor_windows(row_slab=...): the "
                                   "tensor-parallel partials are ROADMAP A12")
-    _check_spectra("anchor_windows", X, nx, ny)
-    B, D, _, nyr = X.shape
+    if mixed:
+        _check_mixed("anchor_windows", X, nx, ny)
+        B, D = X[0].shape[:2]
+        device = X[0].device
+    else:
+        _check_spectra("anchor_windows", X, nx, ny)
+        B, D = X.shape[:2]
+        device = X.device
     nk2, nl2 = K0taps.shape[-2], K0taps.shape[-1]
     if tuple(K0taps.shape) != (D, D, 2 * hx2 + 1, 2 * hy2 + 1):
         raise ValueError(
@@ -277,32 +313,40 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
                         f"not {signal_dtype}")
     if signal_dtype == torch.float32:
         signal_dtype = None
-    if X.device.type == "cpu":
+    if device.type == "cpu":
         return anchor_windows_plain(X, K0taps, nx, ny, hx2, hy2, s1,
-                                    signal_dtype=signal_dtype)
-    if X.device.type != "cuda":
-        raise ValueError(f"anchor_windows runs on cpu or cuda, not "
-                         f"{X.device}")
-    X = X.resolve_conj().contiguous()
-    taps = K0taps.to(device=X.device, dtype=torch.float32).contiguous()
-    bf16 = signal_dtype is not None
-    if bf16:
-        planes = (X.real.to(torch.bfloat16).contiguous(),
-                  X.imag.to(torch.bfloat16).contiguous())
-        ptrs = (None, planes[0].data_ptr(), planes[1].data_ptr())
+                                    signal_dtype=signal_dtype, mixed=mixed)
+    if device.type != "cuda":
+        raise ValueError(f"anchor_windows runs on cpu or cuda, not {device}")
+    taps = K0taps.to(device=device, dtype=torch.float32).contiguous()
+    nyr = ny // 2 + 1
+    # the signal as corr_windows.cu reads it: interleaved complex64, or
+    # split bf16 re/im planes
+    if mixed:
+        re, im = fft_kernels.gather_natural(X, nx, ny)
+        if re.dtype == torch.float32 and signal_dtype is None:
+            X, planes = torch.complex(re, im), None
+        else:
+            planes = [re.to(torch.bfloat16), im.to(torch.bfloat16)]
+    elif signal_dtype is not None:
+        X = X.resolve_conj()
+        planes = [X.real.to(torch.bfloat16).contiguous(),
+                  X.imag.to(torch.bfloat16).contiguous()]
     else:
-        ptrs = (X.data_ptr(), None, None)
+        X, planes = X.resolve_conj().contiguous(), None
+    ptrs = ((X.data_ptr(), None, None) if planes is None
+            else (None, planes[0].data_ptr(), planes[1].data_ptr()))
     vx4, vy4, vx2, vy2 = 2 * nk2 - 1, 2 * nl2 - 1, nk2, nl2
     n_xx, n_eg = D * D * vx4 * vy4, D * D * vx2 * vy2
     out = torch.empty(n_xx + n_eg + 1 + D, dtype=torch.float32,
-                      device=X.device)
-    with torch.cuda.device(X.device):
-        scratch = _scratch(True, B, D, D, nx, nyr, nk2, nl2, device=X.device)
+                      device=device)
+    with torch.cuda.device(device):
+        scratch = _scratch(True, B, D, D, nx, nyr, nk2, nl2, device=device)
         err = _kernels.lib().anchor_windows_launch(
             *ptrs, taps.data_ptr(),
-            _consts_on("anchor", nx, ny, nk2, nl2, X.device).data_ptr(),
+            _consts_on("anchor", nx, ny, nk2, nl2, device).data_ptr(),
             out.data_ptr(), scratch.data_ptr(), B, D, nx, nyr, nk2, nl2,
-            float(s1), int(bf16),
+            float(s1), int(planes is not None),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "anchor_windows")
     LAUNCHES["anchor_windows"] += 1

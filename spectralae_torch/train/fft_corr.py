@@ -35,9 +35,14 @@ matmuls (as in the JAX package), so every entry point here runs its
 products in IEEE float32: TF32 would drop about 10 bits of them.  DC-bin
 bias injections (conv_k, cu:183-184) are exact scalar corrections.
 
+The fused precompute's ``"fft"``/``"fft-bf16"`` routes take the signal
+spectra from the hand-written four-step rfft2
+(:mod:`spectralae_torch.ops.fft_kernels`) in its mixed bin order, which K4
+gathers to natural order.
+
 Not ported here: the data- and model-parallel forms (``axis_name``,
-``model_axis``; ROADMAP A12), the FFT-free ``"pixel"`` precompute (ROADMAP
-A6) and the four-step FFT routes ``"fft"``/``"fft-bf16"`` (ROADMAP A8, B5).
+``model_axis``; ROADMAP A12) and the FFT-free ``"pixel"`` precompute
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 
 from ..losses.losses import diversity_gradients
 from ..ops import dft, spectral
+from ..ops.fft_kernels import rfft2_mixed
 from ..ops.window_kernels import (anchor_windows, anchor_windows_plain,
                                   corr_pair_windows)
 from ..optim.update import burst_inertia
@@ -211,23 +217,24 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     - ``"bf16"``: the same, on signal planes rounded to bf16 (the plain
       version rounds them the same way on the CPU);
     - ``False``: the plain version (the JAX package's XLA formulation) on
-      any device.
+      any device;
+    - ``"fft"``: the signal spectra from the four-step rfft2
+      (:func:`~spectralae_torch.ops.fft_kernels.rfft2_mixed`, its kernels
+      for CUDA tensors) in mixed bin order, float32 planes, into
+      ``anchor_windows(mixed=True)``;
+    - ``"fft-bf16"``: the same with the planes stored bf16.
 
-    ``"pixel"`` is ROADMAP A6, ``"fft"``/``"fft-bf16"`` ROADMAP A8 (B5);
-    ``axis_name``/``model_axis`` ROADMAP A12.  All of them raise.
+    ``"pixel"`` is ROADMAP A6 and ``axis_name``/``model_axis`` ROADMAP A12:
+    they raise.
     """
     _no_parallel_axes(axis_name, model_axis)
     if pallas_windows == "pixel":
         raise NotImplementedError(
             "pallas_windows='pixel': the FFT-free pixel-space precompute "
             "(ops/pixel_corr) is ROADMAP A6")
-    if pallas_windows in ("fft", "fft-bf16"):
-        raise NotImplementedError(
-            f"pallas_windows={pallas_windows!r}: the four-step Pallas rfft2 "
-            "route is ROADMAP A8 (kernel B5)")
-    if pallas_windows not in (None, True, False, "bf16"):
+    if pallas_windows not in (None, True, False, "bf16", "fft", "fft-bf16"):
         raise ValueError(f"pallas_windows={pallas_windows!r} is not one of "
-                         "None, True, False, 'bf16'")
+                         "None, True, False, 'bf16', 'fft', 'fft-bf16'")
     nx, ny = x.shape[-2], x.shape[-1]
     dD = x.shape[-3]
     dM = c0.shape[0]
@@ -242,18 +249,29 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     # norm·(s2·Σ_m f̂(0)·b + p)  (the only place out0 differed)
     fs0 = torch.sum(f0.reshape(dD, dM, P), dim=-1)      # [D, M]
     dE0 = norm * (s2 * (fs0 @ b0) + p0)                 # [D]
-    X = spectral.rfft2(x)                               # [B, D, nx, nyr]
-    if pallas_windows is False:
-        XXw, EGw, SEG, E_cont0 = anchor_windows_plain(
-            X, K0taps, nx, ny, hx2, hy2, s1)
-    else:
+    if pallas_windows in ("fft", "fft-bf16"):
+        # the spectra in the four-step FFT's mixed bin order; K4 gathers
+        # them to natural order
+        Xre, Xim = rfft2_mixed(x, out_dtype=(torch.bfloat16
+                                             if pallas_windows == "fft-bf16"
+                                             else None))
         XXw, EGw, SEG, E_cont0 = anchor_windows(
-            X, K0taps, nx, ny, hx2, hy2, s1,
-            signal_dtype=(torch.bfloat16 if pallas_windows == "bf16"
-                          else None))
+            (Xre, Xim), K0taps, nx, ny, hx2, hy2, s1, mixed=True)
+        # the DC bin stays at (row 0, lane 0) in mixed order
+        X0 = torch.mean(Xre[:, :, 0, 0].float(), dim=0)
+    else:
+        X = spectral.rfft2(x)                           # [B, D, nx, nyr]
+        if pallas_windows is False:
+            XXw, EGw, SEG, E_cont0 = anchor_windows_plain(
+                X, K0taps, nx, ny, hx2, hy2, s1)
+        else:
+            XXw, EGw, SEG, E_cont0 = anchor_windows(
+                X, K0taps, nx, ny, hx2, hy2, s1,
+                signal_dtype=(torch.bfloat16 if pallas_windows == "bf16"
+                              else None))
+        X0 = torch.mean(X[:, :, 0, 0].real, dim=0)      # [D]
     XX = XXw.reshape(dD, dD, -1)
     EGwin = EGw.reshape(dD, dD, -1)
-    X0 = torch.mean(X[:, :, 0, 0].real, dim=0)          # [D]
     # reconstruct the E₀/G₀ split exactly: G₀ = −dE0 at DC only, so its
     # lag windows are the constant −X0[d]·dE0[e] (w(DC)=1) and its
     # energies are pure scalar corrections

@@ -71,13 +71,48 @@ def test_cli_stream_trains_checkpoints_and_resumes(tmp_path, capsys):
     ["--train-pair", "all"],
     ["--train-pair", "all", "--pair-sweep", "frame"],
     ["--train-pair", "1", "--bf16"],
-    ["--carry-momentum", "--maxdiff", "--reanchor", "7"]],
-    ids=["all_block", "all_frame", "pair1_bf16", "carry_maxdiff_reanchor"])
+    ["--carry-momentum", "--maxdiff", "--reanchor", "7"],
+    ["--pallas-fft"],
+    ["--pallas-fft", "--bf16", "--train-pair", "all", "--pair-sweep",
+     "frame"]],
+    ids=["all_block", "all_frame", "pair1_bf16", "carry_maxdiff_reanchor",
+         "pallas_fft", "pallas_fft_bf16_sweep"])
 def test_cli_stream_options_run(extra, capsys):
     tcli(STREAM + ["--steps", "4", "--stream-k", "2"] + extra)
     recs = _records(capsys.readouterr().out)
     assert recs and all(np.isfinite(r["mseN"]) for r in recs)
     assert {r["step"] for r in recs} == set(range(4))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cli_stream_pallas_fft_trains_and_resumes(tmp_path, capsys, bf16):
+    """``--pallas-fft`` (with and without ``--bf16``): the entry MSE falls,
+    the checkpoint resumes, and every frame's precompute took its spectra
+    from the four-step rfft2 (one y-leaf and one x-leaf per frame)."""
+    from spectralae_torch.ops import fft_kernels as fk
+    ck = tmp_path / "ck"
+    extra = ["--pallas-fft"] + (["--bf16"] if bf16 else [])
+    calls = []
+    real = fk.rfft2_mixed
+
+    def spy(x, **kw):
+        calls.append((tuple(x.shape), kw.get("out_dtype")))
+        return real(x, **kw)
+    from spectralae_torch.train import fft_corr
+    fft_corr.rfft2_mixed = spy
+    try:
+        tcli(STREAM + extra + ["--steps", "6", "--ckpt", str(ck)])
+        recs = _records(capsys.readouterr().out)
+        assert [r["step"] for r in recs] == list(range(6))
+        assert recs[-1]["mse0"] < 0.1 * recs[0]["mse0"]
+        assert len(calls) == 6
+        assert {c[1] for c in calls} == {torch.bfloat16 if bf16 else None}
+        tcli(STREAM + extra + ["--steps", "8", "--resume", str(ck)])
+        resumed = _records(capsys.readouterr().out)
+        assert [r["step"] for r in resumed] == [6, 7]
+        assert resumed[0]["mse0"] < 0.1 * recs[0]["mse0"]
+    finally:
+        fft_corr.rfft2_mixed = real
 
 
 def test_cli_burst_trains_checkpoints_and_resumes(tmp_path, capsys):
@@ -177,8 +212,7 @@ def test_cli_burst_rolls_back_on_a_non_finite_mse(tmp_path, capsys,
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "stream", "--domain", "coord"], "A9"),
-    (["--mode", "stream", "--pallas-fft"], "A8"),
-    (["--mode", "burst", "--pallas-fft"], "A8"),
+    (["--mode", "burst", "--pallas-fft"], "burst mode anchors"),
     (["--mode", "stream", "--pair-sweep", "frame"], "--train-pair all"),
     (["--mode", "burst", "--train-pair", "2"], "out of range")])
 def test_cli_stream_and_burst_refuse(argv, match):

@@ -383,9 +383,7 @@ def test_cli_train_torch_optimizer_sidecar(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "stream", "--domain", "coord"], "A9"),
-    (["--mode", "stream", "--pallas-fft"], "A8"),
-    (["--bf16"], "B1 bf16"), (["--pallas-fft"], "B5"),
-    (["--source", "camera"], "A13")])
+    (["--bf16"], "B1 bf16"), (["--source", "camera"], "A13")])
 def test_cli_train_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):
         tcli(["train", "--device", "cpu", "--steps", "1"] + argv)

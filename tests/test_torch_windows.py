@@ -179,12 +179,74 @@ def test_anchor_windows_bf16_is_exact_on_rounded_signal():
         assert rel(g, f) < BF16_BAND
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(mixed=True), "A8"), (dict(row_slab=0), "A12")])
+@pytest.mark.parametrize("kw,what", [(dict(row_slab=0), "A12")])
 def test_anchor_windows_unported_options_raise(kw, what):
     X, taps, h2, s1 = _anchor_problem(1, 1, 2, 16, 16, 5)
     with pytest.raises(NotImplementedError, match=what):
         wk.anchor_windows(_t(X), _t(taps), 16, 16, h2, h2, s1, **kw)
+
+
+# ------------------------------------------------- K4 in mixed bin order
+
+def _mixed_problem(seed, B, D, nx, ny, nk2, out_dtype=None):
+    """Frames, their rfft2_mixed planes (the port's, plain on the CPU)
+    and taps."""
+    from spectralae_torch.ops import fft_kernels as fk
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, D, nx, ny)).astype(np.float32) * 30
+    planes = fk.rfft2_mixed(_t(x), out_dtype=out_dtype)
+    taps = (rng.standard_normal((D, D, nk2, nk2)) * 0.2).astype(np.float32)
+    return x, planes, taps, nk2 // 2, 1.0 / (4 * D)
+
+
+@pytest.mark.parametrize("B,D,nx,ny,nk2,max_m1,bf16", [
+    (2, 3, 16, 16, 9, 512, False),
+    (1, 2, 32, 48, 5, 512, False),
+    (2, 3, 64, 32, 9, 8, False),       # forced recursion on both axes
+    (2, 3, 16, 16, 9, 512, True)])     # bf16 planes
+def test_anchor_windows_mixed_matches_jax(B, D, nx, ny, nk2, max_m1, bf16,
+                                          monkeypatch):
+    """The port's K4 on mixed planes (gathered to natural order) against
+    JAX's ``anchor_windows(mixed=True)`` (permuted constants, interpret
+    mode) on the same planes, and against the port's natural route on the
+    same spectra."""
+    import jax.numpy as jnp
+    from spectralae.ops import pallas_fft as jfft
+    from spectralae.ops.pallas_windows import anchor_windows
+    from spectralae_torch.ops import fft_kernels as fk
+    monkeypatch.setattr(fk, "_MAX_M1", max_m1)
+    monkeypatch.setattr(jfft, "_MAX_M1", max_m1)
+    x, (Xre, Xim), taps, h2, s1 = _mixed_problem(
+        B + nx, B, D, nx, ny, nk2, torch.bfloat16 if bf16 else None)
+    before = dict(wk.LAUNCHES)
+    got = wk.anchor_windows((Xre, Xim), _t(taps), nx, ny, h2, h2, s1,
+                            mixed=True)
+    assert wk.LAUNCHES == before
+    as_jax = (jnp.asarray(Xre.float().numpy()).astype(jnp.bfloat16)
+              if bf16 else jnp.asarray(Xre.numpy()))
+    as_jax_im = (jnp.asarray(Xim.float().numpy()).astype(jnp.bfloat16)
+                 if bf16 else jnp.asarray(Xim.numpy()))
+    want = anchor_windows((as_jax, as_jax_im), jnp.asarray(taps), nx, ny, h2,
+                          h2, s1, mixed=True, interpret=True)
+    natural = wk.anchor_windows(fk.to_natural((Xre, Xim), nx, ny), _t(taps),
+                                nx, ny, h2, h2, s1)
+    for name, g, w, n in zip(("XX", "EGw", "seg", "e0"), got, want,
+                             natural):
+        assert g.shape == w.shape, name
+        assert rel(g, w) < TOL, name
+        assert rel(g, n) < TOL, name
+
+
+def test_anchor_windows_mixed_checks_its_input():
+    _, (Xre, Xim), taps, h2, s1 = _mixed_problem(0, 1, 2, 16, 16, 5)
+    with pytest.raises(ValueError, match="row-slab"):
+        wk.anchor_windows((Xre, Xim), _t(taps), 16, 16, h2, h2, s1,
+                          mixed=True, row_slab=0)
+    with pytest.raises(ValueError, match="unsliced"):
+        wk.anchor_windows((Xre[..., :9], Xim[..., :9]), _t(taps), 16, 16, h2,
+                          h2, s1, mixed=True)
+    with pytest.raises(TypeError, match="pair"):
+        wk.anchor_windows(Xre, _t(taps), 16, 16, h2, h2, s1, mixed=True)
 
 
 # ------------------------------------------------------- on the card
@@ -234,5 +296,27 @@ def test_anchor_windows_kernel_matches_plain(cuda_device, B, D, n, ny, nk2,
     assert wk.LAUNCHES["anchor_windows"] == before + 1
     want = wk.anchor_windows_plain(X, taps, n, ny, nk2 // 2, nk2 // 2,
                                    1 / (4 * D), signal_dtype=sd)
+    for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
+        assert rel(g.cpu(), w.cpu()) < CARD_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,bf16", [(8, 128, False), (8, 128, True),
+                                      (1, 1024, False), (2, 40, True)])
+def test_anchor_windows_mixed_kernel_matches_plain(cuda_device, B, n, bf16):
+    """K4 on the four-step FFT's mixed planes (float32 and bf16) against
+    its plain version, which gathers them to natural order."""
+    from spectralae_torch.ops import fft_kernels as fk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.rand(B, 3, n, n, device=cuda_device, generator=gen) * 255
+    planes = fk.rfft2_mixed(x, out_dtype=torch.bfloat16 if bf16 else None)
+    taps = torch.randn(3, 3, 9, 9, device=cuda_device, generator=gen) * .2
+    before = wk.LAUNCHES["anchor_windows"]
+    got = wk.anchor_windows(planes, taps, n, n, 4, 4, 1 / 30, mixed=True)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["anchor_windows"] == before + 1
+    want = wk.anchor_windows_plain(planes, taps, n, n, 4, 4, 1 / 30,
+                                   mixed=True)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
         assert rel(g.cpu(), w.cpu()) < CARD_TOL, name
