@@ -42,6 +42,21 @@ Phases (any failure raises and exits non-zero):
    (``pallas_windows=False``); the fused precompute alone, K4 against the
    plain version, at the three sizes; and a check that the burst's entry
    points run with TF32 off whatever the caller set.
+3d. The omega-space burst engines (B7-B9, ``csrc/omega_burst.cu``) at the
+   JAX benchmark's headline input (one [3, 256, 256] frame) and at the
+   stream's pair-0 input (128^2 b8): K5-K8 against their plain versions
+   with float32 and bf16 operands, each output held on its own (O, the MSE
+   sum, g, db, dp; K8's weights, momenta and MSEs), timed beside the plain
+   version and the bound (no single PyTorch call computes any of them);
+   then each engine (``fft_burst_pallas``: K5 and K6 an iteration;
+   ``fft_burst_pallas_fused``: one K5, then K7 an iteration;
+   ``fft_burst_itergrid``: one K8 a burst) with its launches counted and no
+   plain version on the card, held against the CPU port and the card's
+   ``fft_burst(impl="dft")`` at 10 iterations and within the map's spread
+   at 100, B9 twice bit for bit, and the host and device ms of a
+   100-iteration burst beside ``fft_burst`` and ``burst_corr`` (device:
+   the profiler over REPS calls, two of ``fft_burst``; the profile must
+   hold every launch the counters saw).
 4. Serving: ``export`` and ``serve`` through the CLI in both domains, then
    an ``InferenceServer`` over HTTP for ``forward`` and ``encode`` in both
    domains, each response held against the same model run on the CPU
@@ -66,12 +81,15 @@ Phases (any failure raises and exits non-zero):
    "fft" route), and within the spread of the training map at 100.
 
 The line before the last is a JSON object with each kernel's launches on
-every path (serve, train, stream, stream_fft, burst), its largest error,
-and its time, plain time, bound and library time: K1 and K2 per 256^2
-batch-8 train step (forward and backward; the rows of phase 3 at the shapes
-of the launches one such step made, summed), K3 per precompute of a burst,
-K4, B5a and B5b per launch at 256^2 batch-8 frames, B5c-e per launch in the
-4096^2 transform; the last line is
+every path (serve, train, stream, stream_fft, burst, and omega_pallas,
+omega_fused, omega_itergrid: one 100-iteration burst of each engine at the
+headline input), its largest error, and its time, plain time, bound and
+library time: K1 and K2 per 256^2 batch-8 train step (forward and
+backward; the rows of phase 3 at the shapes of the launches one such step
+made, summed), K3 per precompute of a burst, K4, B5a and B5b per launch at
+256^2 batch-8 frames, B5c-e per launch in the 4096^2 transform, K5-K7 per
+launch and K8 per 10-iteration launch at the headline input; beside them
+the engines' 100-iteration times.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -165,18 +183,20 @@ def check(ok: bool, msg: str) -> None:
 
 def reset_counts() -> None:
     """Set every kernel's launch counter to 0."""
+    from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     sk.LAUNCHES = 0
     ck.LAUNCHES = 0
-    wk.LAUNCHES.update(dict.fromkeys(wk.LAUNCHES, 0))
-    fk.LAUNCHES.update(dict.fromkeys(fk.LAUNCHES, 0))
+    for counter in (wk.LAUNCHES, fk.LAUNCHES, bk.LAUNCHES):
+        counter.update(dict.fromkeys(counter, 0))
 
 
 def counts() -> dict:
     """Every kernel's launch counter, by kernel key."""
+    from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import spectral_kernels as sk
@@ -187,7 +207,8 @@ def counts() -> dict:
             "b5a": fk.LAUNCHES["rfft_y_mixed"],
             "b5b": fk.LAUNCHES["fft_x_mixed"],
             "b5c": fk.LAUNCHES["bfly_lanes"],
-            "b5d": fk.LAUNCHES["bfly_rows"], "b5e": fk.LAUNCHES["fft_yc"]}
+            "b5d": fk.LAUNCHES["bfly_rows"], "b5e": fk.LAUNCHES["fft_yc"],
+            **{key: bk.LAUNCHES[name] for key, name, _ in OMEGA_ROWS}}
 
 
 def grown(before: dict) -> dict:
@@ -216,22 +237,45 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(stop) / REPS
 
 
-def device_ms(fn, names=None) -> float:
-    """Milliseconds the device spends in the kernels of one ``fn()``: the
-    profiler's device time over REPS calls, whatever the host's pace.
-    ``names``: count only the kernels whose name holds one of them."""
+# device operation records the profiles held and should have held: late in
+# this run the profiler drops records (it once held 19 of 20 K8 launches,
+# and fewer than half of one K5 row's)
+PROFILED = {"held": 0, "expected": 0}
+
+
+def device_ops(fn, calls: int = REPS) -> list[tuple[str, float, int, int]]:
+    """Each device operation (kernel, copy) of one ``fn()`` as (name, mean
+    ms, instances a call, records held), from the profiler over ``calls``
+    calls after one untimed call.  The instances a call are the records
+    over ``calls``, rounded and at least 1, so dropped records move the
+    time a call (the mean times the instances) only where they change the
+    rounding; PROFILED keeps the tally."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (names is None or any(n in e.key for n in names)))
-    return us / REPS / 1e3
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        k = max(1, math.floor(e.count / calls + 0.5))
+        PROFILED["held"] += min(e.count, k * calls)
+        PROFILED["expected"] += k * calls
+        out.append((e.key, e.self_device_time_total / e.count / 1e3, k,
+                    e.count))
+    return out
+
+
+def device_ms(fn, names=None) -> float:
+    """Milliseconds the device spends in the kernels of one ``fn()``: the
+    profiler's device time over REPS calls, whatever the host's pace.
+    ``names``: count only the kernels whose name holds one of them."""
+    return sum(ms * k for key, ms, k, _ in device_ops(fn)
+               if names is None or any(n in key for n in names))
 
 
 def paired_ms(kernel, plain) -> tuple[float, float, float, float]:
@@ -267,14 +311,16 @@ def k2_bound(b: int, d: int, m: int, hp: int, wp: int, nk: int, nl: int):
 
 
 def measure(label: str, got, want, kernel, plain, bound, tol: float, *,
-            library=True, extra: str = "", names=None) -> dict:
+            library=True, extra: str = "", names=None, rel=None) -> dict:
     """Hold ``got`` against ``want``, time ``kernel`` against ``plain``,
     print one line, return the row.  ``library`` is the one PyTorch call
     that computes the same function: ``plain`` itself when True, None when
     there is none, else a call timed on its own.  ``names``: the kernel's
     time is that of its own grids (the wrapper's other device work, such
-    as a cast, is printed as the call's time)."""
-    err = rel_err(got, want)
+    as a cast, is printed as the call's time).  ``rel``: the error to hold
+    and report in place of ``got``'s against ``want`` (the largest of
+    outputs the caller held one by one)."""
+    err = rel_err(got, want) if rel is None else rel
     abs_err = float((got - want).abs().max())
     ev, plain_ev, ms, plain_ms = paired_ms(kernel, plain)
     ms, plain_ms = ms or ev, plain_ms or plain_ev
@@ -526,7 +572,6 @@ def _breakdown(label: str, fn, extra: str = "",
     profile that also traces the host, the host operations that take the
     most time of their own (inflated by the tracing, so only their order
     and shares are read).  Returns (host ms, device ms) per call."""
-    from torch.autograd import DeviceType
     for _ in range(min(3, reps)):
         fn()
     torch.cuda.synchronize()
@@ -535,19 +580,14 @@ def _breakdown(label: str, fn, extra: str = "",
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps * 1e3
-    acts = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[acts.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows = sorted(((ms * k, key) for key, ms, k, _ in device_ops(fn, reps)),
+                  reverse=True)
     dev = sum(t for t, _ in rows)
     top = "; ".join(f"{name[:48]} {t:.4f}" for t, name in rows[:6])
     print(f"{label}: host {wall:.4f} ms, device {dev:.4f} ms (busy "
           f"{dev / wall:.1%}){extra}; top ms: {top}", flush=True)
-    with torch.profiler.profile(activities=[acts.CPU]) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1176,6 +1216,333 @@ def phase_bursts(gen: torch.Generator) -> None:
           flush=True)
 
 
+# ------------------------------------------ 3d: the omega-space bursts
+
+OMEGA_ROWS = (  # counter key, kernel, the Pallas body it replaces
+    ("k5", "grad_project", "spectralae/train/fft_pallas.py:90"),
+    ("k6", "respectra_conv", "spectralae/train/fft_pallas.py:170"),
+    ("k7", "fused_step", "spectralae/train/fft_pallas.py:413"),
+    ("k8", "itergrid", "spectralae/train/fft_iter.py:59"))
+OMEGA_GRIDS = ("::sweep_kernel", "::reduce_kernel", "::itergrid_kernel")
+# grids in one launch: K5-K7 sweep, then sum the tiles' partials in order
+OMEGA_GRIDS_PER_LAUNCH = {"k5": 2, "k6": 2, "k7": 2, "k8": 1}
+# each kernel's outputs, held one by one against the plain version's (their
+# scales differ by up to 1e17: the MSE sums beside O, g and the biases')
+OMEGA_OUTPUTS = {"k5": ("g", "db", "dp"), "k6": ("O", "mse"),
+                 "k7": ("O", "mse", "g", "db", "dp"),
+                 "k8": ("cf", "b", "p", "mcf", "mb", "mp", "mses")}
+# each path: the engine, and its launches per burst of `iters` iterations
+OMEGA_ENGINES = {
+    "omega_pallas": ("fft_pallas", "fft_burst_pallas",
+                     lambda n: {"k5": n, "k6": n}),
+    "omega_fused": ("fft_pallas", "fft_burst_pallas_fused",
+                    lambda n: {"k5": 1, "k7": n}),
+    "omega_itergrid": ("fft_iter", "fft_burst_itergrid",
+                       lambda n: {"k8": 1})}
+OMEGA_ITERS = 100
+# K5-K7 against their plain versions: the same float32 products summed in
+# another order (the projection over up to 33,024 bins); bf16 operands: a
+# sum that lands across a bf16 rounding boundary in one version and not in
+# the other moves that operand by 2^-9; K8's weights after STREAM_CMP_ITERS
+# iterations through the inertia's g/max(|g|, 10), the bound of the stream
+# comparison
+TOL_OMEGA, TOL_OMEGA_BF16 = 1e-5, 2e-3
+
+
+def omega_cost(key: str, nb: int, m: int, d: int, p: int, w: int,
+               iters: int = 0):
+    """Float32 operations and bytes of one launch of K5-K8 over ``w`` bins
+    of ``nb`` frames: each rebuild of the 2·M·D kernel spectra and each
+    projection of the gradient spectra is 2·2·(2MD)·P·W flops; per bin and
+    frame the forward is 16·M·D, the gradient products 32·M·D, the MSE
+    term 6·D; the planes, basis, weights and kernels read once, the outputs
+    written once.  K8 runs ``iters`` iterations: iters+1 rebuilds, iters
+    projections, one gradient pass on O0."""
+    rows, bd = 2 * m * d, nb * d
+    basis = 4.0 * rows * p * w
+    fwd, grad, mse = 16 * m * d, 32 * m * d, 6 * d
+    small = rows * p + m + d
+    inputs = 2 * p * w + w + small
+    if key == "k5":
+        return (2 * basis + w * (nb * grad + 2 * rows),
+                4.0 * (6 * bd * w + inputs + small))
+    if key == "k6":
+        return (basis + w * nb * (fwd + mse),
+                4.0 * (6 * bd * w + inputs + 1))
+    if key == "k7":
+        return (2 * basis + w * (nb * (fwd + grad + mse) + 2 * rows),
+                4.0 * (6 * bd * w + inputs + small + 1))
+    return ((2 * iters + 1) * basis + w * nb * (grad + mse)
+            + iters * w * nb * (fwd + grad + mse),
+            4.0 * (6 * bd * w + inputs + 3 * small + iters + 1))
+
+
+def _omega_inputs(gen: torch.Generator) -> list:
+    """The two burst inputs: the JAX benchmark's headline (one [3, 256,
+    256] frame x 50, O0 from the forward of a one-pair default net,
+    bench.py:453-483) and the stream's pair-0 input (128^2 b8 of 256^2
+    frames, O0 from the pair's own forward); pair-0 kernels of the default
+    net (D=3, M=10, 5x5) with biases set non-zero."""
+    from spectralae_torch.core.config import Config
+    from spectralae_torch.core.types import init_params, initial_spec
+    from spectralae_torch.model import autoencoder as model
+    from spectralae_torch.train import fft_corr, streaming
+    cfg = Config(nx=256, ny=256)
+    spec1 = initial_spec(cfg)
+    one = init_params(torch.Generator().manual_seed(0), spec1, cfg.layer.rmax,
+                      device="cuda")
+    x0 = torch.randn(3, 256, 256, device="cuda", generator=gen) * 50
+    with torch.no_grad():
+        out0 = model.forward_fft(one, x0[None], spec1.scales)[0]
+    params, spec = _net(256)
+    frames = torch.rand(8, 3, 256, 256, device="cuda", generator=gen) * 255
+    xs = streaming._pair_input(params, frames, spec.scales, 0)
+    out = []
+    for label, x, o, net in (("256x256 b1 (headline)", x0, out0, one),
+                             ("128x128 b8 (stream pair 0)", xs, None,
+                              params)):
+        enc, dec = net.pair(0)
+        w = (enc.c, dec.c,
+             torch.randn(enc.c.shape[0], device="cuda", generator=gen) * 0.5,
+             torch.randn(dec.c.shape[0], device="cuda", generator=gen) * 0.5)
+        if o is None:
+            o = fft_corr._true_forward(x, *w, True)
+        out.append((label, x, o, w))
+    return out
+
+
+def _omega_kernel_rows(label, x, out0, w) -> dict:
+    """K5-K8 at one input against their plain versions, float32 and bf16
+    operands, timed with float32 operands; K8 at STREAM_CMP_ITERS
+    iterations.  Returns the timed rows by (kernel, variant), and each
+    kernel's largest absolute error and largest norm-relative error of one
+    output over both variants."""
+    from spectralae_torch.ops import burst_kernels as bk
+    from spectralae_torch.train import fft_pallas as fp
+    s = fp._prepare(x, x, out0, w[0], True, torch.float32)
+    M, D, nk, _ = w[0].shape
+    P = nk * nk
+    cf, b, p = fp._stack(w[0], w[1], M * D, P), w[2], w[3]
+    ops = (s.planes, s.basis, s.wv, cf, b)
+    nb, W = s.nb, s.planes.shape[-1]
+    zeros = [torch.zeros_like(t) for t in (cf, b, p)]
+    it = STREAM_CMP_ITERS
+    rows, errs, rels = {}, {}, {}
+    for variant in ("f32", "bf16"):
+        bf16 = variant == "bf16"
+        k = dict(s.consts, mxu_bf16=bf16)
+        k5 = {n: k[n] for n in ("norm", "scale", "mxu_bf16")}
+        k6 = {n: k[n] for n in ("norm", "inv_m", "inv_d", "mxu_bf16")}
+        k8 = dict(k, iters=it, lr_eff=0.02, alpha=0.9)
+        tol = TOL_OMEGA_BF16 if bf16 else TOL_OMEGA
+        tag = f"{label} {variant} operands, W={W}"
+        calls = {
+            "k5": (lambda: bk.grad_project(*ops, **k5),
+                   lambda: bk.grad_project_plain(*ops, **k5), tol),
+            "k6": (lambda: bk.respectra_conv(*ops, p, **k6),
+                   lambda: bk.respectra_conv_plain(*ops, p, **k6), tol),
+            "k7": (lambda: bk.fused_step(*ops, p, **k),
+                   lambda: bk.fused_step_plain(*ops, p, **k), tol),
+            "k8": (lambda: bk.itergrid(*ops, p, *zeros, **k8),
+                   lambda: bk.itergrid_plain(*ops, p, *zeros, **k8),
+                   TOL_OMEGA_BF16 if bf16 else TOL_STREAM_W)}
+        for key, name, _ in OMEGA_ROWS:
+            kern, plain, t = calls[key]
+            got, want = kern(), plain()
+            what = f"K{key[1]} {name} {tag}" + (f", {it} iterations"
+                                                if key == "k8" else "")
+            held = {}   # output -> (norm-relative error, tolerance)
+            for out, g_, w_ in zip(OMEGA_OUTPUTS[key], got, want):
+                tt = t   # K8's momenta and MSEs: the stream comparison's
+                if key == "k8" and out[0] == "m":
+                    tt = max(t, TOL_STREAM_MSE if out == "mses"
+                             else TOL_STREAM_MOM)
+                held[out] = (rel_err(g_.reshape(-1), w_.reshape(-1)), tt)
+            print(f"{what}: " + ", ".join(f"{o} rel {e:.3e} (tol {tt:g})"
+                                          for o, (e, tt) in held.items()),
+                  flush=True)
+            bad = [o for o, (e, tt) in held.items() if not e <= tt]
+            check(not bad, f"{what} disagrees in {bad}")
+            rel = max(e for e, _ in held.values())
+            rels[key] = max(rels.get(key, 0.0), rel)
+            got, want = _flat(got), _flat(want)
+            errs[key] = max(errs.get(key, 0.0),
+                            float((got - want).abs().max()))
+            if bf16:   # held, not timed
+                continue
+            rows[(key, variant)] = measure(
+                what, got, want, kern, plain,
+                bound_ms(*omega_cost(key, nb, M, D, P, W, it)),
+                max(tt for _, tt in held.values()), library=None,
+                names=OMEGA_GRIDS, rel=rel)
+    return rows, errs, rels
+
+
+def _burst_vs(label, a, b, tols) -> None:
+    """Weights, momentum and MSEs of two bursts (the second on any
+    device), each norm-relative (MSEs: largest relative entry)."""
+    errs = {"weights": rel_err(_flat((a.c, a.f, a.b, a.p)).cpu(),
+                               _flat((b.c, b.f, b.b, b.p)).cpu()),
+            "momentum": rel_err(_flat(a.mom).cpu(), _flat(b.mom).cpu()),
+            "mses": float(((a.mses.double().cpu() - b.mses.double().cpu())
+                           .abs() / b.mses.double().cpu().abs()).max())}
+    print(f"{label}: " + ", ".join(f"{n} {e:.3e} (tol {tols[n]:g})"
+                                   for n, e in errs.items()), flush=True)
+    for n, e in errs.items():
+        check(e <= tols[n], f"{label}: {n} {e:.3e} > {tols[n]:g}")
+
+
+def phase_omega(gen: torch.Generator) -> tuple[dict, ...]:
+    """3d: K5-K8 against their plain versions at both inputs, then each
+    engine: launches per burst (no plain version may run on the card), a
+    STREAM_CMP_ITERS burst against the CPU port and the card's ω-space
+    burst (``fft_burst(impl="dft")``, batched: ``fft_burst_dp``'s ω body),
+    an OMEGA_ITERS burst within the map's spread of the card's ω-space
+    burst, B9 run twice bit for bit, and host / device ms per OMEGA_ITERS
+    burst beside ``fft_burst`` and ``burst_corr``.  Returns the kernel
+    rows, each kernel's largest absolute and norm-relative errors, the
+    launches of each engine's path (one OMEGA_ITERS burst at the headline
+    input) and the engine times."""
+    from spectralae_torch.ops import burst_kernels as bk
+    from spectralae_torch.train import fft, fft_corr, fft_dp
+    from spectralae_torch.train import fft_iter, fft_pallas
+    mods = {"fft_pallas": fft_pallas, "fft_iter": fft_iter}
+    t0 = time.perf_counter()
+    inputs = _omega_inputs(gen)
+    rows, errs, rels = {}, {}, {}
+    for label, x, out0, w in inputs:
+        timed, e, r = _omega_kernel_rows(label, x, out0, w)
+        rows.update({(label,) + k: v for k, v in timed.items()})
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+        rels = {k: max(rels.get(k, 0.0), v) for k, v in r.items()}
+    print(f"phase 3d: kernel rows {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fallbacks = []
+    plains = ("grad_project_plain", "respectra_conv_plain",
+              "fused_step_plain", "itergrid_plain")
+    real = {n: getattr(bk, n) for n in plains}
+
+    def guarded(name):
+        def guard(planes, *a, **kw):
+            if planes.is_cuda:
+                fallbacks.append(name)
+            return real[name](planes, *a, **kw)
+        return guard
+    by_path, timing = {}, {}
+    for n in plains:
+        setattr(bk, n, guarded(n))
+    try:
+        for label, x, out0, w in inputs:
+            head = label.startswith("256")
+            cpu = [t.cpu() for t in (x, out0) + w]
+
+            def ref(iters):
+                a = (x, out0) + w
+                if a[0].dim() == 3:
+                    return fft.fft_burst(a[0], a[0], a[1], *a[2:],
+                                         iters=iters, impl="dft")
+                return fft_dp.fft_burst_dp(a[0], a[0], a[1], *a[2:],
+                                           iters=iters, use_pallas=False)
+            cmp_tols = {"weights": TOL_STREAM_W, "momentum": TOL_STREAM_MOM,
+                        "mses": TOL_STREAM_MSE}
+            dft10, dft100 = ref(STREAM_CMP_ITERS), ref(OMEGA_ITERS)
+            calls = {}
+            for path, (mod, fn_name, per) in OMEGA_ENGINES.items():
+                fn = getattr(mods[mod], fn_name)
+
+                def run(iters, a=(x, out0) + w, fn=fn):
+                    return fn(a[0], a[0], a[1], *a[2:], iters=iters)
+                for iters in (STREAM_CMP_ITERS, OMEGA_ITERS):
+                    reset_counts()
+                    r = run(iters)
+                    torch.cuda.synchronize()
+                    got = counts()
+                    want = dict.fromkeys(got, 0)
+                    want.update(per(iters))
+                    check(got == want, f"{path} {label} {iters} iterations: "
+                          f"launches {got}, expected {want}")
+                    if head and iters == OMEGA_ITERS:
+                        by_path[path] = got
+                    check(bool(torch.isfinite(r.mses).all()),
+                          f"{path} {label}: non-finite mse")
+                    if iters == STREAM_CMP_ITERS:
+                        _burst_vs(f"{path} {label} {iters} iterations, card "
+                                  "vs CPU port", r, run(iters, cpu), cmp_tols)
+                        _burst_vs(f"{path} {label} {iters} iterations, card "
+                                  "vs the card's fft_burst(impl='dft')", r,
+                                  dft10, cmp_tols)
+                w_err = rel_err(_flat((r.c, r.f, r.b, r.p)),
+                                _flat((dft100.c, dft100.f, dft100.b,
+                                       dft100.p)))
+                ratio = float(r.mses[-1] / dft100.mses[-1])
+                print(f"{path} {label} {OMEGA_ITERS} iterations: mse "
+                      f"{float(r.mses[0]):.6g} -> {float(r.mses[-1]):.6g}; "
+                      f"vs the card's fft_burst(impl='dft') weights "
+                      f"{w_err:.3e} (tol "
+                      f"{TOL_LONG_W:g}), last mse ratio {ratio:.4f} (within "
+                      f"a factor {TOL_LONG_MSE_FACTOR:g})", flush=True)
+                check(w_err <= TOL_LONG_W and 1 / TOL_LONG_MSE_FACTOR <= ratio
+                      <= TOL_LONG_MSE_FACTOR, f"{path} {label}: long burst")
+                if path == "omega_itergrid":
+                    again = run(OMEGA_ITERS)
+                    same = all(torch.equal(getattr(r, n), getattr(again, n))
+                               for n in ("c", "f", "b", "p", "mses")) and \
+                        all(torch.equal(a, b) for a, b in zip(r.mom,
+                                                              again.mom))
+                    print(f"omega_itergrid {label}: two {OMEGA_ITERS}-"
+                          f"iteration runs bit-identical: {same}", flush=True)
+                    check(same, "omega_itergrid runs differ")
+                calls[path] = (lambda run=run: run(OMEGA_ITERS), (
+                    sum(per(OMEGA_ITERS).values()),
+                    sum(n * OMEGA_GRIDS_PER_LAUNCH[k]
+                        for k, n in per(OMEGA_ITERS).items())))
+            calls["fft_burst(impl='dft')"] = (lambda: ref(OMEGA_ITERS), None)
+            calls["burst_corr"] = (lambda: fft_corr.burst_corr(
+                x, x, out0, *w, iters=OMEGA_ITERS), None)
+            for name, (fn, launches) in calls.items():
+                host = _host_ms(fn, 2)
+                # the plain omega-space burst makes tens of thousands of
+                # device operations a call: a profile of two calls
+                ncall = 2 if name.startswith("fft_burst") else REPS
+                ops = device_ops(fn, ncall)
+                dev = sum(ms * k for _, ms, k, _ in ops)
+                held = sum(c for key, _, _, c in ops
+                           if any(g in key for g in OMEGA_GRIDS))
+                per_it = None
+                if launches is not None:
+                    per_it = launches[0] / OMEGA_ITERS
+                # events around the calls: the device time of a burst that
+                # waits on the device (B9), the host's pace for the others
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(2):
+                    fn()
+                stop.record()
+                torch.cuda.synchronize()
+                ev = start.elapsed_time(stop) / 2
+                per_op = sum(k for _, _, k, _ in ops) / OMEGA_ITERS
+                timing[(label, name)] = {"host_ms": host, "device_ms": dev,
+                                         "events_ms": ev, "busy": dev / host,
+                                         "launches_per_iteration": per_it,
+                                         "device_ops_per_iteration": per_op}
+                print(f"{OMEGA_ITERS}-iteration burst {label}, {name}: host "
+                      f"{host:.4f} ms, device {dev:.4f} ms over {ncall} calls "
+                      f"(busy {dev / host:.1%}), events {ev:.4f} ms, device "
+                      f"operations per iteration {per_op:.2f}" + (
+                          "" if per_it is None else
+                          f", hand-written kernel launches per iteration "
+                          f"{per_it:g} ({launches[1] / OMEGA_ITERS:g} grids; "
+                          f"the profile held {held} of their "
+                          f"{launches[1] * ncall} records)"), flush=True)
+        check(not fallbacks, f"plain versions ran on the card: {fallbacks}")
+    finally:
+        for n in plains:
+            setattr(bk, n, real[n])
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return rows, errs, rels, by_path, timing
+
+
 def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
     """``train --mode stream`` (with and without ``--pallas-fft``) and
     ``--mode burst`` through the CLI on the card (see the module
@@ -1587,6 +1954,10 @@ def main() -> int:
     mixed = phase_windows_mixed(gen)
     errs["k4"] = max(errs["k4"], *(r["abs"] for r in mixed.values()))
     phase_bursts(gen)
+    # 3d. the omega-space burst engines
+    (omega_rows, oerrs, omega_rels, omega_paths,
+     omega_timing) = phase_omega(gen)
+    errs.update(oerrs)
 
     # 4. the serving path; 5. the training path; 6. stream and burst
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1599,10 +1970,12 @@ def main() -> int:
         phase_stream_vs_cpu()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    by_path.update(omega_paths)
     # every kernel that a path runs was launched in that path's run
     uses = {"serve": ("k1", "k2"), "train": ("k1", "k2"),
             "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
-            "burst": ("k1", "k3")}
+            "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
+            "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",)}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
               f"launches on the {path} path: {by_path[path]}")
@@ -1704,7 +2077,38 @@ def main() -> int:
                           "input); the main path at 256^2 runs none")
             row["launches_recursion_run"] = rec_launched[key]
         kernels.append(row)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    head = "256x256 b1 (headline)"
+    for key, name, replaces in OMEGA_ROWS:
+        paths = {path: by_path[path][key] for path in by_path}
+        r = omega_rows[(head, key, "f32")]
+        row = {"name": name, "route": "cuda",
+               "source": "spectralae_torch/csrc/omega_burst.cu",
+               "replaces": replaces, "launches": sum(paths.values()),
+               "launches_by_path": paths, "max_abs_err": errs[key],
+               **{k: r[k] for k in timing + ("bound_by",)},
+               # the largest of the outputs held one by one, both inputs
+               # and operand types
+               "max_norm_rel_err": omega_rels[key],
+               "per": ("one launch at the JAX benchmark's headline input (one "
+                       "[3, 256, 256] frame, pair 0 of the default net, "
+                       "float32 operands)" + (
+                           f", a {STREAM_CMP_ITERS}-iteration burst"
+                           if key == "k8" else "")),
+               "by_input": {}}
+        for k, v in omega_rows.items():
+            if k[1] == key:
+                row["by_input"].setdefault(k[0], {})[k[2]] = {
+                    n: v[n] for n in timing}
+        if key == "k8":
+            row["device_ms_100_iteration_burst"] = omega_timing[
+                (head, "omega_itergrid")]["device_ms"]
+        kernels.append(row)
+    print(f"the device profiles held {PROFILED['held']} of the "
+          f"{PROFILED['expected']} operation records they should have",
+          flush=True)
+    print(json.dumps({"kernels": kernels, "omega_bursts_100": {
+        f"{label}: {name}": v for (label, name), v in omega_timing.items()}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,8 @@ by a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
-exception (``corr_windows_scratch_floats``, a host-side size query, is the
-one entry point that launches nothing).
+exception (``corr_windows_scratch_floats`` and ``omega_scratch_floats``,
+host-side size queries, launch nothing).
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
@@ -66,9 +66,24 @@ _SIGNATURES = {
     "fft_x_leaf_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     # xr, xi, consts, outr, outi, BD, A, n, lanes, stream
     "bfly_round_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # kind, nb, M, D, P, W (returns long long)
+    "omega_scratch_floats": (_I,) * 6,
+    # planes, basis, wv, cf, b, out, dbdp, scratch, nb, M, D, P, W, norm,
+    # scale, bf16, stream
+    "omega_grad_project_launch": (_P,) * 8 + (_I,) * 5 + (_F, _F, _I, _P),
+    # planes, basis, wv, cf, b, p, o_out, mse_out, scratch, nb, M, D, P, W,
+    # norm, inv_m, inv_d, bf16, stream
+    "omega_respectra_launch": (_P,) * 9 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+    # planes, basis, wv, cf, b, p, o_out, out, dbdp, scratch, nb, M, D, P,
+    # W, norm, inv_m, inv_d, scale, bf16, stream
+    "omega_fused_step_launch": (_P,) * 10 + (_I,) * 5 + (_F,) * 4 + (_I, _P),
+    # planes, basis, wv, state_in, state_out, mse_out, scratch, nb, M, D, P,
+    # W, iters, norm, inv_m, inv_d, scale, lr_eff, alpha, bf16, stream
+    "omega_itergrid_launch": (_P,) * 7 + (_I,) * 6 + (_F,) * 6 + (_I, _P),
 }
 # entry points that return something other than a cudaError_t
-_RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong}
+_RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong,
+             "omega_scratch_floats": ctypes.c_longlong}
 
 
 class KernelBuild:

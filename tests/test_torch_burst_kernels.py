@@ -1,0 +1,146 @@
+"""The omega-space burst kernels K5-K8 against their plain versions, on the
+card (``csrc/omega_burst.cu``).
+
+Every test here is marked ``cuda``, skips without an NVIDIA GPU, and
+imports no JAX, so it runs on a machine that has none::
+
+    python -m pytest tests/test_torch_burst_kernels.py -m cuda --noconftest
+
+Shapes: the default net's pair 0 (D=3, M=10, 5x5) and a small net (D=2,
+M=4, 3x3), at one and several frames, with W = nx·(ny/2+1) never a
+multiple of the kernels' 128-bin tile (the masked tail).  Tolerances,
+norm-relative: 1e-5 for g, O and the MSE sums (the same float32 products
+summed in another order, the projection over up to 33,024 bins); for the
+bf16 operands 2e-3 (a sum that lands across a bf16 rounding boundary in one
+version and not in the other moves that operand by 2^-9); K8's weights,
+momenta and MSEs after 3 iterations 1e-4 (the inertia's g/max(|g|, 10)
+passes the gradients' error on).
+"""
+
+import pytest
+import torch
+
+from spectralae_torch.ops import burst_kernels as bk
+
+TOL, TOL_BF16, TOL_ITER = 1e-5, 2e-3, 1e-4
+
+SHAPES = [  # (nb, D, M, nk, n): W = n·(n/2+1)
+    (1, 3, 10, 5, 64),     # W = 2,112
+    (4, 3, 10, 5, 40),     # W = 840
+    (3, 2, 4, 3, 20),      # W = 220
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _problem(dev, nb, D, M, nk, n, seed=0):
+    """planes, basis, wv, cf, b, p and the burst constants of one random
+    pair-shaped problem (pixel-scale frames, the output of other weights)."""
+    from spectralae_torch.train import fft_pallas as fp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * s
+    x = torch.rand(nb, D, n, n, device=dev, generator=gen) * 255
+    c, f = rnd(M, D, nk, nk, s=0.3), rnd(D, M, nk, nk, s=0.3)
+    b, p = rnd(M, s=0.5), rnd(D, s=0.5)
+    out0 = x * 0.9 + rnd(nb, D, n, n, s=5.0)
+    s = fp._prepare(x, x, out0, c, True, torch.float32)
+    cf = fp._stack(c, f, M * D, nk * nk)
+    return s, cf, b, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_grad_project_matches_plain(cuda_device, shape, bf16):
+    s, cf, b, p = _problem(cuda_device, *shape)
+    kw = dict(norm=s.consts["norm"], scale=s.consts["scale"], mxu_bf16=bf16)
+    before = bk.LAUNCHES["grad_project"]
+    got = bk.grad_project(s.planes, s.basis, s.wv, cf, b, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["grad_project"] == before + 1
+    want = bk.grad_project_plain(s.planes, s.basis, s.wv, cf, b, **kw)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < (TOL_BF16 if bf16 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_respectra_and_fused_step_match_plain(cuda_device, shape, bf16):
+    s, cf, b, p = _problem(cuda_device, *shape)
+    k = dict(s.consts, mxu_bf16=bf16)
+    tol = TOL_BF16 if bf16 else TOL
+    before = dict(bk.LAUNCHES)
+    O, mse = bk.respectra_conv(s.planes, s.basis, s.wv, cf, b, p,
+                               **{n: k[n] for n in ("norm", "inv_m", "inv_d",
+                                                    "mxu_bf16")})
+    fused = bk.fused_step(s.planes, s.basis, s.wv, cf, b, p, **k)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["respectra_conv"] == before["respectra_conv"] + 1
+    assert bk.LAUNCHES["fused_step"] == before["fused_step"] + 1
+    wO, wmse = bk.respectra_conv_plain(
+        s.planes, s.basis, s.wv, cf, b, p,
+        **{n: k[n] for n in ("norm", "inv_m", "inv_d", "mxu_bf16")})
+    assert _rel(O, wO) < tol and _rel(mse, wmse) < tol
+    for g, w in zip(fused, bk.fused_step_plain(s.planes, s.basis, s.wv, cf,
+                                               b, p, **k)):
+        assert _rel(g, w) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_itergrid_matches_plain_in_one_launch(cuda_device, shape, bf16):
+    s, cf, b, p = _problem(cuda_device, *shape)
+    mom = [torch.randn_like(t) * 0.01 for t in (cf, b, p)]
+    kw = dict(s.consts, iters=3, lr_eff=0.02, alpha=0.9, mxu_bf16=bf16)
+    before = bk.LAUNCHES["itergrid"]
+    got = bk.itergrid(s.planes, s.basis, s.wv, cf, b, p, *mom, **kw)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["itergrid"] == before + 1
+    want = bk.itergrid_plain(s.planes, s.basis, s.wv, cf, b, p, *mom, **kw)
+    assert got[-1].shape == (4,)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < (TOL_BF16 if bf16 else TOL_ITER)
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit(cuda_device):
+    """No float atomics: two runs of each kernel agree exactly."""
+    s, cf, b, p = _problem(cuda_device, 2, 3, 10, 5, 64, seed=3)
+    runs = []
+    for _ in range(2):
+        mom = [torch.zeros_like(t) for t in (cf, b, p)]
+        runs.append(torch.cat([t.reshape(-1) for t in (
+            *bk.grad_project(s.planes, s.basis, s.wv, cf, b,
+                             norm=s.consts["norm"], scale=s.consts["scale"]),
+            *bk.fused_step(s.planes, s.basis, s.wv, cf, b, p, **s.consts),
+            *bk.itergrid(s.planes, s.basis, s.wv, cf, b, p, *mom, iters=20,
+                         lr_eff=0.02, alpha=0.9, **s.consts))]))
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 16)
+    with pytest.raises(TypeError, match="float32"):
+        bk.grad_project(s.planes.double(), s.basis, s.wv, cf, b, norm=1.0,
+                        scale=1.0)
+    basis7 = torch.zeros(2, 49, s.planes.shape[-1], device=cuda_device)
+    with pytest.raises(ValueError, match="P <= 32"):   # 7x7 kernels
+        bk.grad_project(s.planes, basis7, s.wv,
+                        torch.zeros(60, 49, device=cuda_device), b,
+                        norm=1.0, scale=1.0)
