@@ -17,10 +17,19 @@ Phases (any failure raises and exits non-zero):
    K2 as the data grad) and the autograd Functions' gradients against
    autograd through the plain path; norm-relative error, the profiler's
    device time beside the plain call's, the library call's (one einsum for
-   K1, cuDNN for K2) and the bound, one line per shape; then the whole
-   forward and the whole train step in both domains at both sizes: host
-   time, device time and the kernels that take it, with the shape of each
-   kernel launch of one 256^2 step recorded.
+   K1, cuDNN for K2) and the bound, one line per shape; K1's three
+   launches with bf16 operands at the 256^2 stage shapes (no library
+   call: PyTorch has no complex bf16); then the whole forward and the
+   whole train step in both domains at both sizes, in float32 and with
+   bf16 operands (``compute_dtype``): host time, device time and the
+   kernels that take it, with the shape of each kernel launch of one 256^2
+   step recorded.
+3a. The probe kernels (``csrc/probes.cu``) through their scripts:
+   ``scripts/torch_probe_mosaic_features.py`` (P1, three exact probes) and
+   ``scripts/torch_probe_fused_dft.py`` (P2, ``--check`` on the card, then
+   ``--n 2048``), their launches counted; then each against its plain
+   version and a PyTorch call (P2: ``torch.fft.rfft`` and the weighted
+   sum) with its bound.
    Then K3 (``corr_pair_windows``) and K4 (``anchor_windows``, float32 and
    bf16 signal) against their plain versions at the burst precompute's
    shapes: pair 0's input of the default net at 128^2 batch 8, 512^2 batch 4
@@ -66,7 +75,11 @@ Phases (any failure raises and exits non-zero):
    domains, with a checkpoint and a resume; the loss must fall, the resume
    must go on from the saved weights, the launch counters must grow by
    exactly the launches of one step per step, and a 3-step run must match
-   the same run on the CPU in parameters, momentum and raw gradient.
+   the same run on the CPU in parameters, momentum and raw gradient; then
+   ``train --bf16`` in both domains, with and without ``--activation
+   leaky_relu`` (K1 with bf16 operands, K2 on upcast ones), its launches
+   per step counted and its loss falling, and its 3-step run against the
+   CPU's.
 6. Stream and burst training: ``train --mode stream`` through the CLI at
    256^2 batch 8 with a checkpoint and a resume, with ``--bf16``, and with
    ``--train-pair all --pair-sweep frame``; all of these again with
@@ -81,15 +94,17 @@ Phases (any failure raises and exits non-zero):
    "fft" route), and within the spread of the training map at 100.
 
 The line before the last is a JSON object with each kernel's launches on
-every path (serve, train, stream, stream_fft, burst, and omega_pallas,
-omega_fused, omega_itergrid: one 100-iteration burst of each engine at the
-headline input), its largest error, and its time, plain time, bound and
-library time: K1 and K2 per 256^2 batch-8 train step (forward and
-backward; the rows of phase 3 at the shapes of the launches one such step
-made, summed), K3 per precompute of a burst, K4, B5a and B5b per launch at
-256^2 batch-8 frames, B5c-e per launch in the 4096^2 transform, K5-K7 per
-launch and K8 per 10-iteration launch at the headline input; beside them
-the engines' 100-iteration times.  The last line is
+every path (serve, train, train_bf16, stream, stream_fft, burst, and
+omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
+engine at the headline input; probe_mosaic and probe_dft, the probe
+scripts), its largest error, and its time, plain time, bound and library
+time: K1, K1 with bf16 operands and K2 per 256^2 batch-8 train step
+(forward and backward; the rows of phase 3 at the shapes of the launches
+one such step made, summed), K3 per precompute of a burst, K4, B5a and
+B5b per launch at 256^2 batch-8 frames, B5c-e per launch in the 4096^2
+transform, K5-K7 per launch and K8 per 10-iteration launch at the headline
+input, P1 per launch on the probe's input, P2 per launch at [3, 2048,
+2048]; beside them the engines' 100-iteration times.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -174,6 +189,39 @@ TOL_FFT_ROUTE, TOL_FFT_ROUTE_BF16 = 1e-4, 2e-2
 STREAM_FFT_STEPS, STREAM_FFT_RESUME = 16, 8
 # the recursion on the card: pair 0's input of 8192^2 frames, batch 1
 RECURSION_N = 4096
+# K1 with bf16 operands against its plain version on the same bf16 planes:
+# a product of two bf16 values is exact in float32, so only the order of
+# the float32 sums differs
+TOL_K1_BF16 = 1e-5
+# 3 bf16 train steps, card against CPU (parameters, momentum, raw
+# gradient): a float32 FFT or conv result that differs by ~1e-7 between
+# the libraries rounds to another bf16 value now and then.  On the CPU a
+# 1e-7 or 1e-6 relative change of the frames moved a 3-step bf16 run by at
+# most 4.1e-9 / 3.7e-8 / 3.7e-7 (fft) and 3.8e-5 / 9.1e-4 / 3.9e-4 (coord:
+# every activation is stored in bf16); the bounds are ten times those,
+# and the float32 fft bounds where those are larger
+TOL_BF16 = {"fft": (TOL_FFT, TOL_MOM, TOL_FFT),
+            "coord": (4e-4, 1e-2, 4e-3)}
+# those bounds hold the card against the CPU taking the card's routes (every
+# spectral conv through SpectralConvFused, the coord convs of K2's shapes
+# through ConvValid, their plain versions on the CPU).  The CLI on the CPU
+# takes the einsum and F.conv2d, as the JAX package does off its
+# accelerator: in bf16 those round the gradients at other points than the
+# kernels' VJPs (JAX's einsum and its fused conv differ the same way; on the
+# CPU the two routes' 3-step runs differed by 2.2e-3 / 6.8e-2 / 1.2e-2 in
+# the fft domain), two formulations of one bf16 step, so only the card's
+# routes are a like-for-like reference
+# the probe kernels (P1: exact; P2: the y-DFT energy of [3, n, n] frames
+# against its plain version's float32 products and against torch.fft.rfft)
+P1_ROWS = (  # counter key, kernel, the Pallas function it replaces
+    ("p1a", "lane_strided", "scripts/probe_mosaic_features.py:46"),
+    ("p1b", "sublane_strided", "scripts/probe_mosaic_features.py:65"),
+    ("p1c", "middle_store", "scripts/probe_mosaic_features.py:84"))
+# the elements of its input each P1 function reads
+P1_READS = {"lane_strided": lambda x: x[:, 1::4],
+            "sublane_strided": lambda x: x[1::4, :],
+            "middle_store": lambda x: x}
+P2_N, TOL_P2 = 2048, 1e-5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -186,11 +234,12 @@ def reset_counts() -> None:
     from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
+    from spectralae_torch.ops import probe_kernels as pk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
-    sk.LAUNCHES = 0
+    sk.LAUNCHES = sk.LAUNCHES_BF16 = 0
     ck.LAUNCHES = 0
-    for counter in (wk.LAUNCHES, fk.LAUNCHES, bk.LAUNCHES):
+    for counter in (wk.LAUNCHES, fk.LAUNCHES, bk.LAUNCHES, pk.LAUNCHES):
         counter.update(dict.fromkeys(counter, 0))
 
 
@@ -199,16 +248,19 @@ def counts() -> dict:
     from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
+    from spectralae_torch.ops import probe_kernels as pk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
-    return {"k1": sk.LAUNCHES, "k2": ck.LAUNCHES,
+    return {"k1": sk.LAUNCHES, "k1bf": sk.LAUNCHES_BF16, "k2": ck.LAUNCHES,
             "k3": wk.LAUNCHES["corr_pair_windows"],
             "k4": wk.LAUNCHES["anchor_windows"],
             "b5a": fk.LAUNCHES["rfft_y_mixed"],
             "b5b": fk.LAUNCHES["fft_x_mixed"],
             "b5c": fk.LAUNCHES["bfly_lanes"],
             "b5d": fk.LAUNCHES["bfly_rows"], "b5e": fk.LAUNCHES["fft_yc"],
-            **{key: bk.LAUNCHES[name] for key, name, _ in OMEGA_ROWS}}
+            **{key: bk.LAUNCHES[name] for key, name, _ in OMEGA_ROWS},
+            **{key: pk.LAUNCHES[name] for key, name, _ in P1_ROWS},
+            "p2": pk.LAUNCHES["ydft_energy"]}
 
 
 def grown(before: dict) -> dict:
@@ -288,6 +340,29 @@ def paired_ms(kernel, plain) -> tuple[float, float, float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel), device_ms(plain)
 
 
+def _checked_ms(ms: float, fn, ev: float) -> tuple[float, str]:
+    """A profiled device time of one ``fn()`` and where it came from,
+    retaken once when the profile held no record of the call (the profiler
+    drops records, see PROFILED) or read more than the call's event time
+    (it also repeats records: one P2 profile read 4.62 ms a call against
+    2.00 ms of events, and a call's device work cannot outlast its span on
+    the stream, 5 % allowed for the two windows' noise).  The events stand
+    in if the second profile fails too; they hold the host's launch gaps,
+    so the source reads "events" and not "profile"."""
+    for retake in (False, True):
+        if retake:
+            ms = device_ms(fn)
+        if 0 < ms <= 1.05 * ev:
+            return ms, "profile"
+    return ev, "events"
+
+
+def _sources(rows) -> str:
+    """Where the ``ms`` of summed rows came from: "profile", "events", or
+    both joined by "+"."""
+    return "+".join(sorted({r["ms_source"] for r in rows}))
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the float32 operations over the peak rate."""
@@ -296,11 +371,14 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(a: int, k: int, b: int, w: int, bias: bool = False):
-    """[A,K,W] x [K,B,W] -> [A,B,W] complex64: each operand read once, the
-    output written once; 8 flops per complex multiply-add."""
+def k1_bound(a: int, k: int, b: int, w: int, bias: bool = False,
+             op_bytes: int = 8):
+    """[A,K,W] x [K,B,W] -> [A,B,W] complex64: each operand read once
+    (``op_bytes`` a complex element: 8, or 4 for bf16 operands), the output
+    written once; 8 flops per complex multiply-add."""
     return bound_ms(8.0 * a * k * b * w,
-                    8.0 * w * (a * k + k * b + a * b) + (4 * b if bias else 0))
+                    op_bytes * w * (a * k + k * b) + 8.0 * w * a * b
+                    + (4 * b if bias else 0))
 
 
 def k2_bound(b: int, d: int, m: int, hp: int, wp: int, nk: int, nl: int):
@@ -323,25 +401,28 @@ def measure(label: str, got, want, kernel, plain, bound, tol: float, *,
     err = rel_err(got, want) if rel is None else rel
     abs_err = float((got - want).abs().max())
     ev, plain_ev, ms, plain_ms = paired_ms(kernel, plain)
-    ms, plain_ms = ms or ev, plain_ms or plain_ev
+    ms, src = _checked_ms(ms, kernel, ev)
+    plain_ms, plain_src = _checked_ms(plain_ms, plain, plain_ev)
     if names is not None:
-        call_ms = ms
-        ms = device_ms(kernel, names)
-        extra += f"; the call {call_ms:.4f} ms"
+        extra += f"; the call {ms:.4f} ms ({src})"
+        ms, src = device_ms(kernel, names), "profile"
     if library is True:
         lib_ms, lib_txt = plain_ms, " (the library call)"
     elif library is None:
         lib_ms, lib_txt = None, " library none"
     else:
-        lib_ms = device_ms(library) or cuda_ms(library)
-        lib_txt = f" library {lib_ms:.4f} ms"
+        lib_ms, lib_src = _checked_ms(device_ms(library), library,
+                                      cuda_ms(library))
+        lib_txt = f" library {lib_ms:.4f} ms ({lib_src})"
     print(f"{label}: rel {err:.3e} (tol {tol:g}{extra}) max_abs "
-          f"{abs_err:.3e} device: kernel {ms:.4f} ms plain {plain_ms:.4f} "
-          f"ms{lib_txt} bound {bound[0]:.4f} ms ({bound[1]}); events: "
-          f"kernel {ev:.4f} ms plain {plain_ev:.4f} ms", flush=True)
+          f"{abs_err:.3e} device: kernel {ms:.4f} ms ({src}) plain "
+          f"{plain_ms:.4f} ms ({plain_src}){lib_txt} bound {bound[0]:.4f} "
+          f"ms ({bound[1]}); events: kernel {ev:.4f} ms plain "
+          f"{plain_ev:.4f} ms", flush=True)
     check(err <= tol, f"{label} disagrees: rel {err:.3e} > {tol:g}")
-    return {"abs": abs_err, "rel": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
+    return {"abs": abs_err, "rel": err, "ms": ms, "ms_source": src,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms}
 
 
 def k1_key(p, q, conj_q: bool = False, bias=None) -> tuple:
@@ -400,14 +481,18 @@ def _grads_line(label: str, pairs, tol: float) -> float:
                if t is None)
 
 
-def k1_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
+def k1_shape(gen, n: int, batch: int, d: int, m: int,
+             bf16: bool = False) -> tuple[dict, float]:
     """K1 at one stage shape: the forward, the backward's dX and dC
     contractions, and SpectralConvFused's gradients against autograd
     through the plain einsum.  Returns the timed rows by launch key (each
     with its part of the step, forward or backward) and the largest
     absolute error.  The library call is one ``torch.einsum`` of the same
     operands, conjugated for dX and dC, without the 1/M scale and the DC
-    bias (two passes of their own)."""
+    bias (two passes of their own).  ``bf16``: the three launches with the
+    bf16 operands SpectralConvFused makes (X/M rounded after the scale, g
+    rounded before it), against the plain version on the same planes; no
+    library call (PyTorch has no complex bf16)."""
     from spectralae_torch.ops import dft, spectral
     from spectralae_torch.ops import spectral_kernels as sk
     nyr = n // 2 + 1
@@ -421,6 +506,30 @@ def k1_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
     g = torch.randn(batch, m, w, dtype=torch.complex64, device="cuda",
                     generator=gen)
     rows = {}
+    if bf16:
+        xs, gp = sk.bf16_planes(X, 1.0 / m), sk.bf16_planes(g)
+        cases = (
+            ("fwd", f"forward {tag} K={d} B={m} bf16", xs,
+             sk.bf16_planes(C).transpose(0, 1),
+             dict(bias=b, bias_scale=float(n * n)),
+             k1_bound(batch, d, m, w, bias=True, op_bytes=4)),
+            ("bwd", f"dX {tag} K={m} B={d} bf16 (p=g, q=conj C)", gp,
+             sk.bf16_planes(C), dict(p_scale=1.0 / m, conj_q=True),
+             k1_bound(batch, m, d, w, op_bytes=4)),
+            ("bwd", f"dC {tag} K={batch} B={d} bf16 (p=g^T view, q=conj "
+             "X/M)", gp.transpose(0, 1), xs, dict(conj_q=True),
+             k1_bound(m, batch, d, w, op_bytes=4)))
+        for part, label, p, q, kw, bound in cases:
+            row = measure(
+                f"K1 cmul_contract {label}",
+                sk.cmul_contract(p, q, **kw),
+                sk.cmul_contract_plain(p, q, **kw),
+                lambda: sk.cmul_contract(p, q, **kw),
+                lambda: sk.cmul_contract_plain(p, q, **kw), bound,
+                TOL_K1_BF16, library=None)
+            rows[k1_key(p, q, kw.get("conj_q"), kw.get("bias"))] = dict(
+                row, part=part)
+        return rows, max(r["abs"] for r in rows.values())
     gt = g.transpose(0, 1)
     fwd = dict(p_scale=1.0 / m, bias=b, bias_scale=float(n * n))
     bwd = dict(p_scale=1.0 / m, conj_q=True)
@@ -513,14 +622,37 @@ def k2_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
 
 def phase_kernels(gen: torch.Generator) -> tuple[dict, dict]:
     """Every stage shape at both sizes; returns each kernel's timed rows by
-    launch key and its largest absolute error."""
-    timed, errs = {"k1": {}, "k2": {}}, {"k1": 0.0, "k2": 0.0}
+    launch key and its largest absolute error.  Also B2, the unbatched
+    form, once."""
+    from spectralae_torch.ops import spectral
+    from spectralae_torch.ops import spectral_kernels as sk
+    timed = {"k1": {}, "k1bf": {}, "k2": {}}
+    errs = {"k1": 0.0, "k1bf": 0.0, "k2": 0.0}
     for nx, batch in ((256, 8), (1024, 4)):
         for n, d, m in sorted(set(stage_shapes(nx, 3))):
             for kern, fn in (("k1", k1_shape), ("k2", k2_shape)):
                 rows, err = fn(gen, n, batch, d, m)
                 timed[kern].update(rows)
                 errs[kern] = max(errs[kern], err)
+            if nx == 256:
+                # K1's bf16 operands at the launch shapes of a bf16 step
+                rows, err = k1_shape(gen, n, batch, d, m, bf16=True)
+                timed["k1bf"].update(rows)
+                errs["k1bf"] = max(errs["k1bf"], err)
+    # B2, the unbatched spectral_conv_pallas: K1 at batch 1, at stage 0's
+    # shape of a 256^2 frame (no path of the port calls it)
+    n, d, m = stage_shapes(256, 3)[0]
+    nyr = n // 2 + 1
+    X1 = torch.fft.rfft2(torch.randn(d, n, n, device="cuda", generator=gen))
+    C1 = torch.randn(m, d, n, nyr, dtype=torch.complex64, device="cuda",
+                     generator=gen)
+    b1 = torch.randn(m, device="cuda", generator=gen)
+    measure(f"B2 spectral_conv_pallas {n}x{n} b1 D={d} M={m} (K1 at A=1)",
+            sk.spectral_conv_pallas(X1, C1, b1, n, n),
+            spectral.spectral_conv_einsum(X1[None], C1, b1, n, n)[0],
+            lambda: sk.spectral_conv_pallas(X1, C1, b1, n, n),
+            lambda: spectral.spectral_conv_einsum(X1[None], C1, b1, n, n),
+            k1_bound(1, d, m, n * nyr, bias=True), TOL_K1)
     n, d, m = stage_shapes(256, 3)[-1]
     stage5 = timed["k2"][(8, m, n + 8, n + 8), (d, m, 5, 5)]
     print(f"stage-5 data grad at 256x256 b8 ({m}->{d} at {n + 8}^2): K2 "
@@ -545,10 +677,16 @@ def per_step(timed: dict, launched: dict) -> dict:
                   f"{key}, which no row of phase 3 timed")
             tot[f"{r['part']}_ms"] += r["ms"]
             tot[f"{r['part']}_plain_ms"] += r["plain_ms"]
-            for name in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            for name in ("ms", "plain_ms", "bound_ms"):
                 tot[name] += r[name]
+            # no library call for one launch: none for the step
+            if r["library_ms"] is None or tot["library_ms"] is None:
+                tot["library_ms"] = None
+            else:
+                tot["library_ms"] += r["library_ms"]
         tot["bound_by"] = max((timed[kern][k] for k in keys),
                               key=lambda r: r["bound_ms"])["bound_by"]
+        tot["ms_source"] = _sources(timed[kern][k] for k in keys)
         out[kern] = tot
     return out
 
@@ -623,9 +761,11 @@ def phase_forward() -> None:
 
 def phase_train_step() -> dict:
     """The same for whole train steps (forward, backward and the inertia
-    update), with the kernels' launches per step and the peak memory.
-    Returns the keys of the launches of one 256^2 batch-8 step, K1's from
-    the fft domain and K2's from the coord domain."""
+    update), in float32 and with bf16 operands (``compute_dtype``), with
+    the kernels' launches per step and the peak memory.  Returns the keys
+    of the launches of one 256^2 batch-8 step: K1's from the fft domain
+    (``k1``, and ``k1bf`` from the bf16 step) and K2's from the coord
+    domain."""
     from spectralae_torch.core.types import init_opt_state
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import spectral_kernels as sk
@@ -635,31 +775,40 @@ def phase_train_step() -> dict:
         params, spec = _net(nx)
         opt = init_opt_state(params)
         x = torch.rand(batch, 3, nx, nx, device="cuda") * 255
-        for domain in ("fft", "coord"):
+        for domain, cd in itertools.product(("fft", "coord"),
+                                            (None, torch.bfloat16)):
             def step():
-                return train_step(params, opt, x, spec.scales, domain=domain)
-            before = (sk.LAUNCHES, ck.LAUNCHES)
+                return train_step(params, opt, x, spec.scales, domain=domain,
+                                  compute_dtype=cd)
+            tag = "" if cd is None else " bf16"
+            before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES)
             with launch_log() as log:
                 step()
             torch.cuda.synchronize()
-            grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1])
-            want = ((K1_PER_FFT_STEP, 0) if domain == "fft"
-                    else (0, K2_PER_COORD_STEP))
-            check(grew == want, f"train step {domain}: launched K1 "
-                  f"{grew[0]}x, K2 {grew[1]}x; expected {want}")
-            check(grew == (len(log["k1"]), len(log["k2"])),
-                  f"train step {domain}: counted {grew}, logged "
+            grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
+                    ck.LAUNCHES - before[2])
+            want = [0, 0, K2_PER_COORD_STEP]
+            if domain == "fft":
+                want = [0, 0, 0]
+                want[0 if cd is None else 1] = K1_PER_FFT_STEP
+            check(grew == tuple(want), f"train step {domain}{tag}: "
+                  f"launched K1 {grew[0]}x, K1 bf16 {grew[1]}x, K2 "
+                  f"{grew[2]}x; expected {want}")
+            check(grew[0] + grew[1] == len(log["k1"])
+                  and grew[2] == len(log["k2"]),
+                  f"train step {domain}{tag}: counted {grew}, logged "
                   f"{len(log['k1'])} and {len(log['k2'])} launches")
-            if nx == 256:
-                kern = "k1" if domain == "fft" else "k2"
-                launched[kern] = log[kern]
+            if nx == 256 and not (domain == "coord" and cd is not None):
+                kern = ("k2" if domain == "coord"
+                        else "k1" if cd is None else "k1bf")
+                launched[kern] = log["k2" if kern == "k2" else "k1"]
             torch.cuda.reset_peak_memory_stats()
             step()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**20
-            _breakdown(f"train step {domain} {nx}x{nx} b{batch}", step,
-                       f", launches K1 {grew[0]} K2 {grew[1]}, peak "
-                       f"{peak:.1f} MiB")
+            _breakdown(f"train step {domain}{tag} {nx}x{nx} b{batch}", step,
+                       f", launches K1 {grew[0]} K1 bf16 {grew[1]} K2 "
+                       f"{grew[2]}, peak {peak:.1f} MiB")
         # the data grad of the 10->3 stage through K2 adds one launch
         route, ck.PALLAS_DATA_GRAD = ck.PALLAS_DATA_GRAD, True
         try:
@@ -674,6 +823,102 @@ def phase_train_step() -> dict:
         check(grew == K2_PER_COORD_STEP + 1,
               f"coord step with the K2 data grad launched K2 {grew}x")
     return launched
+
+
+# ------------------------------------------------ P1, P2: the probes
+
+def _sector_bytes(x: torch.Tensor, reads) -> float:
+    """The bytes of the 32-byte sectors of contiguous ``x`` that hold the
+    elements ``reads(x)`` selects: the least the card moves to read them
+    (every fourth float of a row touches every sector, every fourth row
+    only its own)."""
+    idx = reads(torch.arange(x.numel()).reshape(x.shape))
+    return 32.0 * torch.unique(idx * x.element_size() // 32).numel()
+
+
+def _script(name: str):
+    """``scripts/<name>.py`` of this checkout, loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_smoke_{name}", Path(__file__).resolve().parent / "scripts"
+        / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probes() -> tuple[dict, dict, dict]:
+    """The probes' own entry points on the card, each a path with its
+    launches counted: ``scripts/torch_probe_mosaic_features.py`` (three
+    ``OK maxerr=0.0`` lines) and ``scripts/torch_probe_fused_dft.py``
+    (``--check`` on the card, then ``--n 2048``, which times the kernel
+    beside ``torch.fft.rfft``).  Then each kernel against its plain version
+    and a PyTorch call on the same inputs: P1 exact on the JAX probe's
+    inputs, P2 at [3, 2048, 2048].  The bounds count what each function
+    needs: P1 the 32-byte sectors of the input its reads touch, P2 ``x``
+    read once or a real FFT a row (the script's ``bound``; the matmul DFT's
+    own operations are printed beside it).  Returns the rows, the largest
+    absolute errors and the paths' launches."""
+    from spectralae_torch.ops import probe_kernels as pk
+    paths = {}
+    mosaic = _script("torch_probe_mosaic_features")
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mosaic.main(["--device", "cuda"])
+    print(buf.getvalue(), end="", flush=True)
+    check(rc == 0 and buf.getvalue().splitlines() == [
+        f"{name}: OK maxerr=0.0" for _, name, _ in P1_ROWS],
+        f"the mosaic probes: exit {rc}")
+    paths["probe_mosaic"] = counts()
+    reset_counts()
+    dft = _script("torch_probe_fused_dft")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = (dft.main(["--check", "--device", "cuda"])
+              or dft.main(["--n", str(P2_N), "--reps", "5"]))
+    for line in buf.getvalue().splitlines():
+        print(f"torch_probe_fused_dft: {line}", flush=True)
+    check(rc == 0, f"the fused-DFT probe: exit {rc}")
+    paths["probe_dft"] = counts()
+
+    rows, errs = {}, {}
+    for key, name, _ in P1_ROWS:
+        fn, x_np, _ = mosaic.CASES[name]
+        x = torch.from_numpy(x_np).cuda()
+        plain = getattr(pk, f"{name}_plain")
+        if name == "middle_store":
+            kcol = torch.arange(1, 5, dtype=x.dtype, device="cuda")[
+                :, None, None]
+            library = lambda x=x, kcol=kcol: x[None] * kcol  # noqa: E731
+        else:
+            library = True      # the plain version is one strided multiply
+        got = fn(x)
+        nbytes = _sector_bytes(x, P1_READS[name]) + 4.0 * got.numel()
+        rows[key] = measure(
+            f"P1 {name} {tuple(x.shape)} -> {tuple(got.shape)}", got,
+            plain(x), lambda fn=fn, x=x: fn(x),
+            lambda plain=plain, x=x: plain(x),
+            bound_ms(float(got.numel()), nbytes), 0.0, library=library)
+        errs[key] = rows[key]["abs"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(3, P2_N, P2_N, device="cuda", generator=gen)
+    d, nx, ny = x.shape
+    got = pk.ydft_energy(x)
+    ref = pk.ref_energy(x)
+    err_ref = rel_err(got, ref)
+    check(err_ref <= TOL_P2, f"P2 against torch.fft.rfft: rel {err_ref:.3e}")
+    b = dft.bound(x.shape)
+    rows["p2"] = measure(
+        f"P2 ydft_energy [{d}, {nx}, {ny}]", got, pk.ydft_energy_plain(x),
+        lambda: pk.ydft_energy(x), lambda: pk.ydft_energy_plain(x),
+        (b["bound_ms"], b["bound_by"]), TOL_P2,
+        library=lambda: pk.ref_energy(x),
+        extra=f"; vs torch.fft.rfft {err_ref:.3e}; the matmul DFT's "
+              f"operations at the float32 peak {b['matmul_dft_ms']:.4f} ms")
+    rows["p2"]["matmul_dft_ms"] = b["matmul_dft_ms"]
+    errs["p2"] = rows["p2"]["abs"]
+    return rows, errs, paths
 
 
 # ------------------------------------------------ K3, K4 and the bursts
@@ -1885,31 +2130,113 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
     return counts(), per_step_seen
 
 
+def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
+    """``train --bf16`` on the card in both domains at 256^2 batch 8, the
+    default net at full width, with the identity and with ``--activation
+    leaky_relu`` (the coord domain's only; the fft forward is linear and
+    ignores it): TRAIN_STEPS steps each, the loss must fall,
+    and the launch counters must grow by one step's launches per step (K1
+    with bf16 operands in the fft domain, none with complex64; K2 on its
+    upcast operands in the coord domain).  Returns the launches of the
+    phase and each kernel's launches per step."""
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    reset_counts()
+    per_step_seen = {}
+    for act, domain in itertools.product(("identity", "leaky_relu"),
+                                         ("fft", "coord")):
+        want = ((0, K1_PER_FFT_STEP, 0) if domain == "fft"
+                else (0, 0, K2_PER_COORD_STEP))
+        before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES)
+        t0 = time.perf_counter()
+        recs = _cli_records(["train", "--nx", "256", "--layers", "3",
+                             "--batch", "8", "--seed", "0", "--log-every",
+                             "1", "--domain", domain, "--bf16", "--steps",
+                             str(TRAIN_STEPS), "--activation", act,
+                             "--ckpt", str(tmp / f"bf16_{domain}_{act}")])
+        wall = time.perf_counter() - t0
+        grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
+                ck.LAUNCHES - before[2])
+        losses = [r["loss"] for r in recs]
+        tag = f"train {domain} --bf16 --activation {act}"
+        check([r["step"] for r in recs] == list(range(TRAIN_STEPS)),
+              f"{tag}: logged {[r['step'] for r in recs]}")
+        check(all(math.isfinite(v) for v in losses),
+              f"{tag}: non-finite loss {losses}")
+        check(grew == tuple(w * TRAIN_STEPS for w in want),
+              f"{tag}: {TRAIN_STEPS} steps launched K1 {grew[0]}x, K1 bf16 "
+              f"{grew[1]}x, K2 {grew[2]}x; expected {want} per step")
+        check(losses[-1] < losses[0],
+              f"{tag}: the loss did not fall: {losses}")
+        print(f"{tag} 256x256 b8 steps 0-{TRAIN_STEPS - 1}: loss "
+              f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches K1 "
+              f"+{grew[0]} K1 bf16 +{grew[1]} K2 +{grew[2]} "
+              f"({max(want)} per step); {wall:.2f} s wall", flush=True)
+        kern, i = ("k1bf", 1) if domain == "fft" else ("k2", 2)
+        per_step_seen[kern] = grew[i] / TRAIN_STEPS
+    return counts(), per_step_seen
+
+
+@contextlib.contextmanager
+def card_routes():
+    """Inside the block the CPU routes its convs as the card does: every
+    batched spectral conv through SpectralConvFused, every coord conv with
+    M*D <= 64 and at most 25 taps through ConvValid (each running its
+    kernel's plain version on the CPU).  The coord shapes are the
+    routing predicate's own (``coord._kernel_shape``)."""
+    from spectralae_torch.ops import coord, spectral
+    from spectralae_torch.ops import spectral_kernels as sk
+    conv, auto = spectral.spectral_conv, coord._auto_conv_kernel
+
+    def fused(X, C, b, nx, ny, *, scale_by_dm=True, compute_dtype=None):
+        return sk.spectral_conv_fused(X, C, b, nx, ny, scale_by_dm,
+                                      compute_dtype)
+    spectral.spectral_conv = fused
+    coord._auto_conv_kernel = lambda x, c: coord._kernel_shape(c)
+    try:
+        yield
+    finally:
+        spectral.spectral_conv, coord._auto_conv_kernel = conv, auto
+
+
 def phase_train_vs_cpu(tmp: Path) -> None:
     """The same 3-step run (weights and frames from one seed) on the card
-    and on the CPU, where the plain versions run: parameters, momentum and
-    the last raw gradient, each held on its own (most gradients are above
-    GRAD_CLIP, where the update sees only their sign)."""
+    and on the CPU, where the plain versions run, in float32 and with
+    ``--bf16``: parameters, momentum and the last raw gradient, each held
+    on its own (most gradients are above GRAD_CLIP, where the update sees
+    only their sign).  bf16 is held against the CPU on the card's routes
+    (TOL_BF16): the CPU's own routes (einsum, F.conv2d) round at other
+    points and are not a like-for-like reference."""
     from spectralae_torch.io import checkpoint as ckpt
-    for domain, tol in (("fft", TOL_FFT), ("coord", TOL_COORD)):
-        got = {}
-        for device in ("cuda", "cpu"):
-            dest = tmp / f"three_{domain}_{device}"
+
+    def three_steps(domain, device, bf16, routes=None):
+        dest = tmp / f"three_{domain}_{device}_{int(bf16)}_{bool(routes)}"
+        with routes() if routes else contextlib.nullcontext():
             _cli_records(["train", "--nx", "256", "--layers", "3",
                           "--batch", "8", "--steps", "3", "--seed", "0",
                           "--domain", domain, "--device", device,
-                          "--ckpt", str(dest)])
-            params, _, opt, _ = ckpt.load(dest)
-            got[device] = [torch.cat([t.reshape(-1) for t in tree.leaves()])
-                           for tree in (params, opt.mom, opt.prev_grad)]
+                          "--ckpt", str(dest)] + (["--bf16"] if bf16 else []))
+        params, _, opt, _ = ckpt.load(dest)
+        return [torch.cat([t.reshape(-1) for t in tree.leaves()])
+                for tree in (params, opt.mom, opt.prev_grad)]
+
+    def held(tag, against, got, want, tols):
         for name, a, b, t in zip(("parameters", "momentum", "raw gradient"),
-                                 got["cuda"], got["cpu"],
-                                 (tol, TOL_MOM, tol)):
+                                 got, want, tols):
             err = rel_err(a, b)
-            print(f"train {domain} 3 steps, card vs CPU port: {name} rel "
-                  f"{err:.3e} (tol {t:g})", flush=True)
-            check(err <= t, f"train {domain}: card and CPU disagree in "
-                  f"{name}: {err:.3e} > {t:g}")
+            print(f"train {tag} 3 steps, card vs {against}: {name} rel "
+                  f"{err:.3e} (tol {t:.3e})", flush=True)
+            check(err <= t, f"train {tag}: card and {against} disagree in "
+                  f"{name}: {err:.3e} > {t:.3e}")
+
+    for domain in ("fft", "coord"):
+        cpu32 = three_steps(domain, "cpu", False)
+        held(domain, "CPU port", three_steps(domain, "cuda", False), cpu32,
+             (TOL_FFT, TOL_MOM, TOL_FFT) if domain == "fft"
+             else (TOL_COORD, TOL_MOM, TOL_COORD))
+        card = three_steps(domain, "cuda", True)
+        held(f"{domain} --bf16", "CPU port on the card's routes", card,
+             three_steps(domain, "cpu", True, card_routes), TOL_BF16[domain])
 
 
 def main() -> int:
@@ -1946,6 +2273,9 @@ def main() -> int:
     timed, errs = phase_kernels(gen)
     phase_forward()
     step = per_step(timed, phase_train_step())
+    # 3a. the probe kernels, through their scripts
+    probe_rows, perrs, probe_paths = phase_probes()
+    errs.update(perrs)
     windows, werrs = phase_windows(gen)
     errs.update(werrs)
     fft_rows, ferrs = phase_fft(gen)
@@ -1964,6 +2294,10 @@ def main() -> int:
     try:
         by_path = {"serve": phase_serving(tmp)}
         by_path["train"], per_step_seen = phase_training(tmp)
+        by_path["train_bf16"], seen_bf16 = phase_training_bf16(tmp)
+        per_step_seen["k1bf"] = seen_bf16["k1bf"]
+        check(seen_bf16["k2"] == per_step_seen["k2"],
+              f"coord --bf16 launched K2 {seen_bf16['k2']}x a step")
         phase_train_vs_cpu(tmp)
         (by_path["stream"], by_path["stream_fft"],
          by_path["burst"]) = phase_stream_training(tmp)
@@ -1971,8 +2305,12 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path.update(omega_paths)
+    by_path.update(probe_paths)
     # every kernel that a path runs was launched in that path's run
     uses = {"serve": ("k1", "k2"), "train": ("k1", "k2"),
+            "train_bf16": ("k1bf", "k2"),
+            "probe_mosaic": tuple(k for k, _, _ in P1_ROWS),
+            "probe_dft": ("p2",),
             "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
             "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
             "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",)}
@@ -1983,6 +2321,9 @@ def main() -> int:
     kernels = []
     for key, name, source, replaces in (
             ("k1", "cmul_contract", "spectralae_torch/csrc/cmul_contract.cu",
+             "spectralae/ops/pallas_kernels.py:48"),
+            ("k1bf", "cmul_contract_bf16",
+             "spectralae_torch/csrc/cmul_contract.cu",
              "spectralae/ops/pallas_kernels.py:48"),
             ("k2", "conv_valid", "spectralae_torch/csrc/conv_valid.cu",
              "spectralae/ops/pallas_conv.py:110"),
@@ -1998,10 +2339,13 @@ def main() -> int:
         if key in step:
             s = step[key]
             row.update({
-                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "ms": s["ms"], "ms_source": s["ms_source"],
+                "plain_ms": s["plain_ms"],
                 "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"],
-                "per": "one 256x256 batch-8 train step of the 3-pair net",
+                "per": "one 256x256 batch-8 train step of the 3-pair net"
+                       + (" with bf16 operands (--bf16)" if key == "k1bf"
+                          else ""),
                 "launches_per_step": per_step_seen[key],
                 "fwd_ms": s["fwd_ms"], "fwd_plain_ms": s["fwd_plain_ms"],
                 "bwd_ms": s["bwd_ms"], "bwd_plain_ms": s["bwd_plain_ms"]})
@@ -2013,6 +2357,7 @@ def main() -> int:
                 for name_ in ("ms", "plain_ms", "bound_ms")})
             row["bound_by"] = max(rs, key=lambda r: r["bound_ms"])[
                 "bound_by"]
+            row["ms_source"] = _sources(rs)
             row["library_ms"] = (sum(r["library_ms"] for r in rs)
                                  if key == "k3" else None)
             # the windows of 255-scale frames reach ~1e17: the absolute
@@ -2040,7 +2385,7 @@ def main() -> int:
                                                  "gather_ms")}
                         for v in ("f32", "bf16")})
         kernels.append(row)
-    timing = ("ms", "plain_ms", "bound_ms", "library_ms")
+    timing = ("ms", "ms_source", "plain_ms", "bound_ms", "library_ms")
     for key, name, replaces in B5_ROWS:
         paths = {path: by_path[path][key] for path in by_path}
         row = {"name": name, "route": "cuda",
@@ -2103,6 +2448,20 @@ def main() -> int:
             row["device_ms_100_iteration_burst"] = omega_timing[
                 (head, "omega_itergrid")]["device_ms"]
         kernels.append(row)
+    for key, name, replaces in P1_ROWS + (
+            ("p2", "ydft_energy", "scripts/probe_fused_dft.py:75"),):
+        paths = {path: by_path[path][key] for path in by_path}
+        r = probe_rows[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "spectralae_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths, "max_abs_err": errs[key],
+            **{k: r[k] for k in timing + ("bound_by",)},
+            "max_norm_rel_err": r["rel"],
+            "per": ("one launch on the JAX probe's input" if key != "p2"
+                    else f"one launch (two grids) at [3, {P2_N}, {P2_N}]; "
+                    "library: torch.fft.rfft and the weighted sum")})
     print(f"the device profiles held {PROFILED['held']} of the "
           f"{PROFILED['expected']} operation records they should have",
           flush=True)

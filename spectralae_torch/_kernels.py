@@ -14,8 +14,8 @@ by a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
-exception (``corr_windows_scratch_floats`` and ``omega_scratch_floats``,
-host-side size queries, launch nothing).
+exception (``corr_windows_scratch_floats``, ``omega_scratch_floats`` and
+``ydft_energy_blocks``, host-side size queries, launch nothing).
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
@@ -51,6 +51,9 @@ _SIGNATURES = {
     # q_stride_b, conj_q, p_scale, bias, bias_scale, stream
     "cmul_contract_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I,
                              _F, _P, _F, _P),
+    # the same, p and q bf16 (re, im) pairs
+    "cmul_contract_bf16_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
+                                  _I, _F, _P, _F, _P),
     # xpad, w, out, B, D, Hp, Wp, M, nk, nl, stream
     "conv_valid_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # anchor, B, D, E, nx, nyr, nk2, nl2, vy, same (returns long long)
@@ -80,10 +83,21 @@ _SIGNATURES = {
     # planes, basis, wv, state_in, state_out, mse_out, scratch, nb, M, D, P,
     # W, iters, norm, inv_m, inv_d, scale, lr_eff, alpha, bf16, stream
     "omega_itergrid_launch": (_P,) * 7 + (_I,) * 6 + (_F,) * 6 + (_I, _P),
+    # x, out, rows, in_cols, out_cols, stream
+    "probe_lane_strided_launch": (_P, _P, _I, _I, _I, _P),
+    # x, out, out_rows, cols, stream
+    "probe_sublane_strided_launch": (_P, _P, _I, _I, _P),
+    # x, out, n, K, stream
+    "probe_middle_store_launch": (_P, _P, _L, _I, _P),
+    # R, nyr (returns long long)
+    "ydft_energy_blocks": (_I, _I),
+    # x, cosb, sinb, w, scratch, out, R, ny, nyr, stream
+    "ydft_energy_launch": (_P,) * 6 + (_I,) * 3 + (_P,),
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong,
-             "omega_scratch_floats": ctypes.c_longlong}
+             "omega_scratch_floats": ctypes.c_longlong,
+             "ydft_energy_blocks": ctypes.c_longlong}
 
 
 class KernelBuild:

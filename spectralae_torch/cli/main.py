@@ -140,9 +140,6 @@ def _ckpt_dispatch(args, path, params, spec, opt, step_n, *, final=False,
 
 # what train flags need that is not ported yet, and where the ROADMAP has it
 _TRAIN_NOT_PORTED = (
-    (lambda a: a.mode == "step" and a.bf16,
-     "train --bf16 (step mode): bf16 operands are not ported yet (ROADMAP "
-     "queue B, 'B1 bf16 operands')"),
     (lambda a: a.mode == "stream" and a.domain == "coord",
      "train --mode stream --domain coord: coordinate-domain streaming needs "
      "train/coord.py (ROADMAP A9)"),
@@ -187,14 +184,15 @@ def _train_steps(args, device):
                                 train_step)
     use_optim = args.optimizer != "reference"
     act = leaky_relu if args.activation == "leaky_relu" else None
+    cdtype = torch.bfloat16 if args.bf16 else None
     if use_optim:
         optimizer = make_optimizer(args.optimizer, args.lr,
                                    schedule=args.lr_schedule,
                                    warmup_steps=args.warmup,
                                    total_steps=args.steps)
         optim_step = make_optim_train_step(
-            optimizer, domain=args.domain, act=act, remat=args.remat,
-            accum_steps=args.accum)
+            optimizer, domain=args.domain, act=act, compute_dtype=cdtype,
+            remat=args.remat, accum_steps=args.accum)
     start_step = 0
     if args.resume:
         params, spec, opt, extra = ckpt.load(args.resume, device=device)
@@ -249,8 +247,8 @@ def _train_steps(args, device):
             else:
                 res = train_step(params, opt, batch, spec.scales, lr=args.lr,
                                  alpha=args.alpha, domain=args.domain,
-                                 act=act, remat=args.remat,
-                                 accum_steps=args.accum)
+                                 compute_dtype=cdtype, act=act,
+                                 remat=args.remat, accum_steps=args.accum)
             # failure detection (SURVEY.md §5.3): halt on divergence, keep
             # the last good checkpoint.  Reading the loss synchronises with
             # the device, so check only on log steps — off-step launches
@@ -706,10 +704,13 @@ def main(argv=None):
                         "decomposition every N inner iterations (keeps "
                         "long bursts float32-accurate; 0 = never)")
     p.add_argument("--bf16", action="store_true",
-                   help="stream mode: the burst precompute reads the signal "
-                        "spectra as bf16 planes (float32 arithmetic); burst "
-                        "mode ignores it; step mode: not ported yet "
-                        "(ROADMAP 'B1 bf16 operands')")
+                   help="mixed precision. step mode: a bf16 forward in the "
+                        "coord domain (float32 params and loss); bf16 "
+                        "operands with float32 sums through the spectral "
+                        "convs in the fft domain (K1's bf16 mode; the FFTs "
+                        "stay float32). stream mode: the burst precompute "
+                        "reads the signal spectra as bf16 planes (float32 "
+                        "arithmetic). burst mode ignores it")
     p.add_argument("--pallas-fft", action="store_true",
                    help="stream mode, fft domain: compute the signal "
                         "spectra with the radix-4 four-step rfft2 "

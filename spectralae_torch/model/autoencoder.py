@@ -89,9 +89,8 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
         the reference's ``fft_l`` per-layer visualization mode ('g' key,
         fft_backproplib.cu:1347-1361).
       constrain: optional hook applied to each stage's spectrum.
-      compute_dtype: bf16 operands through the pointwise convs — not
-        ported yet (ROADMAP queue B, "B1 bf16 operands"); anything but
-        ``None`` raises ``NotImplementedError``.
+      compute_dtype: ``torch.bfloat16`` streams bf16 operands through the
+        pointwise convs (float32 sums; the FFTs stay float32).
       remat: checkpoint each stage's kernel-spectrum + conv block — the
         kernel half-spectrum ``M·D·Nx·Nyr`` complex per stage, and the
         spectra the conv saves for its backward, are recomputed in the
@@ -99,10 +98,6 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
 
     Returns the ``[B, D, Nx, Ny]`` reconstruction, or ``(out, layers)``.
     """
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype: bf16 operands are not ported yet (ROADMAP queue "
-            "B, 'B1 bf16 operands')")
     n = params.n_stages
     nx, ny = x.shape[-2], x.shape[-1]
     X = spectral.rfft2(x)
@@ -122,7 +117,8 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
             # net_cfreq cache (fft_backproplib.cu:1146-1161)
             C = spectral.kernel_rfft(c, cx, cy)
             return spectral.spectral_conv(Xs, C, b, cx, cy,
-                                          scale_by_dm=scale_by_dm)
+                                          scale_by_dm=scale_by_dm,
+                                          compute_dtype=compute_dtype)
         if remat:
             X = checkpoint(_stage, X, stage.c, stage.b, use_reentrant=False)
         else:

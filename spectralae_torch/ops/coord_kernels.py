@@ -19,6 +19,11 @@ package leaves it to ``lax``.
 Each launch of the kernel runs :func:`conv_valid_plain` for CPU tensors and
 the kernel for CUDA tensors — never the plain version there.
 :data:`LAUNCHES` counts kernel launches.
+
+bf16 operands are upcast to float32 in the wrapper, as
+``conv_valid_pallas`` upcasts them (pallas_conv.py:150-151): the kernel
+reads and returns float32, and the backward returns each gradient in its
+operand's dtype.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ PALLAS_DATA_GRAD = False
 _TILE_H, _TILE_W = 8, 32
 _MAX_SMEM = 232448
 
+# operand dtypes conv_valid takes; bf16 is upcast before the kernel
+_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def conv_valid_plain(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`conv_valid` (``F.conv2d`` is a correlation)."""
@@ -51,9 +59,9 @@ def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
     if xpad.dim() != 4 or w.dim() != 4 or xpad.shape[1] != w.shape[1]:
         raise ValueError(f"xpad must be [B,D,Hp,Wp] and w [M,D,nk,nl], got "
                          f"{tuple(xpad.shape)} and {tuple(w.shape)}")
-    if xpad.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"conv_valid takes float32, got {xpad.dtype} and "
-                        f"{w.dtype}")
+    if xpad.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError(f"conv_valid takes float32 or bfloat16, got "
+                        f"{xpad.dtype} and {w.dtype}")
     b, d, hp, wp = xpad.shape
     m, _, nk, nl = w.shape
     if min(b, d, m, nk, nl) == 0 or hp < nk or wp < nl:
@@ -96,29 +104,36 @@ def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class ConvValid(torch.autograd.Function):
-    """The valid correlation with the JAX package's custom VJP."""
+    """The valid correlation with the JAX package's custom VJP.
+
+    The forward upcasts bf16 operands and returns float32; the backward
+    works in float32 (the cotangent is float32, the operands may be bf16)
+    and returns dx in ``xpad``'s dtype and dw in ``w``'s."""
 
     @staticmethod
     def forward(ctx, xpad, w):
         ctx.save_for_backward(xpad, w)
-        return _valid_corr(xpad, w)
+        return _valid_corr(xpad.float(), w.float())
 
     @staticmethod
     def backward(ctx, dy):
         xpad, w = ctx.saved_tensors
         _, _, nk, nl = w.shape
+        dy = dy.float()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # the same tap algebra as the forward: runnable through the
             # same kernel
-            wt = w.transpose(0, 1).flip((-2, -1)).contiguous()
+            wt = w.float().transpose(0, 1).flip((-2, -1)).contiguous()
             dy_pad = F.pad(dy, (nl - 1, nl - 1, nk - 1, nk - 1))
             if PALLAS_DATA_GRAD:
                 dx = _valid_corr(dy_pad.contiguous(), wt)
             else:
                 dx = F.conv2d(dy_pad, wt)
+            dx = dx.to(xpad.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv2d_weight(xpad, w.shape, dy)
+            dw = torch.nn.grad.conv2d_weight(xpad.float(), w.shape,
+                                             dy).to(w.dtype)
         return dx, dw
 
 
@@ -126,9 +141,10 @@ def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Valid correlation ``[B,D,H+nk-1,W+nl-1] × [M,D,nk,nl] → [B,M,H,W]``,
     differentiable (:class:`ConvValid`).
 
-    ``w`` holds the *already tap-flipped* correlation weights.  float32;
-    contiguous on the card.  CPU tensors take :func:`conv_valid_plain`;
-    CUDA tensors launch the kernel.
+    ``w`` holds the *already tap-flipped* correlation weights.  float32 or
+    bfloat16 (upcast to float32; the result is float32); contiguous on the
+    card.  CPU tensors take :func:`conv_valid_plain`; CUDA tensors launch
+    the kernel.
     """
     _check_valid(xpad, w)
     return ConvValid.apply(xpad, w)

@@ -1,0 +1,204 @@
+"""Hand-written CUDA kernels for the two probe scripts (P1, P2).
+
+Counterparts of the Pallas kernels in ``scripts/probe_mosaic_features.py``
+(P1: ``lane_strided``, ``sublane_strided``, ``middle_store``) and
+``scripts/probe_fused_dft.py`` (P2: ``ydft_energy``), all in
+``csrc/probes.cu``, whose header note says what bounds each and how it is
+shaped.  The scripts ``scripts/torch_probe_mosaic_features.py`` and
+``scripts/torch_probe_fused_dft.py`` drive them.
+
+Every wrapper runs its kernel's plain PyTorch version for CPU tensors and
+launches the kernel for CUDA tensors — never the plain version there.
+:data:`LAUNCHES` counts kernel launches by kernel; one ``ydft_energy``
+launch is two grids (the sweep, then the ordered sum of its partials).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .spectral import _hermitian_weights
+
+#: kernel launches since import (or the last reset), by kernel
+LAUNCHES = {"lane_strided": 0, "sublane_strided": 0, "middle_store": 0,
+            "ydft_energy": 0}
+
+#: ``precision`` values :func:`ydft_energy` takes (the JAX tiers); each runs
+#: IEEE float32 FMAs, at least as exact as every tier
+PRECISIONS = ("default", "high", "highest")
+
+#: stores of :func:`middle_store` (``out[k] = x·(k+1)`` for ``k < 4``)
+MIDDLE_K = 4
+
+
+def _check(x: torch.Tensor, name: str, ndim: int) -> None:
+    if x.dtype != torch.float32 or x.dim() != ndim:
+        raise TypeError(f"{name} takes a {ndim}-D float32 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError(f"{name} needs a non-empty tensor")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor on the card")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ------------------------------------------------------ P1: the probes
+
+def lane_strided_plain(x: torch.Tensor) -> torch.Tensor:
+    """``2·x[:, 1::4]``."""
+    return x[:, 1::4] * 2.0
+
+
+def sublane_strided_plain(x: torch.Tensor) -> torch.Tensor:
+    """``2·x[1::4, :]``."""
+    return x[1::4, :] * 2.0
+
+
+def middle_store_plain(x: torch.Tensor) -> torch.Tensor:
+    """``out[k] = x·(k+1)`` for ``k < 4``: ``[4, *x.shape]``."""
+    k = torch.arange(1, MIDDLE_K + 1, dtype=x.dtype, device=x.device)
+    return x[None] * k.reshape(-1, *([1] * x.dim()))
+
+
+def lane_strided(x: torch.Tensor) -> torch.Tensor:
+    """The lane-strided read of a ``[R, C]`` float32 tile: ``2·x[:, 1::4]``
+    (``[8, 512] → [8, 128]`` in the probe)."""
+    _check(x, "lane_strided", 2)
+    if x.device.type == "cpu":
+        return lane_strided_plain(x)
+    rows, cols = x.shape
+    out = torch.empty((rows, len(range(1, cols, 4))), dtype=x.dtype,
+                      device=x.device)
+    if out.shape[1]:
+        with torch.cuda.device(x.device):
+            err = _kernels.lib().probe_lane_strided_launch(
+                x.data_ptr(), out.data_ptr(), rows, cols, out.shape[1],
+                _stream())
+        _kernels.check(err, "lane_strided")
+        LAUNCHES["lane_strided"] += 1
+    return out
+
+
+def sublane_strided(x: torch.Tensor) -> torch.Tensor:
+    """The sublane-strided read of a ``[R, C]`` float32 tile:
+    ``2·x[1::4, :]`` (``[512, 128] → [128, 128]`` in the probe)."""
+    _check(x, "sublane_strided", 2)
+    if x.device.type == "cpu":
+        return sublane_strided_plain(x)
+    rows, cols = x.shape
+    out = torch.empty((len(range(1, rows, 4)), cols), dtype=x.dtype,
+                      device=x.device)
+    if out.shape[0]:
+        with torch.cuda.device(x.device):
+            err = _kernels.lib().probe_sublane_strided_launch(
+                x.data_ptr(), out.data_ptr(), out.shape[0], cols, _stream())
+        _kernels.check(err, "sublane_strided")
+        LAUNCHES["sublane_strided"] += 1
+    return out
+
+
+def middle_store(x: torch.Tensor) -> torch.Tensor:
+    """Stores into the middle axis of a 3-D block: ``out[k] = x·(k+1)`` for
+    ``k < 4`` (``[128, 128] → [4, 128, 128]`` in the probe)."""
+    _check(x, "middle_store", 2)
+    if x.device.type == "cpu":
+        return middle_store_plain(x)
+    out = torch.empty((MIDDLE_K, *x.shape), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels.lib().probe_middle_store_launch(
+            x.data_ptr(), out.data_ptr(), x.numel(), MIDDLE_K, _stream())
+    _kernels.check(err, "middle_store")
+    LAUNCHES["middle_store"] += 1
+    return out
+
+
+# ------------------------------------------------------- P2: ydft_energy
+
+@functools.lru_cache(maxsize=None)
+def _bases(nx: int, ny: int, device: torch.device):
+    """The ``[ny, nyr]`` cos and sin bases of the y-DFT, float32, built in
+    float64 on the host as the JAX probe builds them, and the ``[nyr]``
+    Hermitian weights."""
+    nyr = ny // 2 + 1
+    ang = 2 * np.pi * (np.arange(ny)[:, None] * np.arange(nyr)[None, :]) / ny
+    return (torch.as_tensor(np.cos(ang), dtype=torch.float32, device=device),
+            torch.as_tensor(np.sin(ang), dtype=torch.float32, device=device),
+            torch.as_tensor(_hermitian_weights(nx, ny), device=device))
+
+
+def _chunks(nyr: int, y_chunk: int) -> list[tuple[int, int]]:
+    """The JAX probe's ω_y chunk edges."""
+    if y_chunk < 1:
+        raise ValueError(f"y_chunk must be positive, got {y_chunk}")
+    n = max(1, -(-nyr // y_chunk))
+    edges = [round(c * nyr / n) for c in range(n + 1)]
+    return list(zip(edges, edges[1:]))
+
+
+def ydft_energy_plain(x: torch.Tensor, *,
+                      y_chunk: int = 512) -> torch.Tensor:
+    """Plain version of :func:`ydft_energy`: the same matmul DFT, one
+    ``y_chunk`` of bins at a time, as the JAX probe chunks it."""
+    d, nx, ny = x.shape
+    cosb, sinb, w = _bases(nx, ny, x.device)
+    x2 = x.reshape(d * nx, ny)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a, b in _chunks(ny // 2 + 1, y_chunk):
+        yr = x2 @ cosb[:, a:b]
+        yi = -(x2 @ sinb[:, a:b])
+        total = total + torch.sum(w[a:b] * (yr * yr + yi * yi))
+    return total
+
+
+def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
+                precision: str = "default") -> torch.Tensor:
+    """``Σ_d Σ_rows Σ_ωy w(ωy)·|DFT_y(x)|²`` of ``x [D, nx, ny]`` float32,
+    the y-DFT a product with the ``[ny, nyr]`` cos/sin bases and ``w``
+    :func:`~spectralae_torch.ops.spectral._hermitian_weights`; a 0-d
+    float32 tensor.
+
+    ``y_chunk`` is the JAX probe's ω_y chunking (a TPU memory bound): the
+    chunked result equals the unchunked one, and the kernel tiles the bins
+    its own way whatever it is.  ``precision`` is accepted for every JAX
+    tier; each runs IEEE float32.  CPU tensors take
+    :func:`ydft_energy_plain`; CUDA tensors launch the kernel.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    _check(x, "ydft_energy", 3)
+    _chunks(x.shape[2] // 2 + 1, y_chunk)      # validates y_chunk
+    if x.device.type == "cpu":
+        return ydft_energy_plain(x, y_chunk=y_chunk)
+    d, nx, ny = x.shape
+    rows, nyr = d * nx, ny // 2 + 1
+    cosb, sinb, w = _bases(nx, ny, x.device)
+    lib = _kernels.lib()
+    scratch = torch.empty(lib.ydft_energy_blocks(rows, nyr),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ydft_energy_launch(
+            x.data_ptr(), cosb.data_ptr(), sinb.data_ptr(), w.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), rows, ny, nyr, _stream())
+    _kernels.check(err, "ydft_energy")
+    LAUNCHES["ydft_energy"] += 1
+    return out
+
+
+def ref_energy(x: torch.Tensor) -> torch.Tensor:
+    """The same energy through ``torch.fft.rfft`` (the JAX probe's
+    ``ref_energy``): the library call P2 is timed against."""
+    y = torch.fft.rfft(x, dim=-1)
+    w = torch.as_tensor(_hermitian_weights(x.shape[-2], x.shape[-1]),
+                        device=x.device)
+    return torch.sum(w * (y.real ** 2 + y.imag ** 2))

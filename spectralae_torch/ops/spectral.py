@@ -146,8 +146,9 @@ def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
       X: ``[B, D, Nx, Nyr]`` complex input spectra.
       C: ``[M, D, Nx, Nyr]`` complex kernel spectra.
       b: ``[M]`` real biases.
-      compute_dtype: reduced-precision operands — not ported yet (ROADMAP
-        queue B, "B1 bf16 operands"); anything but ``None`` raises.
+      compute_dtype: ``torch.bfloat16`` streams bf16 operands (float32
+        sums, complex64 result) — through K1's bf16 mode on the card;
+        ``None`` is float32.
     """
     if X.dim() == 4 and X.is_cuda:
         from .spectral_kernels import spectral_conv_fused
@@ -161,13 +162,27 @@ def spectral_conv_einsum(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
                          nx: int, ny: int, *,
                          scale_by_dm: bool = True,
                          compute_dtype=None) -> torch.Tensor:
-    """The plain pointwise conv (no kernel dispatch)."""
-    if compute_dtype is not None:
-        raise NotImplementedError("compute_dtype: reduced-precision operands "
-                                  "are ROADMAP queue B 'B1 bf16 operands'")
+    """The plain pointwise conv (no kernel dispatch).
+
+    With ``compute_dtype`` it runs the JAX package's reduced branch: the
+    four real products of the bf16-rounded operands (``X/M`` rounded after
+    the scale), summed in float32 — rounded, then upcast, since PyTorch's
+    einsum has no ``preferred_element_type``."""
+    from .spectral_kernels import check_compute_dtype
+    check_compute_dtype(compute_dtype)
     m = C.shape[0]
     scale = (1.0 / m) if scale_by_dm else 1.0
-    out = torch.einsum("mdxy,bdxy->bmxy", C, X * scale)
+    if compute_dtype is not None:
+        def rnd(t):
+            return t.to(compute_dtype).to(torch.float32)
+        xr, xi = rnd(X.real * scale), rnd(X.imag * scale)
+        cr, ci = rnd(C.real), rnd(C.imag)
+        eq = "mdxy,bdxy->bmxy"
+        out = torch.complex(
+            torch.einsum(eq, cr, xr) - torch.einsum(eq, ci, xi),
+            torch.einsum(eq, cr, xi) + torch.einsum(eq, ci, xr))
+    else:
+        out = torch.einsum("mdxy,bdxy->bmxy", C, X * scale)
     # the einsum result is fresh, so the DC add may update it in place
     out[..., 0, 0] += b.to(out.dtype) * (nx * ny)
     return out

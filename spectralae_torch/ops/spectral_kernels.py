@@ -15,9 +15,17 @@ a complex-linear map is the conjugate of JAX's cotangent).
 
 Every wrapper runs the kernel's plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors — never the plain version, and never a
-library kernel in its place.  :data:`LAUNCHES` counts kernel launches.
-bf16 operands are ROADMAP queue B work ("B1 bf16 operands"); asking for
-them raises.
+library kernel in its place.  :data:`LAUNCHES` counts kernel launches
+with complex64 operands, :data:`LAUNCHES_BF16` those with bf16 operands.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision path
+(``_conv_fwd_impl``/``_conv_bwd``, pallas_kernels.py:100-151): every
+contraction reads bf16 operands — :func:`bf16_planes`, each complex bin as
+an interleaved (re, im) bf16 pair — and sums in float32 into complex64.
+The operands are rounded where JAX rounds them: ``X/M`` (not ``X``) in the
+forward and in the kernel-spectrum gradient; in the input-spectrum gradient
+JAX rounds ``g`` and scales the float32 sum, which the kernel's ``p_scale``
+does to float32 rounding.
 """
 
 from __future__ import annotations
@@ -26,8 +34,23 @@ import torch
 
 from .. import _kernels
 
-#: kernel launches of :func:`cmul_contract` since import (or the last reset)
+#: kernel launches of :func:`cmul_contract` since import (or the last
+#: reset): complex64 operands, and bf16 operands (the second instantiation)
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+
+
+def bf16_planes(z: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """A complex64 tensor ``[..., W]`` times ``scale`` (in float32, before
+    the rounding), rounded to bf16 as K1's bf16 operands: ``[..., W, 2]``
+    interleaved (re, im), 4 bytes a bin."""
+    t = torch.view_as_real(z)
+    return (t if scale == 1.0 else t * scale).to(torch.bfloat16)
+
+
+def _complex(planes: torch.Tensor) -> torch.Tensor:
+    """bf16 planes ``[..., W, 2]`` back to complex64 ``[..., W]`` (exact)."""
+    return torch.complex(planes[..., 0].float(), planes[..., 1].float())
 
 
 def cmul_contract_plain(p: torch.Tensor, q: torch.Tensor, *,
@@ -38,8 +61,11 @@ def cmul_contract_plain(p: torch.Tensor, q: torch.Tensor, *,
 
     ``out[a,b,w] = Σ_k (p_scale·p[a,k,w])·q'[k,b,w]`` with
     ``q' = conj(q)`` when ``conj_q``, plus ``bias[b]·bias_scale`` on bin
-    ``w = 0`` when ``bias`` is given.
+    ``w = 0`` when ``bias`` is given.  bf16 planes (:func:`bf16_planes`)
+    are converted back to complex64, exactly, and contracted in float32.
     """
+    if p.dtype == torch.bfloat16:
+        p, q = _complex(p), _complex(q)
     if conj_q:
         q = q.conj()
     out = torch.einsum("akw,kbw->abw", p * p_scale, q)
@@ -50,10 +76,17 @@ def cmul_contract_plain(p: torch.Tensor, q: torch.Tensor, *,
 
 
 def _check_contract(p, q, bias) -> None:
-    if p.dtype != torch.complex64 or q.dtype != torch.complex64:
-        raise TypeError(f"cmul_contract takes complex64, got {p.dtype} and "
-                        f"{q.dtype} (bf16 operands: ROADMAP 'B1 bf16 "
-                        "operands')")
+    if p.dtype != q.dtype or p.dtype not in (torch.complex64,
+                                             torch.bfloat16):
+        raise TypeError(f"cmul_contract takes complex64, or bf16 planes "
+                        f"[..., W, 2], both alike; got {p.dtype} and "
+                        f"{q.dtype}")
+    if p.dtype == torch.bfloat16:
+        if p.dim() != 4 or q.dim() != 4 or p.shape[3] != 2 or \
+                q.shape[3] != 2:
+            raise ValueError(f"bf16 planes must be [A,K,W,2] and [K,B,W,2], "
+                             f"got {tuple(p.shape)} and {tuple(q.shape)}")
+        p, q = p[..., 0], q[..., 0]
     if p.dim() != 3 or q.dim() != 3:
         raise ValueError(f"p must be [A,K,W] and q [K,B,W], got "
                          f"{tuple(p.shape)} and {tuple(q.shape)}")
@@ -78,45 +111,72 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
                   bias_scale: float = 0.0) -> torch.Tensor:
     """Per-bin complex contraction ``[A,K,W] × [K,B,W] → [A,B,W]`` (K1).
 
-    ``p`` and ``q`` may be any views whose last axis is contiguous: the
-    spectral conv passes its ``[M, D, W]`` kernel spectra transposed, and
-    its backward the ``[B, M, W]`` cotangent transposed, with no copy.
+    ``p`` and ``q`` are complex64, or both bf16 planes ``[A,K,W,2]`` and
+    ``[K,B,W,2]`` (:func:`bf16_planes`; products and sums stay float32, the
+    output complex64).  They may be any views whose bins are contiguous:
+    the spectral conv passes its ``[M, D, W]`` kernel spectra transposed,
+    and its backward the ``[B, M, W]`` cotangent transposed, with no copy.
     ``conj_q`` contracts with ``conj(q)``.  CPU tensors take
     :func:`cmul_contract_plain`; CUDA tensors launch the kernel.  The
     result carries no gradient: :class:`SpectralConvFused` does.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     _check_contract(p, q, bias)
     if p.device.type == "cpu":
         return cmul_contract_plain(p, q, p_scale=p_scale, conj_q=conj_q,
                                    bias=bias, bias_scale=bias_scale)
     if p.device.type != "cuda":
         raise ValueError(f"cmul_contract runs on cpu or cuda, not {p.device}")
-    # a lazily conjugated or negated view flags its storage but does not
-    # change it, and the kernel reads the storage: materialise it first
-    p = p.resolve_conj().resolve_neg()
-    q = q.resolve_conj().resolve_neg()
-    if p.stride(2) != 1 or q.stride(2) != 1:
-        raise ValueError("cmul_contract needs p and q whose last axis is "
-                         "contiguous")
+    if p.dtype == torch.bfloat16:
+        # strides in (re, im) pairs, the kernel's element
+        if p.stride(3) != 1 or q.stride(3) != 1 or p.stride(2) != 2 \
+                or q.stride(2) != 2 or any(
+                    t.stride(i) % 2 or t.data_ptr() % 4
+                    for t in (p, q) for i in (0, 1)):
+            raise ValueError("cmul_contract needs bf16 planes whose "
+                             "(re, im) pairs are contiguous and aligned")
+        strides = (p.stride(0) // 2, p.stride(1) // 2, q.stride(0) // 2,
+                   q.stride(1) // 2)
+        launch = _kernels.lib().cmul_contract_bf16_launch
+    else:
+        # a lazily conjugated or negated view flags its storage but does
+        # not change it, and the kernel reads the storage: materialise it
+        p = p.resolve_conj().resolve_neg()
+        q = q.resolve_conj().resolve_neg()
+        if p.stride(2) != 1 or q.stride(2) != 1:
+            raise ValueError("cmul_contract needs p and q whose last axis "
+                             "is contiguous")
+        strides = (p.stride(0), p.stride(1), q.stride(0), q.stride(1))
+        launch = _kernels.lib().cmul_contract_launch
     if bias is not None and not bias.is_contiguous():
         raise ValueError("bias must be contiguous")
-    a, k, w = p.shape
+    a, k, w = p.shape[:3]
     b = q.shape[1]
     if a > 65535:
         raise ValueError(f"cmul_contract: A={a} exceeds the grid's y limit "
                          "of 65535")
     out = torch.empty((a, b, w), dtype=torch.complex64, device=p.device)
     with torch.cuda.device(p.device):
-        err = _kernels.lib().cmul_contract_launch(
+        err = launch(
             p.data_ptr(), q.data_ptr(), out.data_ptr(), a, k, b, w,
-            p.stride(0), p.stride(1), q.stride(0), q.stride(1),
-            int(conj_q), float(p_scale),
+            *strides, int(conj_q), float(p_scale),
             None if bias is None else bias.data_ptr(), float(bias_scale),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "cmul_contract")
-    LAUNCHES += 1
+    if p.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out
+
+
+def check_compute_dtype(compute_dtype) -> None:
+    """The operand types the port streams: float32 (``None``) or bf16."""
+    if compute_dtype not in (None, torch.bfloat16):
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype}: the port streams bf16 operands "
+            "only (torch.bfloat16, the JAX package's B1 bf16 mode) or "
+            "float32 (None)")
 
 
 class SpectralConvFused(torch.autograd.Function):
@@ -130,39 +190,58 @@ class SpectralConvFused(torch.autograd.Function):
     ``q = X``); ``db[m] = Nx·Ny·Re Σ_b g[b,m,0,0]``.  A gradient that no
     input needs is not computed, so stage 0 of a net (whose input spectra
     come from the frames) launches K1 once in its backward, not twice.
+
+    With ``compute_dtype=torch.bfloat16`` each contraction reads bf16
+    operands, rounded where JAX rounds them: ``X/M`` and ``C`` in the
+    forward, ``g`` and ``C`` for dX (the ``1/M`` applied in float32 by the
+    kernel), ``gᵀ`` and ``X/M`` for dC.  ``X`` and ``C`` are saved in
+    complex64 and rounded again in the backward, as ``_conv_bwd`` does.
     """
 
     @staticmethod
-    def forward(ctx, X, C, b, nx, ny, scale_by_dm):
+    def forward(ctx, X, C, b, nx, ny, scale_by_dm, compute_dtype):
         nb, d = X.shape[0], X.shape[1]
         m = C.shape[0]
         nyr = ny // 2 + 1
         w = nx * nyr
         scale = (1.0 / m) if scale_by_dm else 1.0
-        p = X.reshape(nb, d, w)
-        q = C.reshape(m, d, w).transpose(0, 1)      # [D, M, W] view, no copy
-        out = cmul_contract(p, q, p_scale=scale,
+        Cw = C.reshape(m, d, w)
+        if compute_dtype is None:
+            p, q, p_scale = X.reshape(nb, d, w), Cw.transpose(0, 1), scale
+        else:
+            # JAX rounds X·(1/M), not X: scale before the cast
+            p = bf16_planes(X.reshape(nb, d, w), scale)
+            q, p_scale = bf16_planes(Cw).transpose(0, 1), 1.0
+        out = cmul_contract(p, q, p_scale=p_scale,   # q: [D, M, W] view
                             bias=b.to(torch.float32).contiguous(),
                             bias_scale=float(nx * ny))
         ctx.save_for_backward(X, C)
-        ctx.dims = (nb, d, m, w, nx * ny, scale, b.dtype)
+        ctx.dims = (nb, d, m, w, nx * ny, scale, b.dtype, compute_dtype)
         return out.reshape(nb, m, nx, nyr)
 
     @staticmethod
     def backward(ctx, g):
         X, C = ctx.saved_tensors
-        nb, d, m, w, n_pix, scale, b_dtype = ctx.dims
+        nb, d, m, w, n_pix, scale, b_dtype, compute_dtype = ctx.dims
         g = g.resolve_conj().resolve_neg().reshape(nb, m, w).contiguous()
+        gp = g if compute_dtype is None else bf16_planes(g)
         dX = dC = db = None
         if ctx.needs_input_grad[0]:
-            dX = cmul_contract(g, C.reshape(m, d, w), p_scale=scale,
+            Cw = C.reshape(m, d, w)
+            q = Cw if compute_dtype is None else bf16_planes(Cw)
+            dX = cmul_contract(gp, q, p_scale=scale,
                                conj_q=True).reshape(X.shape)
         if ctx.needs_input_grad[1]:
-            dC = cmul_contract(g.transpose(0, 1), X.reshape(nb, d, w),
-                               p_scale=scale, conj_q=True).reshape(C.shape)
+            Xw = X.reshape(nb, d, w)
+            if compute_dtype is None:
+                q, p_scale = Xw, scale
+            else:
+                q, p_scale = bf16_planes(Xw, scale), 1.0
+            dC = cmul_contract(gp.transpose(0, 1), q, p_scale=p_scale,
+                               conj_q=True).reshape(C.shape)
         if ctx.needs_input_grad[2]:
             db = (g[:, :, 0].real.sum(dim=0) * n_pix).to(b_dtype)
-        return dX, dC, db, None, None, None
+        return dX, dC, db, None, None, None, None
 
 
 def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
@@ -174,12 +253,15 @@ def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
     bin (``conv_k``, source/fft_backproplib.cu:162-189).
 
     X: ``[B, D, Nx, Nyr]``, C: ``[M, D, Nx, Nyr]`` complex64, b: ``[M]``.
-    Runs :class:`SpectralConvFused` on either device.
+    ``compute_dtype=torch.bfloat16`` streams bf16 operands with float32
+    sums and a complex64 result, forward and backward.  Runs
+    :class:`SpectralConvFused` on either device.
     """
-    if compute_dtype is not None:
-        raise NotImplementedError("compute_dtype: bf16 operands for K1 are "
-                                  "ROADMAP queue B 'B1 bf16 operands'")
-    return SpectralConvFused.apply(X, C, b, nx, ny, scale_by_dm)
+    check_compute_dtype(compute_dtype)
+    return SpectralConvFused.apply(X, C, b, nx, ny, scale_by_dm,
+                                   compute_dtype)
+
+
 def spectral_conv_pallas(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
                          nx: int, ny: int, *,
                          scale_by_dm: bool = True) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 
 from ..core.types import AEParams, OptState
 from ..model import autoencoder as model
+from ..ops.spectral_kernels import check_compute_dtype
 from ..optim.update import tree_update
 
 
@@ -42,21 +43,26 @@ def reconstruction_loss(params: AEParams, x: torch.Tensor, scales, *,
                         remat: bool = False) -> torch.Tensor:
     """½·mean squared reconstruction error over the batch.
 
+    ``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision
+    path: in the fft domain the FFTs stay float32 and the pointwise convs
+    stream bf16 operands with float32 sums; in the coord domain the params
+    and the input are cast to bf16 here, inside the loss, so the gradients
+    reach the float32 leaves.  The target is the float32 input in both.
     ``act`` applies only in the coordinate domain (the spectral forward is
     linear by construction; the reference's activation is identity there
     too, backproplib.cu:38-44).  ``remat`` checkpoints per-stage blocks (see
-    the forwards' docstrings).  ``compute_dtype`` (the bf16 forward) is not
-    ported yet and raises.
+    the forwards' docstrings).
     """
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype: the bf16 forward is not ported yet (ROADMAP "
-            "queue B, 'B1 bf16 operands')")
+    check_compute_dtype(compute_dtype)
     x32 = x.to(torch.float32)
     if domain == "fft":
         out = model.forward_fft(params, x, scales, scale_by_dm=scale_by_dm,
-                                remat=remat)
+                                compute_dtype=compute_dtype, remat=remat)
     else:
+        if compute_dtype is not None:
+            params = AEParams.from_leaves([t.to(compute_dtype)
+                                           for t in params.leaves()])
+            x = x.to(compute_dtype)
         out = model.forward_coord(params, x, scales, tap_mode=tap_mode,
                                   scale_by_dm=scale_by_dm, act=act,
                                   remat=remat)[-1]

@@ -159,11 +159,12 @@ def test_conv_valid_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_fused_conv_reduced_precision_raises():
+    """bf16 operands are K1's bf16 mode; any other reduced type raises."""
     X = torch.zeros(1, 2, 8, 5, dtype=torch.complex64)
     C = torch.zeros(3, 2, 8, 5, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="B1 bf16"):
+    with pytest.raises(NotImplementedError, match="bf16 operands only"):
         sk.spectral_conv_fused(X, C, torch.zeros(3), 8, 8,
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.float16)
 
 
 def test_kernel_build_is_keyed_by_sources_and_targets_hopper():

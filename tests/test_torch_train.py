@@ -299,7 +299,7 @@ def test_remat_step_matches_plain(domain):
 
 def test_train_step_through_the_kernel_functions_matches_jax(monkeypatch):
     """The route the card takes — every spectral conv through
-    ``SpectralConvFused``, every coord conv with M·D ≤ 64 through
+    ``SpectralConvFused``, every coord conv of a K2 shape through
     ``ConvValid`` — forced on the CPU, where the Functions run their plain
     versions, still matches JAX over three steps in both domains."""
     def fused(X, C, b, nx, ny, *, scale_by_dm=True, compute_dtype=None):
@@ -307,22 +307,30 @@ def test_train_step_through_the_kernel_functions_matches_jax(monkeypatch):
                                       compute_dtype)
     monkeypatch.setattr(tspec, "spectral_conv", fused)
     monkeypatch.setattr(tcoord, "_auto_conv_kernel",
-                        lambda x, s: s[0] * s[1] <= 64)
+                        lambda x, s: tcoord._kernel_shape(s))
     for domain in ("fft", "coord"):
         worst, _ = _run_both(domain)
         assert worst < STEP_TOL, (domain, worst)
 
 
 def test_train_step_is_functional_and_rejects_bf16():
+    """The step leaves its arguments as they were, in float32 and with bf16
+    operands, and refuses a reduced type other than bf16."""
     _, tp, spec, xs = _net(steps=1)
     opt = ttypes.init_opt_state(tp)
     before = [t.clone() for t in tp.leaves() + opt.mom.leaves()]
-    tmodern.train_step(tp, opt, torch.from_numpy(xs[0]), spec.scales)
+    for cd in (None, torch.bfloat16):
+        for domain in ("fft", "coord"):
+            res = tmodern.train_step(tp, opt, torch.from_numpy(xs[0]),
+                                     spec.scales, domain=domain,
+                                     compute_dtype=cd)
+            assert all(t.dtype == torch.float32
+                       for t in res.params.leaves())
     for t, t0 in zip(tp.leaves() + opt.mom.leaves(), before):
         assert torch.equal(t, t0)
-    with pytest.raises(NotImplementedError, match="B1 bf16"):
+    with pytest.raises(NotImplementedError, match="bf16 operands only"):
         tmodern.train_step(tp, opt, torch.from_numpy(xs[0]), spec.scales,
-                           compute_dtype=torch.bfloat16)
+                           compute_dtype=torch.float16)
 
 
 # ------------------------------------------------------------------- CLI
@@ -383,7 +391,7 @@ def test_cli_train_torch_optimizer_sidecar(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "stream", "--domain", "coord"], "A9"),
-    (["--bf16"], "B1 bf16"), (["--source", "camera"], "A13")])
+    (["--source", "camera"], "A13")])
 def test_cli_train_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):
         tcli(["train", "--device", "cpu", "--steps", "1"] + argv)
