@@ -4,17 +4,20 @@
 The PyTorch counterpart of ``scripts/probe_fused_dft.py``: ``ydft_energy``
 (``spectralae_torch/ops/probe_kernels.py``, ``csrc/probes.cu``) computes
 ``Σ_d Σ_rows Σ_ωy w(ωy)·|DFT_y(x)|²`` of ``x [D, nx, ny]`` from pixel rows,
-the y-DFT a float32 product with the ``[ny, nyr]`` cos/sin bases, and is
-held against the same energy through ``torch.fft.rfft`` (``ref_energy``).
+the y-DFT a product with the ``[ny, nyr]`` cos/sin bases on the tensor
+cores at a JAX precision tier (``"default"``: bf16 operands, ``"high"``:
+bf16×3, ``"highest"``: bf16×6), and is held against the same energy
+through ``torch.fft.rfft`` (``ref_energy``).
 
 ``--check`` runs the JAX probe's small case, ``x [3, 32, 48]`` with
-``y_chunk=16``, and asserts a relative error under 1e-5.  Without it, the
-script times ``[3, n, n]`` (default n = 2048): the ``torch.fft.rfft`` route
-(the JAX probe's ``xla_rfft_y`` row), the kernel at the ``"default"`` and
-``"highest"`` tiers (both IEEE float32 here) and the plain version (two
-cuBLAS float32 products), each with its value, its error against the rfft
-route and its mean ms over CUDA events.  Both run on the card unless
-``--device cpu`` asks for the plain version on the CPU::
+``y_chunk=16``, at each tier, and asserts a relative error under the
+tier's bound (:data:`CHECK_TOL`).  Without it, the script times ``[3, n,
+n]`` (default n = 2048): the ``torch.fft.rfft`` route (the JAX probe's
+``xla_rfft_y`` row), the kernel at each tier and the plain version (two
+cuBLAS float32 products a chunk), each with its value, its error against
+the rfft route and its mean ms over CUDA events, and says which tier, if
+any, beats the rfft route.  Both run on the card unless ``--device cpu``
+asks for the plain version on the CPU (float32 at every tier)::
 
     python scripts/torch_probe_fused_dft.py --check
     python scripts/torch_probe_fused_dft.py --check --device cpu
@@ -38,11 +41,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from spectralae_torch.ops import probe_kernels as pk  # noqa: E402
 
-CHECK_TOL = 1e-5
-# the card's peaks (NVIDIA's H100 SXM data sheet): the memory rate and the
-# float32 rate outside the tensor cores
+TIERS = ("default", "high", "highest")
+# the JAX probe's own 1e-5 (its interpret check is float32); the "default"
+# tier's bf16 operands move the energy by 3e-4..8e-4 at the small shapes
+CHECK_TOL = {"default": 1e-3, "high": 1e-5, "highest": 1e-5}
+# the card's peaks (NVIDIA's H100 SXM data sheet): the memory rate, the
+# float32 rate outside the tensor cores and the tensor cores' bf16 rate,
+# and each tier's bf16 passes
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+PASSES = {"default": 1, "high": 3, "highest": 6}
 
 
 def work(shape) -> dict:
@@ -62,30 +71,38 @@ def work(shape) -> dict:
 def bound(shape) -> dict:
     """The least time the card could take for the energy (the larger of the
     bytes over the memory rate and the operations over the float32 peak),
-    and the matmul DFT's operations over that peak beside it."""
+    and beside it the matmul DFT's operations over that peak and, per tier,
+    its bf16 passes over the tensor cores' peak (figures of the design)."""
     w = work(shape)
     t_bytes = w["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = w["flops"] / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "matmul_dft_ms": w["matmul_dft_flops"] / FP32_FLOP_PER_S * 1e3}
+            "matmul_dft_flops": w["matmul_dft_flops"],
+            "matmul_dft_ms": w["matmul_dft_flops"] / FP32_FLOP_PER_S * 1e3,
+            "tensor_core_ms": {t: w["matmul_dft_flops"] * PASSES[t]
+                               / BF16_TC_FLOP_PER_S * 1e3 for t in TIERS}}
 
 
 def check(device: str) -> float:
-    """The JAX probe's ``--check`` case; returns the relative error."""
+    """The JAX probe's ``--check`` case at each tier; returns the largest
+    relative error."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(3, 32, 48)).astype(np.float32))
     x = x.to(device)
-    got = float(pk.ydft_energy(x, y_chunk=16))
     ref = float(pk.ref_energy(x))
-    rel = abs(got - ref) / abs(ref)
-    print(f"check on {device}: got {got:.6g} ref {ref:.6g} rel {rel:.2e}",
-          flush=True)
-    if rel >= CHECK_TOL:
-        raise SystemExit(f"ydft_energy disagrees with the rfft route: rel "
-                         f"{rel:.2e} >= {CHECK_TOL:g}")
+    worst = 0.0
+    for tier in TIERS:
+        got = float(pk.ydft_energy(x, y_chunk=16, precision=tier))
+        rel = abs(got - ref) / abs(ref)
+        print(f"check on {device} ({tier}): got {got:.6g} ref {ref:.6g} rel "
+              f"{rel:.2e}", flush=True)
+        if rel >= CHECK_TOL[tier]:
+            raise SystemExit(f"ydft_energy ({tier}) disagrees with the rfft "
+                             f"route: rel {rel:.2e} >= {CHECK_TOL[tier]:g}")
+        worst = max(worst, rel)
     print("OK", flush=True)
-    return rel
+    return worst
 
 
 def _ms(fn, reps: int, cuda: bool) -> float:
@@ -118,13 +135,14 @@ def timing(n: int, device: str, reps: int) -> dict:
     print(f"{list(x.shape)} on {device}: bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']}: x read once, or a real FFT a row at the "
           f"float32 peak); the matmul DFT's 4*D*nx*ny*nyr flops at that peak "
-          f"{b['matmul_dft_ms']:.4f} ms", flush=True)
-    routes = {
-        "torch_rfft_y": lambda: pk.ref_energy(x),
-        "kernel_default": lambda: pk.ydft_energy(x, precision="default"),
-        "kernel_highest": lambda: pk.ydft_energy(x, precision="highest"),
-        "plain": lambda: pk.ydft_energy_plain(x),
-    }
+          f"{b['matmul_dft_ms']:.4f} ms, on the tensor cores "
+          + ", ".join(f"{t} {ms:.4f} ms" for t, ms in
+                      b["tensor_core_ms"].items()), flush=True)
+    routes = {"torch_rfft_y": lambda: pk.ref_energy(x)}
+    for tier in TIERS:
+        routes[f"kernel_{tier}"] = (
+            lambda tier=tier: pk.ydft_energy(x, precision=tier))
+    routes["plain"] = lambda: pk.ydft_energy_plain(x)
     rows, ref = {}, None
     for name, fn in routes.items():
         v = float(fn())
@@ -133,7 +151,12 @@ def timing(n: int, device: str, reps: int) -> dict:
         rel = abs(v - ref) / abs(ref)
         rows[name] = {"value": v, "rel": rel, "ms": ms}
         print(f"{name}: val {v:.6g} rel {rel:.2e} ms {ms:.4f}", flush=True)
+    faster = [t for t in TIERS
+              if rows[f"kernel_{t}"]["ms"] < rows["torch_rfft_y"]["ms"]]
+    print("tiers that beat the rfft route: "
+          + (", ".join(faster) if faster else "none"), flush=True)
     rows.update(b)
+    rows["faster_than_rfft"] = faster
     return rows
 
 

@@ -63,10 +63,10 @@ _SIGNATURES = {
     # X, xre, xim, taps, consts, out, scratch, B, D, nx, nyr, nk2, nl2, s1,
     # bf16, stream
     "anchor_windows_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
-    # xr, xi, consts, outr, outi, BD, R, n, k1p, stream
-    "rfft_y_leaf_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
-    # yr, yi, consts, outr, outi, BD, nx, L, bf16, stream
-    "fft_x_leaf_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # xr, xi, consts, tiles, outr, outi, BD, R, n, k1p, tier, stream
+    "rfft_y_leaf_launch": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # yr, yi, consts, tiles, outr, outi, BD, nx, L, bf16, tier, stream
+    "fft_x_leaf_launch": (_P,) * 6 + (_I,) * 5 + (_P,),
     # xr, xi, consts, outr, outi, BD, A, n, lanes, stream
     "bfly_round_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     # kind, nb, M, D, P, W (returns long long)
@@ -91,8 +91,8 @@ _SIGNATURES = {
     "probe_middle_store_launch": (_P, _P, _L, _I, _P),
     # R, nyr (returns long long)
     "ydft_energy_blocks": (_I, _I),
-    # x, cosb, sinb, w, scratch, out, R, ny, nyr, stream
-    "ydft_energy_launch": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # x, tiles, w, scratch, out, R, ny, nyr, tier, stream
+    "ydft_energy_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong,

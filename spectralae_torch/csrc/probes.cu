@@ -15,23 +15,38 @@
 // P2 replaces: scripts/probe_fused_dft.py · ydft_energy (body _make_kernel)
 //   E = sum_d sum_r sum_j w[j] * |DFT_y(x)[d, r, j]|^2 for x [D, nx, ny]
 //   float32, the y-DFT a product with the [ny, nyr] cos/sin bases.
-//   What bounds it: operations.  Two real products of [D*nx, ny] by
-//   [ny, nyr], 4*D*nx*ny*nyr flops on ~67 MB at 2048^2 (D = 3), three
-//   orders of magnitude over the card's flop/byte balance.
-//   What the design does about it (kept simple; every precision tier runs
-//   IEEE float32 FMAs on CUDA cores, no tensor cores):
-//    - one block owns a 64-row x 64-bin tile of Y = x * (cos - i sin), the
-//      rows flattened over D; 256 threads each hold a 4 x 4 tile of both
-//      products in registers (32 accumulators) and step over y in chunks of
-//      16, x and both bases staged through shared memory — a register-
-//      blocked float32 product; the bases (16.8 MB at 2048^2) stay in the
-//      50 MB L2 across blocks;
+//   What bounds it: the function needs x read once (50 MB at [3, 2048,
+//   2048]: 0.015 ms at 3.35 TB/s), but the matmul DFT does
+//   4*D*nx*ny*nyr = 51.6 GFLOP for it: 0.77 ms on CUDA cores in float32,
+//   0.052 ms a bf16 pass on the tensor cores.  As tiled below, each block
+//   re-reads x from L2 for each of its row band's bin tiles (17 at 2048^2),
+//   ~1.25 GB a call with the bases, and that traffic bounds the kernel
+//   more than its products (PERF.md).  The design (wgmma, bf16 operand
+//   pieces by the JAX precision tier, csrc/wgmma.cuh):
+//    - a block of two warpgroups owns 128 rows (flattened over D) x 64
+//      bins; B = [cos | sin] of the bins, N = 128 as two n64 products per
+//      k16 step; each warpgroup accumulates its 64 rows in registers (64
+//      floats a thread) over y in chunks of 64;
+//    - x is split into the tier's bf16 pieces while it is staged, each
+//      thread 4 x 8 consecutive y of a row (two float4 loads where ny %
+//      4 == 0) written as 16-byte rows of the K-major A tiles; the bases'
+//      pieces arrive in tile order from the host (probe_kernels.
+//      _ydft_tiles_on, cached; 8.4 MB a piece at 2048^2, L2-resident);
+//    - the next chunk is loaded into registers while the tensor cores work
+//      on this one;
+//    - the grid runs the bin tiles of a row band side by side (bin tile =
+//      blockIdx.x), so x comes from HBM once and from L2 for the rest;
 //    - the epilogue weighs |Y|^2 by w and sums the block's tile in a fixed
 //      tree into one partial; a second grid of one block sums the partials
 //      in a fixed order in double, so the result does not depend on block
 //      scheduling and no float atomics are used.
 
+#include <cstdint>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -64,74 +79,113 @@ __global__ void middle_store_kernel(const float* __restrict__ x,
   if (e < n) out[k * n + e] = x[e] * (float)(k + 1);
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
+constexpr int kPM = 128;   // rows per block: two warpgroups of 64
+constexpr int kPB = 64;    // bins per block (N = 128: cos | sin)
+constexpr int kPY = 64;    // y per chunk (the tile's contraction)
 
-__global__ void __launch_bounds__(kThreads)
-ydft_sweep_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                  const float* __restrict__ sb, const float* __restrict__ wt,
-                  float* __restrict__ partial, int R, int ny, int nyr) {
-  __shared__ float xs[kBK][kBM + 1];   // x tile, transposed; +1: no conflicts
-  __shared__ float cs[kBK][kBN];
-  __shared__ float ss[kBK][kBN];
+// One chunk's registers of one thread: 4 groups of 8 consecutive y of one
+// row each, and its share of the chunk's bases tile (NP pieces of
+// 128 x 64 bf16).
+template <int NP>
+struct XStage {
+  float v[4][8];
+  uint4 b[NP * 4];
+};
+
+template <int NP>
+__device__ __forceinline__ void load_xstage(const float* __restrict__ x,
+                                            const uint4* __restrict__ tiles,
+                                            int row0, int y0, int R, int ny,
+                                            bool vec, XStage<NP>& st) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int unit = threadIdx.x + u * kThreads;
+    const int r = row0 + (unit >> 3), y = y0 + (unit & 7) * 8;
+    const float* p = x + (long long)r * ny + y;
+    if (vec && r < R && y + 8 <= ny) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      const float4 b = *reinterpret_cast<const float4*>(p + 4);
+      st.v[u][0] = a.x, st.v[u][1] = a.y, st.v[u][2] = a.z, st.v[u][3] = a.w;
+      st.v[u][4] = b.x, st.v[u][5] = b.y, st.v[u][6] = b.z, st.v[u][7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        st.v[u][e] = (r < R && y + e < ny) ? p[e] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NP * 4; ++u)
+    st.b[u] = tiles[threadIdx.x + u * kThreads];
+}
+
+// Grid: (bin tiles, row bands).  Dynamic shared memory: the A tiles
+// [NP pieces][2 warpgroups], then the B tile's NP pieces of 128 rows;
+// above "default" the float32 totals (wg::promote), 64 KB.  At "default"
+// (32 KB) two blocks share an SM, one staging while the other multiplies,
+// in 128 registers a thread (none spilled).
+template <int TIER>
+__global__ void __launch_bounds__(kThreads, TIER == 0 ? 2 : 1)
+ydft_sweep_kernel(const float* __restrict__ x,
+                  const uint4* __restrict__ tiles,
+                  const float* __restrict__ wt, float* __restrict__ partial,
+                  int R, int ny, int nyr, int vec) {
+  constexpr int NP = wg::pieces(TIER);
+  constexpr int kA = 2 * wg::kTileElems;       // A: one piece, 128 rows
+  constexpr int kB = 2 * wg::kTileElems;       // B: one piece, 128 rows
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const Bs = As + NP * kA;
+  float4* const tot = reinterpret_cast<float4*>(Bs + NP * kB);
   __shared__ float red[kThreads];
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  const int t = threadIdx.x, g = t >> 7;
+  const int row0 = blockIdx.y * kPM, b0 = blockIdx.x * kPB;
+  const int nc = (ny + kPY - 1) / kPY;
+  const uint4* bt = tiles + (size_t)blockIdx.x * nc * NP * (kB / 8);
 
-  float ac[4][4], as[4][4];
+  float acc[2][32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ac[i][j] = as[i][j] = 0.f;
+    for (int v = 0; v < 32; ++v) acc[s][v] = 0.f;
 
-  for (int k0 = 0; k0 < ny; k0 += kBK) {
+  XStage<NP> st;
+  load_xstage<NP>(x, bt, row0, 0, R, ny, vec, st);
+  for (int c = 0; c < nc; ++c) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = t + i * kThreads;
-      const int r = idx >> 4, kk = idx & 15;       // x: 16 y a row
-      const int gr = row0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < R && gk < ny) ? x[(long long)gr * ny + gk] : 0.f;
-      const int kb = idx >> 6, c = idx & 63;        // bases: 64 bins a row
-      const int gkb = k0 + kb, gc = col0 + c;
-      const bool in = gkb < ny && gc < nyr;
-      const long long o = (long long)gkb * nyr + gc;
-      cs[kb][c] = in ? cb[o] : 0.f;
-      ss[kb][c] = in ? sb[o] : 0.f;
+    for (int u = 0; u < 4; ++u) {
+      const int unit = t + u * kThreads;
+      const int r = unit >> 3, k = (unit & 7) * 8;
+      __nv_bfloat16* dst[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        dst[p] = As + p * kA + (r >> 6) * wg::kTileElems +
+                 wg::tile_off(r & 63, k);
+      wg::store_row8<NP>(st.v[u], dst);
     }
+#pragma unroll
+    for (int u = 0; u < NP * 4; ++u)
+      reinterpret_cast<uint4*>(Bs)[t + u * kThreads] = st.b[u];
+    wg::fence_stores();
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bc[4], bs[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bc[j] = cs[kk][tx + 16 * j];
-        bs[j] = ss[kk][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ac[i][j] = fmaf(a[i], bc[j], ac[i][j]);
-          as[i][j] = fmaf(a[i], bs[j], as[i][j]);
-        }
-    }
+    wg::mma_chunk<TIER, 2>(acc, As + g * wg::kTileElems, kA, Bs, kB,
+                           TIER > 0 || c == 0);
+    if (c + 1 < nc)
+      load_xstage<NP>(x, bt + (size_t)(c + 1) * NP * (kB / 8), row0,
+                      (c + 1) * kPY, R, ny, vec, st);
+    wg::finish<2>(acc);
+    if constexpr (TIER > 0) wg::promote<2>(acc, tot, kThreads, c == 0);
     __syncthreads();
   }
+  if constexpr (TIER > 0) wg::totals<2>(acc, tot, kThreads);
 
-  // rows past R hold zeros; bins past nyr weigh nothing
+  // acc[0] holds the cos products of bins b0 + col, acc[1] the sin ones;
+  // rows past R hold zeros, bins past nyr weigh nothing
   float e = 0.f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = col0 + tx + 16 * j;
-    if (c < nyr) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s += ac[i][j] * ac[i][j] + as[i][j] * as[i][j];
-      e += wt[c] * s;
-    }
+  for (int v = 0; v < 32; ++v) {
+    const int bin = b0 + wg::acc_col(t & 127, v);
+    if (bin < nyr)
+      e += wt[bin] * (acc[0][v] * acc[0][v] + acc[1][v] * acc[1][v]);
   }
   red[t] = e;
   __syncthreads();
@@ -140,6 +194,21 @@ ydft_sweep_kernel(const float* __restrict__ x, const float* __restrict__ cb,
     __syncthreads();
   }
   if (t == 0) partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+}
+
+template <int TIER>
+cudaError_t launch_sweep(dim3 grid, const float* x, const uint4* tiles,
+                         const float* w, float* partial, int R, int ny,
+                         int nyr, int vec, cudaStream_t st) {
+  constexpr int smem = 2 * wg::pieces(TIER) * 2 * wg::kTileElems * 2 +
+                       wg::total_bytes(TIER, 2, kThreads);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ydft_sweep_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  ydft_sweep_kernel<TIER><<<grid, kThreads, smem, st>>>(x, tiles, w, partial,
+                                                        R, ny, nyr, vec);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -198,27 +267,40 @@ extern "C" int probe_middle_store_launch(const void* x, void* out,
 
 // Blocks of the sweep grid, hence the partials' scratch floats.
 extern "C" long long ydft_energy_blocks(int R, int nyr) {
-  return (long long)((nyr + kBN - 1) / kBN) * ((R + kBM - 1) / kBM);
+  return (long long)((nyr + kPB - 1) / kPB) * ((R + kPM - 1) / kPM);
 }
 
-// x: [R, ny] float32 (R = D*nx), cosb/sinb: [ny, nyr], w: [nyr], all
-// contiguous float32; scratch: ydft_energy_blocks(R, nyr) floats; out: one
-// float.  Two grids: the sweep, then the ordered sum of its partials.
-extern "C" int ydft_energy_launch(const void* x, const void* cosb,
-                                  const void* sinb, const void* w,
-                                  void* scratch, void* out, int R, int ny,
-                                  int nyr, void* stream) {
+// x: [R, ny] float32 (R = D*nx), contiguous; tiles: the [ny, nyr] cos and
+// sin bases' bf16 pieces of the precision tier (0 default, 1 high, 2
+// highest) in tile order, [ceil(nyr/64)][ceil(ny/64)][tier + 1][128 x 64]
+// (probe_kernels._ydft_tiles_on); w: [nyr] float32; scratch:
+// ydft_energy_blocks(R, nyr) floats; out: one float.  Two grids: the
+// sweep, then the ordered sum of its partials.
+extern "C" int ydft_energy_launch(const void* x, const void* tiles,
+                                  const void* w, void* scratch, void* out,
+                                  int R, int ny, int nyr, int tier,
+                                  void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((nyr + kBN - 1) / kBN),
-                  (unsigned)((R + kBM - 1) / kBM));
-  ydft_sweep_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cosb),
-      static_cast<const float*>(sinb), static_cast<const float*>(w),
-      static_cast<float*>(scratch), R, ny, nyr);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid((unsigned)((nyr + kPB - 1) / kPB),
+                  (unsigned)((R + kPM - 1) / kPM));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* tl = static_cast<const uint4*>(tiles);
+  const auto* wf = static_cast<const float*>(w);
+  auto* part = static_cast<float*>(scratch);
+  const int vec = ny % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaError_t err;
+  switch (tier) {
+    case 0: err = launch_sweep<0>(grid, xf, tl, wf, part, R, ny, nyr, vec, st);
+            break;
+    case 1: err = launch_sweep<1>(grid, xf, tl, wf, part, R, ny, nyr, vec, st);
+            break;
+    case 2: err = launch_sweep<2>(grid, xf, tl, wf, part, R, ny, nyr, vec, st);
+            break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   ydft_reduce_kernel<<<1, kThreads, 0, st>>>(
-      static_cast<const float*>(scratch), (int)(grid.x * grid.y),
-      static_cast<float*>(out));
+      part, (int)(grid.x * grid.y), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -27,68 +27,89 @@
 // An axis longer than 4*_MAX_M1 first takes butterfly rounds (the same
 // butterfly and twiddle, written out as four streams) until the leaf fits.
 //
-// What bounds it on Hopper: float32 operations.  The four-step's matmul DFT
-// does about m1 = n/4 complex multiply-adds per output bin (cuFFT about
-// log2 n), so the leaf at 1024^2 is ~4 GFLOP per axis for ~30 MB of traffic,
-// far above the card's flop/byte balance.  The products run as IEEE float32
-// FMAs on CUDA cores (the JAX package's bf16 tiers fed the TPU's matrix
-// unit); tensor cores are left for a later change.  The layout is chosen
-// for correctness first and is a plain tiled product:
-//  - a block computes a 32 (data items) x 32 (frequencies) tile for all four
-//    k2 streams, looping over the reduction in chunks of 16: each chunk
-//    loads the four input quarters of its 32 x 16 items, forms butterfly
-//    and twiddle in registers and stores P to shared memory, with the
-//    chunk's bases beside it;
-//  - each of the 256 threads owns 4 items x 4 frequencies of one k2 (32
-//    float accumulators) and reads P and the bases as float4: 4 shared
-//    loads per 64 FMAs;
-//  - the bases (up to 512 x 288 floats) are read from global memory a
-//    chunk at a time: every block reads the same table, so L2 holds it.
+// What bounds it on Hopper, and what the design does about it.  The
+// function needs an FFT's operations (5 n log2 n a complex row) and its
+// bytes (input read once, output written once): at [12, 4096, 1024] 0.66
+// GB, 0.195 ms at 3.35 TB/s.  The four-step's matmul DFT does m1 = n/4
+// complex multiply-adds per output bin instead (64 GFLOP there), which on
+// CUDA cores in float32 (67 TFLOP/s) bound the leaf by operations.  It
+// runs on the tensor cores (wgmma, bf16 operands, float32 accumulate;
+// csrc/wgmma.cuh), where one bf16 pass takes 0.065 ms at 989 TFLOP/s; the
+// JAX precision tier chooses the passes ("default" 1, "high" 3, "highest"
+// 6).  As tiled below, each block re-reads its input from L2 for every
+// frequency tile (5 at that shape), and that traffic, not the products,
+// bounds the kernel (PERF.md):
+//  - a block of two warpgroups owns 64 data items x 32 frequencies for all
+//    four k2 streams; the complex product is one real product
+//    [Pr | Pi] . [[bc, -bs], [bs, bc]] of N = 64 columns (re | im),
+//    contracted over 2*m1 in chunks of 32 j (64 wide); warpgroup g
+//    accumulates streams 2g and 2g+1 in registers (64 floats a thread);
+//  - each chunk, every thread loads the four input quarters of one data
+//    item at 8 consecutive j, forms butterfly and twiddle in exact float32
+//    (no contracted FMAs, so P is bit-equal to the plain version's),
+//    splits P into the tier's bf16 pieces and writes them as 16-byte rows
+//    of the K-major A tiles; the bases' pieces arrive laid out in tile
+//    order from the host (fft_kernels._leaf_tiles_on, cached), 8 KB a
+//    piece a chunk, shared by the four streams;
+//  - the next chunk's inputs and bases are loaded into registers while
+//    the tensor cores work on this one (the products are asynchronous);
+//  - above "default" each chunk's products start afresh and are added into
+//    float32 totals in shared memory (wg::promote: the tensor cores
+//    truncate as they accumulate);
+//  - the epilogue stores the accumulators straight from registers: eight
+//    neighbouring rows (x-leaf) or four frequency pairs (y-leaf) make each
+//    32-byte sector.
 // The butterfly round is elementwise: one thread per output position of the
 // four streams, coalesced along the contiguous axis.
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTD = 32;          // data items per block (y: rows, x: lanes)
-constexpr int kTK = 32;          // frequencies per block
-constexpr int kTJ = 16;          // reduction chunk
-constexpr int kPitch = kTD + 4;  // padded shared row of the P tile
+constexpr int kThreads = 256;    // two warpgroups
+constexpr int kTD = 64;          // data items per block (y: rows, x: lanes)
+constexpr int kTF = 32;          // frequencies per block (N = 64: re | im)
+constexpr int kJC = 32;          // j per chunk (contraction 64: Pr | Pi)
 
 struct Leaf {
   const float* xr;
   const float* xi;     // null: real input
   void* outr;
   void* outi;
-  const float* bc;     // [m1][K]
-  const float* bs;
+  const uint4* tiles;  // bases: [nf][nc][pieces][64 x 64 bf16, tile order]
   const float* twc;    // [4][m1]
   const float* tws;
-  int Dn, m1, K;
+  int Dn, m1, K, vec;  // vec: 8 j of a row are 32 aligned, contiguous bytes
   long long in_plane, in_d, in_j;     // quarter q starts at q*m1*in_j
   long long out_plane, out_k2, out_d, out_k;
 };
 
 // the radix-4 butterfly of four complex quarters, then the twiddle of each
-// stream k2 by (c[k2] - i s[k2]); real input has zero imaginary parts
+// stream k2 by (c[k2] - i s[k2]); real input has zero imaginary parts.
+// Rounded operations only (never a contracted FMA): the result is the
+// plain version's to the bit.
 __device__ __forceinline__ void butterfly_twiddle(const float r[4],
                                                   const float i[4],
                                                   const float c[4],
                                                   const float s[4],
                                                   float pr[4], float pi[4]) {
-  const float e_r = r[0] + r[2], e_i = i[0] + i[2];
-  const float o_r = r[1] + r[3], o_i = i[1] + i[3];
-  const float d_r = r[0] - r[2], d_i = i[0] - i[2];
-  const float f_r = r[1] - r[3], f_i = i[1] - i[3];
-  const float sr[4] = {e_r + o_r, d_r + f_i, e_r - o_r, d_r - f_i};
-  const float si[4] = {e_i + o_i, d_i - f_r, e_i - o_i, d_i + f_r};
+  const float e_r = __fadd_rn(r[0], r[2]), e_i = __fadd_rn(i[0], i[2]);
+  const float o_r = __fadd_rn(r[1], r[3]), o_i = __fadd_rn(i[1], i[3]);
+  const float d_r = __fsub_rn(r[0], r[2]), d_i = __fsub_rn(i[0], i[2]);
+  const float f_r = __fsub_rn(r[1], r[3]), f_i = __fsub_rn(i[1], i[3]);
+  const float sr[4] = {__fadd_rn(e_r, o_r), __fadd_rn(d_r, f_i),
+                       __fsub_rn(e_r, o_r), __fsub_rn(d_r, f_i)};
+  const float si[4] = {__fadd_rn(e_i, o_i), __fsub_rn(d_i, f_r),
+                       __fsub_rn(e_i, o_i), __fadd_rn(d_i, f_r)};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    pr[k] = sr[k] * c[k] + si[k] * s[k];
-    pi[k] = si[k] * c[k] - sr[k] * s[k];
+    pr[k] = __fadd_rn(__fmul_rn(sr[k], c[k]), __fmul_rn(si[k], s[k]));
+    pi[k] = __fsub_rn(__fmul_rn(si[k], c[k]), __fmul_rn(sr[k], s[k]));
   }
 }
 
@@ -100,96 +121,164 @@ __device__ __forceinline__ void store(void* out, size_t i, float v) {
     static_cast<float*>(out)[i] = v;
 }
 
-// Grid: (data tiles, frequency tiles, planes).
-template <bool CPLX, bool BF16>
-__global__ void __launch_bounds__(kThreads) dft_leaf_kernel(Leaf a) {
-  __shared__ __align__(16) float Pr[4][kTJ][kPitch];
-  __shared__ __align__(16) float Pi[4][kTJ][kPitch];
-  __shared__ __align__(16) float Bc[kTJ][kTK];
-  __shared__ __align__(16) float Bs[kTJ][kTK];
-  const int tid = threadIdx.x;
-  const int kg = tid & 7, dg = (tid >> 3) & 7, k2 = tid >> 6;
-  const int d0 = blockIdx.x * kTD, k0 = blockIdx.y * kTK;
+// One chunk's registers of one thread: the four quarters (re, im) of its
+// data item at its 8 j, and its share of the chunk's bases tile.
+template <int NP>
+struct Stage {
+  float r[4][8], i[4][8];
+  uint4 b[NP * 2];
+};
+
+template <bool CPLX, int NP>
+__device__ __forceinline__ void load_stage(const Leaf& a, const float* xr,
+                                           const float* xi, int d, int j0,
+                                           const uint4* tiles,
+                                           Stage<NP>& st) {
+  const size_t qoff = (size_t)a.m1 * a.in_j;
+  if (a.vec && d < a.Dn && j0 < a.m1) {       // m1 % 8 == 0: whole group
+    const size_t o = (size_t)d * a.in_d + j0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(xr + o + q * qoff +
+                                                          4 * h);
+        st.r[q][4 * h] = v.x, st.r[q][4 * h + 1] = v.y;
+        st.r[q][4 * h + 2] = v.z, st.r[q][4 * h + 3] = v.w;
+        if (CPLX) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              xi + o + q * qoff + 4 * h);
+          st.i[q][4 * h] = w.x, st.i[q][4 * h + 1] = w.y;
+          st.i[q][4 * h + 2] = w.z, st.i[q][4 * h + 3] = w.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st.i[q][4 * h + e] = 0.f;
+        }
+      }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = j0 + e;
+      const bool ok = d < a.Dn && j < a.m1;
+      const size_t o = ok ? (size_t)d * a.in_d + (size_t)j * a.in_j : 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        st.r[q][e] = ok ? xr[o + q * qoff] : 0.f;
+        st.i[q][e] = (CPLX && ok) ? xi[o + q * qoff] : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NP * 2; ++u)
+    st.b[u] = tiles[threadIdx.x + u * kThreads];
+}
+
+// Grid: (data tiles, frequency tiles, planes).  Dynamic shared memory: the
+// A tiles [4 streams][NP pieces], then the B tile's NP pieces, 8 KB each;
+// above "default" the float32 totals (wg::promote), 64 KB.
+template <bool CPLX, bool BF16, int TIER>
+__global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
+  constexpr int NP = wg::pieces(TIER);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const Bs = As + 4 * NP * wg::kTileElems;
+  float4* const tot = reinterpret_cast<float4*>(Bs + NP * wg::kTileElems);
+  const int tid = threadIdx.x, g = tid >> 7;
+  const int d0 = blockIdx.x * kTD, f = blockIdx.y;
   const size_t plane = blockIdx.z;
   const float* xr = a.xr + plane * a.in_plane;
   const float* xi = CPLX ? a.xi + plane * a.in_plane : nullptr;
-  const size_t qoff = (size_t)a.m1 * a.in_j;
-  // the input's contiguous axis runs across neighbouring threads
+  // this thread's data item and group of 8 j in every chunk: the input's
+  // contiguous axis runs across neighbouring threads
   const bool dfast = a.in_d == 1;
-  float accr[4][4], acci[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) accr[u][v] = acci[u][v] = 0.f;
+  const int dl = dfast ? (tid & 63) : (tid >> 2);
+  const int jg = dfast ? (tid >> 6) : (tid & 3);
+  const int d = d0 + dl;
+  const int nc = (a.m1 + kJC - 1) / kJC;
+  const uint4* tiles = a.tiles + (size_t)f * nc * NP * (wg::kTileElems / 8);
 
-  for (int j0 = 0; j0 < a.m1; j0 += kTJ) {
-    for (int e = tid; e < kTD * kTJ; e += kThreads) {
-      const int dl = dfast ? e % kTD : e / kTJ;
-      const int jl = dfast ? e / kTD : e % kTJ;
-      const int d = d0 + dl, j = j0 + jl;
-      float pr[4] = {0.f, 0.f, 0.f, 0.f}, pi[4] = {0.f, 0.f, 0.f, 0.f};
-      if (d < a.Dn && j < a.m1) {
-        const size_t o = (size_t)d * a.in_d + (size_t)j * a.in_j;
-        float r[4], im[4], c[4], s[4];
+  float acc[2][1][32];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          r[q] = xr[o + q * qoff];
-          im[q] = CPLX ? xi[o + q * qoff] : 0.f;
-          c[q] = a.twc[(size_t)q * a.m1 + j];
-          s[q] = a.tws[(size_t)q * a.m1 + j];
-        }
-        butterfly_twiddle(r, im, c, s, pr, pi);
-      }
+  for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        Pr[k][jl][dl] = pr[k];
-        Pi[k][jl][dl] = pi[k];
+    for (int v = 0; v < 32; ++v) acc[s][0][v] = 0.f;
+
+  Stage<NP> st;
+  load_stage<CPLX, NP>(a, xr, xi, d, jg * 8, tiles, st);
+  for (int c = 0; c < nc; ++c) {
+    // P = twiddled butterfly of this chunk, its pieces into the A tiles
+    float pr[4][8], pi[4][8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = min(c * kJC + jg * 8 + e, a.m1 - 1);   // past m1: P = 0
+      float r[4], im[4], cc[4], ss[4], qr[4], qi[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        r[q] = st.r[q][e], im[q] = st.i[q][e];
+        cc[q] = a.twc[(size_t)q * a.m1 + j];
+        ss[q] = a.tws[(size_t)q * a.m1 + j];
       }
+      butterfly_twiddle(r, im, cc, ss, qr, qi);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pr[k][e] = qr[k], pi[k][e] = qi[k];
     }
-    for (int e = tid; e < kTJ * kTK; e += kThreads) {
-      const int jl = e / kTK, kl = e % kTK;
-      const int j = j0 + jl, k = k0 + kl;
-      const bool ok = j < a.m1 && k < a.K;
-      Bc[jl][kl] = ok ? a.bc[(size_t)j * a.K + k] : 0.f;
-      Bs[jl][kl] = ok ? a.bs[(size_t)j * a.K + k] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      __nv_bfloat16* const t = As + k * NP * wg::kTileElems;
+      __nv_bfloat16* re[NP];
+      __nv_bfloat16* im[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        re[p] = t + p * wg::kTileElems + wg::tile_off(dl, jg * 8);
+        im[p] = t + p * wg::kTileElems + wg::tile_off(dl, kJC + jg * 8);
+      }
+      wg::store_row8<NP>(pr[k], re);
+      wg::store_row8<NP>(pi[k], im);
     }
+#pragma unroll
+    for (int u = 0; u < NP * 2; ++u)
+      reinterpret_cast<uint4*>(Bs)[tid + u * kThreads] = st.b[u];
+    wg::fence_stores();
     __syncthreads();
-#pragma unroll 4
-    for (int jl = 0; jl < kTJ; ++jl) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Pr[k2][jl][dg * 4]);
-      const float4 q4 = *reinterpret_cast<const float4*>(&Pi[k2][jl][dg * 4]);
-      const float4 c4 = *reinterpret_cast<const float4*>(&Bc[jl][kg * 4]);
-      const float4 s4 = *reinterpret_cast<const float4*>(&Bs[jl][kg * 4]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float pi[4] = {q4.x, q4.y, q4.z, q4.w};
-      const float c[4] = {c4.x, c4.y, c4.z, c4.w};
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    // warpgroup g: streams 2g and 2g + 1 against the shared bases tile
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+    for (int s = 0; s < 2; ++s)
+      wg::mma_chunk<TIER, 1>(acc[s],
+                             As + (2 * g + s) * NP * wg::kTileElems,
+                             wg::kTileElems, Bs, wg::kTileElems,
+                             TIER > 0 || c == 0);
+    if (c + 1 < nc)
+      load_stage<CPLX, NP>(a, xr, xi, d, (c + 1) * kJC + jg * 8,
+                           tiles + (size_t)(c + 1) * NP * (wg::kTileElems / 8),
+                           st);
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          // (pr + i pi)(c - i s)
-          accr[u][v] = fmaf(pr[u], c[v], accr[u][v]);
-          accr[u][v] = fmaf(pi[u], s[v], accr[u][v]);
-          acci[u][v] = fmaf(pi[u], c[v], acci[u][v]);
-          acci[u][v] = fmaf(-pr[u], s[v], acci[u][v]);
-        }
+    for (int s = 0; s < 2; ++s) {
+      wg::finish<1>(acc[s]);
+      if constexpr (TIER > 0)
+        wg::promote<1>(acc[s], tot + s * 8 * kThreads, kThreads, c == 0);
     }
     __syncthreads();
   }
+  if constexpr (TIER > 0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      wg::totals<1>(acc[s], tot + s * 8 * kThreads, kThreads);
+  }
 
-  const size_t base = plane * a.out_plane + (size_t)k2 * a.out_k2;
+  // columns 0..31: the real parts of frequencies k0 + col, 32..63 the
+  // imaginary parts
+  const int k0 = f * kTF;
+  const int t = tid & 127;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int d = d0 + dg * 4 + u;
-    if (d >= a.Dn) continue;
+  for (int s = 0; s < 2; ++s) {
+    const size_t base = plane * a.out_plane + (size_t)(2 * g + s) * a.out_k2;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int k = k0 + kg * 4 + v;
-      if (k >= a.K) continue;
-      const size_t o = base + (size_t)d * a.out_d + (size_t)k * a.out_k;
-      store<BF16>(a.outr, o, accr[u][v]);
-      store<BF16>(a.outi, o, acci[u][v]);
+    for (int v = 0; v < 32; ++v) {
+      const int row = d0 + wg::acc_row(t, v), col = wg::acc_col(t, v);
+      const int k = k0 + (col & (kTF - 1));
+      if (row >= a.Dn || k >= a.K) continue;
+      const size_t o = base + (size_t)row * a.out_d + (size_t)k * a.out_k;
+      store<BF16>(col < kTF ? a.outr : a.outi, o, acc[s][0][v]);
     }
   }
 }
@@ -234,39 +323,63 @@ __global__ void __launch_bounds__(kThreads) bfly_round_kernel(Round a) {
   }
 }
 
-int launch_leaf(const Leaf& a, int planes, bool cplx, bool bf16,
-                cudaStream_t st) {
+template <bool CPLX, bool BF16, int TIER>
+cudaError_t launch_leaf_t(const Leaf& a, dim3 grid, cudaStream_t st) {
+  constexpr int smem = 5 * wg::pieces(TIER) * wg::kTileElems * 2 +
+                       wg::total_bytes(TIER, 2, kThreads);
+  const cudaError_t err = cudaFuncSetAttribute(
+      dft_leaf_kernel<CPLX, BF16, TIER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dft_leaf_kernel<CPLX, BF16, TIER><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool CPLX, bool BF16>
+cudaError_t launch_leaf_tier(const Leaf& a, dim3 grid, int tier,
+                             cudaStream_t st) {
+  switch (tier) {
+    case 0: return launch_leaf_t<CPLX, BF16, 0>(a, grid, st);
+    case 1: return launch_leaf_t<CPLX, BF16, 1>(a, grid, st);
+    case 2: return launch_leaf_t<CPLX, BF16, 2>(a, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int launch_leaf(Leaf& a, const void* consts, const void* tiles, int planes,
+                bool cplx, bool bf16, int tier, cudaStream_t st) {
   if (planes < 1 || planes > 65535 || a.Dn < 1 || a.m1 < 1 || a.K < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.Dn + kTD - 1) / kTD, (a.K + kTK - 1) / kTK, planes);
+  const dim3 grid((a.Dn + kTD - 1) / kTD, (a.K + kTF - 1) / kTF, planes);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   // real input is the top-level y-leaf only, which stores float32
   if (!cplx && bf16) return (int)cudaErrorInvalidValue;
-  if (!cplx)
-    dft_leaf_kernel<false, false><<<grid, kThreads, 0, st>>>(a);
-  else if (bf16)
-    dft_leaf_kernel<true, true><<<grid, kThreads, 0, st>>>(a);
-  else
-    dft_leaf_kernel<true, false><<<grid, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-void set_bases(Leaf* a, const void* consts) {
-  a->bc = static_cast<const float*>(consts);
-  a->bs = a->bc + (size_t)a->m1 * a->K;
-  a->twc = a->bs + (size_t)a->m1 * a->K;
-  a->tws = a->twc + (size_t)4 * a->m1;
+  a.twc = static_cast<const float*>(consts);
+  a.tws = a.twc + (size_t)4 * a.m1;
+  a.tiles = static_cast<const uint4*>(tiles);
+  // whole groups of 8 j as two aligned float4 loads: contiguous j, and
+  // every row and quarter 16-byte aligned
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  a.vec = a.in_j == 1 && a.m1 % 8 == 0 && a.in_d % 4 == 0 &&
+          a.in_plane % 4 == 0 && aligned(a.xr) && (!cplx || aligned(a.xi));
+  if (!cplx) return (int)launch_leaf_tier<false, false>(a, grid, tier, st);
+  if (bf16) return (int)launch_leaf_tier<true, true>(a, grid, tier, st);
+  return (int)launch_leaf_tier<true, false>(a, grid, tier, st);
 }
 
 }  // namespace
 
 // The y-leaf (B5a, B5e).  x: [BD, R, n] float32 re (and im, or null for
-// real input); consts: bc, bs [m1][k1p], twc, tws [4][m1] (m1 = n/4);
-// out re/im: [BD, 4, R, k1p] float32.
+// real input); consts: twc, tws [4][m1] float32 (m1 = n/4); tiles: the
+// bases' bf16 pieces of the precision tier (0 default, 1 high, 2 highest)
+// in tile order, [ceil(k1p/32)][ceil(m1/32)][tier + 1][64 x 64]
+// (fft_kernels._leaf_tiles_on); out re/im: [BD, 4, R, k1p] float32.
 extern "C" int rfft_y_leaf_launch(const void* xr, const void* xi,
-                                  const void* consts, void* outr, void* outi,
-                                  int BD, int R, int n, int k1p,
-                                  void* stream) {
+                                  const void* consts, const void* tiles,
+                                  void* outr, void* outi, int BD, int R,
+                                  int n, int k1p, int tier, void* stream) {
   if (n % 4 || n < 4) return (int)cudaErrorInvalidValue;
   Leaf a;
   a.xr = static_cast<const float*>(xr);
@@ -276,7 +389,6 @@ extern "C" int rfft_y_leaf_launch(const void* xr, const void* xi,
   a.Dn = R;
   a.m1 = n / 4;
   a.K = k1p;
-  set_bases(&a, consts);
   a.in_plane = (long long)R * n;
   a.in_d = n;
   a.in_j = 1;
@@ -284,17 +396,19 @@ extern "C" int rfft_y_leaf_launch(const void* xr, const void* xi,
   a.out_k2 = (long long)R * k1p;
   a.out_d = k1p;
   a.out_k = 1;
-  return launch_leaf(a, BD, xi != nullptr, false,
+  return launch_leaf(a, consts, tiles, BD, xi != nullptr, false, tier,
                      static_cast<cudaStream_t>(stream));
 }
 
-// The x-leaf (B5b).  y: [BD, nx, L] float32 re, im; consts: bc, bs [m1][m1]
-// (symmetric), twc, tws [4][m1] (m1 = nx/4); out re/im: [BD, 4, m1, L] =
-// [BD, nx, L] in mixed row order, float32 or (bf16 != 0) bf16.
+// The x-leaf (B5b).  y: [BD, nx, L] float32 re, im; consts: twc, tws
+// [4][m1] (m1 = nx/4); tiles: as for the y-leaf, of the symmetric [m1][m1]
+// bases, [ceil(m1/32)][ceil(m1/32)][tier + 1][64 x 64]; out re/im:
+// [BD, 4, m1, L] = [BD, nx, L] in mixed row order, float32 or (bf16 != 0)
+// bf16.
 extern "C" int fft_x_leaf_launch(const void* yr, const void* yi,
-                                 const void* consts, void* outr, void* outi,
-                                 int BD, int nx, int L, int bf16,
-                                 void* stream) {
+                                 const void* consts, const void* tiles,
+                                 void* outr, void* outi, int BD, int nx,
+                                 int L, int bf16, int tier, void* stream) {
   if (nx % 4 || nx < 4 || yi == nullptr) return (int)cudaErrorInvalidValue;
   Leaf a;
   a.xr = static_cast<const float*>(yr);
@@ -304,7 +418,6 @@ extern "C" int fft_x_leaf_launch(const void* yr, const void* yi,
   a.Dn = L;
   a.m1 = nx / 4;
   a.K = nx / 4;
-  set_bases(&a, consts);
   a.in_plane = (long long)nx * L;
   a.in_d = 1;
   a.in_j = L;
@@ -312,7 +425,7 @@ extern "C" int fft_x_leaf_launch(const void* yr, const void* yi,
   a.out_k2 = (long long)a.m1 * L;
   a.out_d = 1;
   a.out_k = L;
-  return launch_leaf(a, BD, true, bf16 != 0,
+  return launch_leaf(a, consts, tiles, BD, true, bf16 != 0, tier,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -33,14 +33,17 @@ hold the kernel's values.  The wrappers run the plain version for CPU
 tensors; for CUDA tensors they launch the kernel or raise.
 :data:`LAUNCHES` counts launches by kernel.
 
-``precision`` accepts the JAX tiers ``"default"``, ``"high"``,
-``"highest"`` (or None) and changes nothing: every product runs as an
-IEEE float32 FMA on CUDA cores, at least as exact as each tier, and TF32
-is never used.  The JAX
-package's bf16-operand DEFAULT tier and its manual bf16×3 HIGH split exist
-to feed the TPU's matrix unit: they come back when the DFT contractions
-move onto tensor cores.  ``out_dtype=torch.bfloat16`` rounds the stored
-planes, as the JAX kernel's store does.
+``precision`` is the JAX dot tier and says which bf16 operand pieces feed
+the leaves' tensor-core products on the card (``csrc/wgmma.cuh``):
+``"default"`` (and None, as in JAX) one bf16 product, ``"high"`` the
+bf16×3 split of ``_dot_fn`` (spectralae/ops/pallas_fft.py:151), ``"highest"``
+bf16×6.  The operand is P, the twiddled butterfly, never the input: the
+butterfly and twiddle stay exact float32, as in JAX.  The plain versions
+take the same ``precision`` and round the same operands
+(:func:`split_dot`); on CPU tensors the wrappers compute float32 products
+for every tier, as JAX's own ``jnp.dot`` does on the CPU.  TF32 is never
+used.  ``out_dtype=torch.bfloat16`` rounds the stored planes, as the JAX
+kernel's store does.
 """
 
 from __future__ import annotations
@@ -65,6 +68,17 @@ _LANE = 128
 _MAX_M1 = 512
 
 _PRECISIONS = (None, "default", "high", "highest")
+#: the C kernels' tier numbers (csrc/wgmma.cuh)
+_TIERS = {"default": 0, "high": 1, "highest": 2}
+#: (a piece, b piece) of each product of a tier, the small terms first, as
+#: csrc/wgmma.cuh orders them ("high": JAX's lo·hi + hi·lo + hi·hi)
+_PRODUCTS = {"default": ((0, 0),),
+             "high": ((1, 0), (0, 1), (0, 0)),
+             "highest": ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
+
+# the leaf kernel's tile: frequencies a block and j a contraction chunk
+# (csrc/rfft2_mixed.cu kTF, kJC)
+_LEAF_TF, _LEAF_JC = 32, 32
 
 
 def _k1p(ny: int) -> int:
@@ -188,6 +202,50 @@ def _bfly_twiddle(qr, qi, twc, tws):
 _BASES = {"y": _y_bases_np, "x": _x_bases_np, "bfly": _bfly_tw_np}
 
 
+def tier(precision) -> str:
+    """The tier a ``precision`` runs at on the card: None is ``"default"``
+    (spectralae/ops/pallas_fft.py:471-472)."""
+    _check_precision(precision)
+    return "default" if precision is None else precision
+
+
+def pieces(a: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """The first ``n`` bf16 pieces of float32 ``a`` (held as float32):
+    ``p0 = bf16(a)``, ``p1 = bf16(a − p0)``, ``p2 = bf16(a − p0 − p1)``;
+    each residual is exact in float32, as in the kernels' split."""
+    out = []
+    for _ in range(n):
+        p = a.to(torch.bfloat16).float()
+        out.append(p)
+        a = a - p
+    return out
+
+
+def split_dot(a: torch.Tensor, b: torch.Tensor, precision) -> torch.Tensor:
+    """``a @ b`` as the tensor cores take it at ``precision``: the sum of
+    the tier's products of bf16 pieces (:data:`_PRODUCTS`), each exact in
+    float32, summed in float32.  ``precision=None``: the float32 product
+    (the CPU route)."""
+    if precision is None:
+        return a @ b
+    n = _TIERS[precision] + 1
+    pa, pb = pieces(a, n), pieces(b, n)
+    out = None
+    for i, j in _PRODUCTS[precision]:
+        t = pa[i] @ pb[j]
+        out = t if out is None else out + t
+    return out
+
+
+def core_order(t: torch.Tensor) -> torch.Tensor:
+    """``[..., R, 64]`` tiles (R a multiple of 8) flattened in the kernels'
+    shared-memory order: 8×8 core matrices, row groups outer
+    (``csrc/wgmma.cuh`` ``tile_off``)."""
+    *lead, r, k = t.shape
+    return (t.reshape(*lead, r // 8, 8, k // 8, 8).transpose(-3, -2)
+            .reshape(*lead, r * k))
+
+
 @functools.lru_cache(maxsize=None)
 def _bases_on(kind: str, n: int, device: torch.device):
     """A kernel's bases and twiddles (``y``: :func:`_y_bases_np`, ``x``:
@@ -223,38 +281,84 @@ def _bfly_rows_plain(yr, yi, n: int):
 
 
 @dft.ieee_f32()
-def _y_contract(pr, pi, n: int):
+def _y_contract(pr, pi, n: int, precision):
     """The y-leaf's matmul DFT of the twiddled streams ``[..., m1]``
-    against the bases ``[m1, k1p]`` (``X = P·(bc − i·bs)``)."""
+    against the bases ``[m1, k1p]`` (``X = P·(bc − i·bs)``), its operands
+    rounded to ``precision``'s pieces (:func:`split_dot`)."""
     bc, bs = _bases_on("y", n, pr.device)[:2]
-    return pr @ bc + pi @ bs, pi @ bc - pr @ bs
+
+    def dot(a, b):
+        return split_dot(a, b, precision)
+    return dot(pr, bc) + dot(pi, bs), dot(pi, bc) - dot(pr, bs)
 
 
-def rfft_y_mixed_plain(x: torch.Tensor):
+def rfft_y_mixed_plain(x: torch.Tensor, precision=None):
     """Plain version of the real y-leaf: ``x [BD, R, n]`` float32 →
-    ``(Yre, Yim) [BD, 4, R, k1p]``."""
-    return _y_contract(*_bfly_lanes_plain(x, None, x.shape[-1]), x.shape[-1])
+    ``(Yre, Yim) [BD, 4, R, k1p]``.  ``precision``: None for float32
+    products (the CPU route), or the tier whose bf16 pieces of P and the
+    bases the kernel multiplies on the card."""
+    return _y_contract(*_bfly_lanes_plain(x, None, x.shape[-1]), x.shape[-1],
+                       precision)
 
 
-def _fft_yc_plain(yr: torch.Tensor, yi: torch.Tensor):
+def _fft_yc_plain(yr: torch.Tensor, yi: torch.Tensor, precision=None):
     """Plain version of the complex y-leaf: ``[BD, R, n]`` →
-    ``(re, im) [BD, 4, R, k1p]`` (ω ≤ n/2)."""
+    ``(re, im) [BD, 4, R, k1p]`` (ω ≤ n/2); ``precision`` as for
+    :func:`rfft_y_mixed_plain`."""
     return _y_contract(*_bfly_lanes_plain(yr, yi, yr.shape[-1]),
-                       yr.shape[-1])
+                       yr.shape[-1], precision)
 
 
 @dft.ieee_f32()
-def fft_x_mixed_plain(yr: torch.Tensor, yi: torch.Tensor, out_dtype=None):
+def fft_x_mixed_plain(yr: torch.Tensor, yi: torch.Tensor, out_dtype=None,
+                      precision=None):
     """Plain version of the x-leaf: ``[BD, nx, L]`` complex →
     ``(Xre, Xim) [BD, nx, L]`` in mixed row order, stored as
-    ``out_dtype`` (float32 by default)."""
+    ``out_dtype`` (float32 by default); ``precision`` as for
+    :func:`rfft_y_mixed_plain`."""
     BD, nx, L = yr.shape
     pr, pi = _bfly_rows_plain(yr, yi, nx)                 # [BD, 4, m1, L]
     bc, bs = _bases_on("x", nx, yr.device)[:2]          # [k1, j1]
+
+    def dot(a, b):
+        return split_dot(a, b, precision)
     out = torch.float32 if out_dtype is None else out_dtype
-    re = (bc @ pr + bs @ pi).reshape(BD, nx, L)
-    im = (bc @ pi - bs @ pr).reshape(BD, nx, L)
+    re = (dot(bc, pr) + dot(bs, pi)).reshape(BD, nx, L)
+    im = (dot(bc, pi) - dot(bs, pr)).reshape(BD, nx, L)
     return re.to(out), im.to(out)
+
+
+def rfft2_mixed_plain(x: torch.Tensor, *, precision=None, out_dtype=None):
+    """:func:`rfft2_mixed` through the plain versions alone, on any device:
+    the same butterfly rounds and leaves, the leaves' operands rounded to
+    ``precision``'s pieces (None: float32 products).  On the card it is
+    what the kernels compute at that tier, summed in another order."""
+    nx, ny = x.shape[-2], x.shape[-1]
+    lead = tuple(x.shape[:-2])
+
+    def y_axis(xr, xi, n):                # [BD, R, n] -> [BD, G, R, k1p]
+        if n // 4 <= _MAX_M1:
+            return (rfft_y_mixed_plain(xr, precision) if xi is None
+                    else _fft_yc_plain(xr, xi, precision))
+        BD, R = xr.shape[:2]
+        br, bi = _bfly_lanes_plain(xr, xi, n)
+        sr, si = y_axis(br.reshape(-1, R, n // 4), bi.reshape(-1, R, n // 4),
+                        n // 4)
+        return tuple(a.reshape(BD, -1, R, a.shape[-1]) for a in (sr, si))
+
+    def x_axis(yr, yi, n):                # [BD, n, L] -> [BD, n, L]
+        if n // 4 <= _MAX_M1:
+            return fft_x_mixed_plain(yr, yi, out_dtype, precision)
+        br, bi = _bfly_rows_plain(yr, yi, n)
+        sr, si = x_axis(br.reshape(-1, n // 4, yr.shape[-1]),
+                        bi.reshape(-1, n // 4, yr.shape[-1]), n // 4)
+        return sr.reshape(yr.shape), si.reshape(yr.shape)
+
+    yr, yi = y_axis(x.reshape(-1, nx, ny), None, ny)
+    G, k1p = yr.shape[-3], yr.shape[-1]
+    xr, xi = x_axis(yr.reshape(-1, nx, k1p), yi.reshape(-1, nx, k1p), nx)
+    return tuple(a.reshape(lead + (G, nx, k1p)).movedim(-3, -2)
+                 .reshape(lead + (nx, G * k1p)) for a in (xr, xi))
 
 
 # ----------------------------------------------------------- wrappers
@@ -271,10 +375,36 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _consts_on(kind: str, n: int, device: torch.device) -> torch.Tensor:
-    """:func:`_bases_on` packed flat, the layout the kernel's C entry point
-    states."""
+    """A kernel's twiddles ``twc, tws [4, m]`` packed flat on ``device``,
+    the layout its C entry point states."""
     with torch.inference_mode(False):
-        return torch.cat([a.reshape(-1) for a in _bases_on(kind, n, device)])
+        return torch.cat([a.reshape(-1) for a in _bases_on(kind, n, device)
+                          [-2:]])
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_tiles_on(kind: str, n: int, precision: str,
+                   device: torch.device) -> torch.Tensor:
+    """The leaf's bases as the kernel's B tiles: for frequency tile f (32
+    frequencies) and j chunk c (32 j), the 64 × 64 matrix whose row n is
+    the real part (n < 32) or the imaginary part of frequency 32f + n mod
+    32 and whose column is Pr's (< 32) or Pi's j, ``[[bc, bs], [−bs, bc]]``
+    (so ``[Pr | Pi]`` times it is ``P·(bc − i·bs)``), zero past m1 and K;
+    split into ``precision``'s bf16 pieces in the kernels' core-matrix
+    order: ``[nf, nc, pieces, 4096]`` bf16, built once on the host."""
+    bc, bs = (torch.as_tensor(a) for a in _BASES[kind](n)[:2])   # [j, k]
+    m1, K = bc.shape
+    nf, nc = -(-K // _LEAF_TF), -(-m1 // _LEAF_JC)
+
+    def tiled(a):
+        z = torch.zeros(nc * _LEAF_JC, nf * _LEAF_TF)
+        z[:m1, :K] = a
+        return z.reshape(nc, _LEAF_JC, nf, _LEAF_TF).permute(2, 0, 3, 1)
+    c, s = tiled(bc), tiled(bs)                       # [f, c, k, j]
+    b = torch.cat([torch.cat([c, s], -1), torch.cat([-s, c], -1)], -2)
+    with torch.inference_mode(False):
+        return torch.stack([core_order(p.to(torch.bfloat16)) for p in
+                            pieces(b, _TIERS[precision] + 1)], 2).to(device)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -282,12 +412,19 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(entry: str, key: str, xr, xi, kind: str, n: int, outs,
-            *ints) -> None:
+            *ints, precision=None) -> None:
+    """Launch a B5 kernel on ``xr``'s card.  ``precision``: the leaves'
+    tier (their bases' tiles go before the outputs, the tier number after
+    the sizes); None for a butterfly round."""
     dev = xr.device
+    tiles = ()
+    if precision is not None:
+        tiles = (_leaf_tiles_on(kind, n, precision, dev).data_ptr(),)
+        ints += (_TIERS[precision],)
     with torch.cuda.device(dev):
         err = getattr(_kernels.lib(), entry)(
             xr.data_ptr(), None if xi is None else xi.data_ptr(),
-            _consts_on(kind, n, dev).data_ptr(), outs[0].data_ptr(),
+            _consts_on(kind, n, dev).data_ptr(), *tiles, outs[0].data_ptr(),
             outs[1].data_ptr(), *ints,
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, entry)
@@ -322,9 +459,10 @@ def _bfly_rows(yr, yi, n: int):
     return tuple(outs)
 
 
-def _y_leaf(xr, xi):
+def _y_leaf(xr, xi, precision=None):
     """The y-leaf (B5a real, B5e complex): ``[BD, R, n] → [BD, 4, R,
-    k1p]``."""
+    k1p]``; on the card at :func:`tier` ``(precision)``, on the CPU in
+    float32."""
     key = "rfft_y_mixed" if xi is None else "fft_yc"
     if not _on_card(xr, key):
         return (rfft_y_mixed_plain(xr) if xi is None
@@ -335,7 +473,8 @@ def _y_leaf(xr, xi):
     xi = None if xi is None else _f32(xi)
     outs = [torch.empty((BD, 4, R, k1p), dtype=torch.float32,
                         device=xr.device) for _ in range(2)]
-    _launch("rfft_y_leaf_launch", key, xr, xi, "y", n, outs, BD, R, n, k1p)
+    _launch("rfft_y_leaf_launch", key, xr, xi, "y", n, outs, BD, R, n, k1p,
+            precision=tier(precision))
     return tuple(outs)
 
 
@@ -362,7 +501,7 @@ def _fft_yc(yr, yi, *, precision=None):
                          precision=precision)
         g, k1p = sr.shape[-3], sr.shape[-1]
         return (sr.reshape(BD, 4 * g, R, k1p), si.reshape(BD, 4 * g, R, k1p))
-    return _y_leaf(yr, yi)
+    return _y_leaf(yr, yi, precision)
 
 
 def rfft_y_mixed(x: torch.Tensor, *, precision=None):
@@ -387,7 +526,7 @@ def rfft_y_mixed(x: torch.Tensor, *, precision=None):
                          precision=precision)
         G = 4 * sr.shape[-3]
     else:
-        sr, si = _y_leaf(xb, None)
+        sr, si = _y_leaf(xb, None, precision)
         G = 4
     k1p = sr.shape[-1]
     return (sr.reshape(lead + (G, nx, k1p)), si.reshape(lead + (G, nx, k1p)))
@@ -430,7 +569,8 @@ def fft_x_mixed(Yre: torch.Tensor, Yim: torch.Tensor, *, precision=None,
         outs = [torch.empty((BD, nx, L), dtype=out, device=yr.device)
                 for _ in range(2)]
         _launch("fft_x_leaf_launch", "fft_x_mixed", _f32(yr), _f32(yi), "x",
-                nx, outs, BD, nx, L, int(out == torch.bfloat16))
+                nx, outs, BD, nx, L, int(out == torch.bfloat16),
+                precision=tier(precision))
         sr, si = outs
     return sr.reshape(lead + (nx, L)), si.reshape(lead + (nx, L))
 

@@ -21,15 +21,21 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .fft_kernels import _TIERS, core_order, pieces, split_dot
 from .spectral import _hermitian_weights
 
 #: kernel launches since import (or the last reset), by kernel
 LAUNCHES = {"lane_strided": 0, "sublane_strided": 0, "middle_store": 0,
             "ydft_energy": 0}
 
-#: ``precision`` values :func:`ydft_energy` takes (the JAX tiers); each runs
-#: IEEE float32 FMAs, at least as exact as every tier
-PRECISIONS = ("default", "high", "highest")
+#: ``precision`` values :func:`ydft_energy` takes (the JAX tiers): which
+#: bf16 pieces of ``x`` and the bases feed the tensor cores on the card
+#: (``csrc/wgmma.cuh``); None is ``"default"``
+PRECISIONS = (None, "default", "high", "highest")
+
+# the sweep kernel's tile: bins a block and y a contraction chunk
+# (csrc/probes.cu kPB, kPY)
+_P2_TB, _P2_TY = 64, 64
 
 #: stores of :func:`middle_store` (``out[k] = x·(k+1)`` for ``k < 4``)
 MIDDLE_K = 4
@@ -144,23 +150,49 @@ def _chunks(nyr: int, y_chunk: int) -> list[tuple[int, int]]:
     return list(zip(edges, edges[1:]))
 
 
-def ydft_energy_plain(x: torch.Tensor, *,
-                      y_chunk: int = 512) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _ydft_tiles_on(ny: int, precision: str,
+                   device: torch.device) -> torch.Tensor:
+    """The bases as the sweep kernel's B tiles: for bin tile b (64 bins)
+    and y chunk c (64 y), the 128 × 64 matrix whose rows are the cos, then
+    the sin basis of the tile's bins over the chunk's y, zero past ny and
+    nyr; split into ``precision``'s bf16 pieces in the kernels'
+    core-matrix order: ``[nb, nc, pieces, 8192]`` bf16, built once on the
+    host."""
+    nyr = ny // 2 + 1
+    nb, nc = -(-nyr // _P2_TB), -(-ny // _P2_TY)
+    cosb, sinb = _bases(1, ny, torch.device("cpu"))[:2]
+
+    def tiled(a):
+        z = torch.zeros(nc * _P2_TY, nb * _P2_TB)
+        z[:ny, :nyr] = a
+        return z.reshape(nc, _P2_TY, nb, _P2_TB).permute(2, 0, 3, 1)
+    b = torch.cat([tiled(cosb), tiled(sinb)], -2)       # [b, c, 128, 64]
+    with torch.inference_mode(False):
+        return torch.stack([core_order(p.to(torch.bfloat16)) for p in
+                            pieces(b, _TIERS[precision] + 1)], 2).to(device)
+
+
+def ydft_energy_plain(x: torch.Tensor, *, y_chunk: int = 512,
+                      precision=None) -> torch.Tensor:
     """Plain version of :func:`ydft_energy`: the same matmul DFT, one
-    ``y_chunk`` of bins at a time, as the JAX probe chunks it."""
+    ``y_chunk`` of bins at a time, as the JAX probe chunks it.
+    ``precision``: None for float32 products (the CPU route), or the tier
+    whose bf16 pieces of ``x`` and the bases the kernel multiplies on the
+    card (:func:`~spectralae_torch.ops.fft_kernels.split_dot`)."""
     d, nx, ny = x.shape
     cosb, sinb, w = _bases(nx, ny, x.device)
     x2 = x.reshape(d * nx, ny)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for a, b in _chunks(ny // 2 + 1, y_chunk):
-        yr = x2 @ cosb[:, a:b]
-        yi = -(x2 @ sinb[:, a:b])
+        yr = split_dot(x2, cosb[:, a:b], precision)
+        yi = -split_dot(x2, sinb[:, a:b], precision)
         total = total + torch.sum(w[a:b] * (yr * yr + yi * yi))
     return total
 
 
 def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
-                precision: str = "default") -> torch.Tensor:
+                precision=None) -> torch.Tensor:
     """``Σ_d Σ_rows Σ_ωy w(ωy)·|DFT_y(x)|²`` of ``x [D, nx, ny]`` float32,
     the y-DFT a product with the ``[ny, nyr]`` cos/sin bases and ``w``
     :func:`~spectralae_torch.ops.spectral._hermitian_weights`; a 0-d
@@ -168,9 +200,11 @@ def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
 
     ``y_chunk`` is the JAX probe's ω_y chunking (a TPU memory bound): the
     chunked result equals the unchunked one, and the kernel tiles the bins
-    its own way whatever it is.  ``precision`` is accepted for every JAX
-    tier; each runs IEEE float32.  CPU tensors take
-    :func:`ydft_energy_plain`; CUDA tensors launch the kernel.
+    its own way whatever it is.  ``precision`` is the JAX dot tier (None
+    is ``"default"``): on the card the kernel multiplies that tier's bf16
+    pieces of ``x`` and the bases on the tensor cores; CPU tensors take
+    :func:`ydft_energy_plain` in float32 for every tier, as JAX's
+    ``jnp.dot`` runs on the CPU.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
@@ -179,17 +213,19 @@ def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
     _chunks(x.shape[2] // 2 + 1, y_chunk)      # validates y_chunk
     if x.device.type == "cpu":
         return ydft_energy_plain(x, y_chunk=y_chunk)
+    tier = "default" if precision is None else precision
     d, nx, ny = x.shape
     rows, nyr = d * nx, ny // 2 + 1
-    cosb, sinb, w = _bases(nx, ny, x.device)
+    w = _bases(nx, ny, x.device)[2]
+    tiles = _ydft_tiles_on(ny, tier, x.device)
     lib = _kernels.lib()
     scratch = torch.empty(lib.ydft_energy_blocks(rows, nyr),
                           dtype=torch.float32, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ydft_energy_launch(
-            x.data_ptr(), cosb.data_ptr(), sinb.data_ptr(), w.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), rows, ny, nyr, _stream())
+            x.data_ptr(), tiles.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), rows, ny, nyr, _TIERS[tier], _stream())
     _kernels.check(err, "ydft_energy")
     LAUNCHES["ydft_energy"] += 1
     return out

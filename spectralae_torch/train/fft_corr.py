@@ -220,9 +220,11 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
       any device;
     - ``"fft"``: the signal spectra from the four-step rfft2
       (:func:`~spectralae_torch.ops.fft_kernels.rfft2_mixed`, its kernels
-      for CUDA tensors) in mixed bin order, float32 planes, into
+      for CUDA tensors) in mixed bin order, float32 planes at the "high"
+      tier (bf16×3 products on the card), into
       ``anchor_windows(mixed=True)``;
-    - ``"fft-bf16"``: the same with the planes stored bf16.
+    - ``"fft-bf16"``: the same with the planes stored bf16, at the
+      "default" tier (bf16 operands).
 
     ``"pixel"`` is ROADMAP A6 and ``axis_name``/``model_axis`` ROADMAP A12:
     they raise.
@@ -251,10 +253,12 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     dE0 = norm * (s2 * (fs0 @ b0) + p0)                 # [D]
     if pallas_windows in ("fft", "fft-bf16"):
         # the spectra in the four-step FFT's mixed bin order; K4 gathers
-        # them to natural order
-        Xre, Xim = rfft2_mixed(x, out_dtype=(torch.bfloat16
-                                             if pallas_windows == "fft-bf16"
-                                             else None))
+        # them to natural order.  "fft" keeps float32 planes at the "high"
+        # tier (bf16x3, ~3e-6 transform); "fft-bf16" stores bf16 planes at
+        # "default" (spectralae/train/fft_corr.py:436-442, :458-462)
+        fast = pallas_windows == "fft-bf16"
+        Xre, Xim = rfft2_mixed(x, precision="default" if fast else "high",
+                               out_dtype=torch.bfloat16 if fast else None)
         XXw, EGw, SEG, E_cont0 = anchor_windows(
             (Xre, Xim), K0taps, nx, ny, hx2, hy2, s1, mixed=True)
         # the DC bin stays at (row 0, lane 0) in mixed order
