@@ -123,6 +123,7 @@ beside them the engines' 100-iteration times.  The last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import itertools
 import json
@@ -192,34 +193,12 @@ TOL_B5 = 1e-5
 # bf16 planes against the plain float32 ones: the 2^-9 storage rounding
 TOL_B5_BF16 = 6e-3
 # the JAX dot tiers the matmul-DFT kernels (the B5 leaves, P2) run at on
-# the card (csrc/wgmma.cuh): each held against its tier-matched plain
-# version (the same bf16 pieces, exact float32 products, only the order of
-# the float32 sums differs: TOL_B5) and against the exact transform (cuFFT)
-# within the tier's own bound: "highest" (bf16x6) the JAX test's 2e-6
-# (tests/test_pallas_fft.py:25-31), "high" (bf16x3) its 1e-5 (:34-44),
-# "default" (bf16 operands): each of the two operands rounded by up to
-# 2^-8, ~3e-3 rms a product; 2.3e-3 on pixel frames and 2.8e-3 on noise
-# through the plain tier versions on the CPU, so 6e-3, the band of
-# TOL_B5_BF16 (the JAX docstring's ~2e-4, pallas_fft.py:42-45, does not
-# hold for this transform's norm)
-TIERS = ("default", "high", "highest")
-TOL_TIER_EXACT = {"default": 6e-3, "high": 1e-5, "highest": 2e-6}
-# the whole transform against its tier-matched plain pipeline: the leaves
-# agree to ~1.5e-7, but at "default" the x-leaf rounds P to bf16 from the
-# y-stage's float32 output, which the kernels and the plain versions sum in
-# other orders; a share δ/2^-8 of the values crosses a bf16 rounding
-# boundary and moves by 2^-8, √(δ·2^-8) ≈ 2.4e-5 norm-relative at δ =
-# 1.5e-7 (1.6e-5 read at 2048^2 frames), so 1e-4 there; above "default"
-# the flips move the 2^-16 residual only
-TOL_B5_CHAIN = {"default": 1e-4, "high": TOL_B5, "highest": TOL_B5}
-# P2's energy against torch.fft.rfft: the default tier moves it by 3e-4 to
-# 8e-4 (the CPU, the test shapes), the others within the transform bounds
-TOL_P2_TIER = {"default": 1e-3, "high": 1e-5, "highest": 2e-6}
-# the tensor cores' dense bf16 rate (NVIDIA's H100 SXM data sheet) and the
-# bf16 passes of each tier: the designs' own tensor-core time, printed
-# beside each bound as a figure of the design
-TC_FLOP_PER_S = 989e12
-PASSES = {"default": 1, "high": 3, "highest": 6}
+# the card (csrc/wgmma.cuh): each kernel is held against its tier-matched
+# plain version within TOL_B5 (the same bf16 pieces, exact float32
+# products; for the whole transform the plain x-stage takes the kernels'
+# own y-stage), and against the exact transform within the tier's bound
+# from fft_kernels (TIER_TOL; P2: p2_tier_tol), which also holds the tiers
+# (TIERS) and a design's tensor-core time (design_tc_ms)
 # the transform's tier on each --pallas-fft route (train/fft_corr.py)
 ROUTE_TIER = {"fft": "high", "fft-bf16": "default"}
 # K4 and the fused precompute on the four-step spectra against the cuFFT
@@ -903,6 +882,7 @@ def phase_probes() -> tuple[dict, dict, dict]:
     read once or a real FFT a row (the script's ``bound``; the matmul DFT's
     own operations are printed beside it).  Returns the rows, the largest
     absolute errors and the paths' launches."""
+    from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import probe_kernels as pk
     paths = {}
     mosaic = _script("torch_probe_mosaic_features")
@@ -952,24 +932,24 @@ def phase_probes() -> tuple[dict, dict, dict]:
     b = dft.bound(x.shape)
     lib = _library_ms(lambda: pk.ref_energy(x))
     rows["p2"], errs["p2"] = {}, 0.0
-    for prec in TIERS:
+    for prec in fk.TIERS:
         got = pk.ydft_energy(x, precision=prec)
         err_ref = rel_err(got, ref)
-        design = b["matmul_dft_flops"] * PASSES[prec] / TC_FLOP_PER_S * 1e3
-        check(err_ref <= TOL_P2_TIER[prec], f"P2 {prec} against "
-              f"torch.fft.rfft: rel {err_ref:.3e}")
+        tol_ref = fk.p2_tier_tol(prec, x.numel())
+        check(err_ref <= tol_ref, f"P2 {prec} against torch.fft.rfft: rel "
+              f"{err_ref:.3e}")
         row = measure(
             f"P2 ydft_energy {prec} [{d}, {nx}, {ny}]", got,
             pk.ydft_energy_plain(x, precision=prec),
             lambda p=prec: pk.ydft_energy(x, precision=p),
             lambda p=prec: pk.ydft_energy_plain(x, precision=p),
             (b["bound_ms"], b["bound_by"]), TOL_P2, library=lib,
-            extra=f"; vs torch.fft.rfft {err_ref:.3e} (tol "
-                  f"{TOL_P2_TIER[prec]:g}); the matmul DFT's operations at "
+            extra=f"; vs torch.fft.rfft {err_ref:.3e} (tol {tol_ref:g}); "
+                  f"figures of the design: the matmul DFT's operations at "
                   f"the float32 peak {b['matmul_dft_ms']:.4f} ms, on the "
-                  f"tensor cores at this tier {design:.4f} ms")
-        row.update(matmul_dft_ms=b["matmul_dft_ms"], design_tc_ms=design,
-                   vs_ref=err_ref)
+                  f"tensor cores at this tier "
+                  f"{b['tensor_core_ms'][prec]:.4f} ms")
+        row["vs_ref"] = err_ref
         rows["p2"][prec] = row
         errs["p2"] = max(errs["p2"], row["abs"])
         print(f"P2 {prec}: {'beats' if row['ms'] < lib else 'does not beat'}"
@@ -1147,8 +1127,8 @@ def leaf_design_ms(items: int, m1: int, k: int, precision: str) -> float:
     """The leaf design's tensor-core time: four streams of ``[items, 2·m1]
     x [2·m1, 2·k]`` real products, the tier's bf16 passes, at the bf16
     peak — what the matmul DFT costs, not a bound of the function."""
-    return (2.0 * items * 2 * m1 * 2 * k * 4 * PASSES[precision]
-            / TC_FLOP_PER_S * 1e3)
+    from spectralae_torch.ops import fft_kernels as fk
+    return fk.design_tc_ms(2.0 * items * 2 * m1 * 2 * k * 4, precision)
 
 
 def _library_ms(fn) -> float:
@@ -1181,14 +1161,26 @@ def _on_live(planes, live) -> torch.Tensor:
                       for a in planes])
 
 
-def _tier_row(row: dict, precision: str, exact: float, design: float,
-              label: str) -> dict:
+def _tier_row(row: dict, precision: str, exact: float, label: str) -> dict:
     """Hold a tier's result against the exact transform and keep the
-    comparison and the design's tensor-core time in its row."""
-    check(exact <= TOL_TIER_EXACT[precision], f"{label} against cuFFT: "
-          f"{exact:.3e} > {TOL_TIER_EXACT[precision]:g}")
-    row.update(vs_cufft=exact, design_tc_ms=design)
+    comparison in its row."""
+    from spectralae_torch.ops import fft_kernels as fk
+    check(exact <= fk.TIER_TOL[precision], f"{label} against cuFFT: "
+          f"{exact:.3e} > {fk.TIER_TOL[precision]:g}")
+    row["vs_cufft"] = exact
     return row
+
+
+def _chain_err(x: torch.Tensor, precision: str, live) -> float:
+    """The whole transform's float32 planes against the whole plain
+    pipeline from ``x``: reported, not held (at "default" the x-leaf rounds
+    to bf16 a y-stage output that kernel and plain sum in other orders, so
+    a value near a rounding boundary moves by 2^-8; the x-stage is held on
+    the kernels' own y-stage)."""
+    from spectralae_torch.ops import fft_kernels as fk
+    return rel_err(_on_live(fk.rfft2_mixed(x, precision=precision), live),
+                   _on_live(fk.rfft2_mixed_plain(x, precision=precision),
+                            live))
 
 
 def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
@@ -1219,7 +1211,7 @@ def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
         lib = {"b5a": _library_ms(lambda: torch.fft.rfft(xb, dim=-1)),
                "b5b": _library_ms(lambda: torch.fft.fft(yc, dim=-2)),
                "rfft2": _library_ms(lambda: torch.fft.rfft2(x))}
-        for prec in TIERS:
+        for prec in fk.TIERS:
             label = f"B5a rfft_y_mixed (y-leaf) {prec} {tag}"
             got = fk._y_leaf(xb, None, prec)
             design = leaf_design_ms(bd * n, n // 4, k1p, prec)
@@ -1232,10 +1224,9 @@ def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
                 bound_ms(*b5_yleaf_cost(bd, n, n, True)), TOL_B5,
                 library=lib["b5a"],
                 extra=f"; vs cuFFT {exact:.3e} (tol "
-                      f"{TOL_TIER_EXACT[prec]:g}); the design's tensor-core "
-                      f"time {design:.4f} ms")
-            rows[("b5a", frames, prec)] = _tier_row(row, prec, exact, design,
-                                                    label)
+                      f"{fk.TIER_TOL[prec]:g}); a figure of the design: its "
+                      f"tensor-core time {design:.4f} ms")
+            rows[("b5a", frames, prec)] = _tier_row(row, prec, exact, label)
             errs["b5a"] = max(errs["b5a"], row["abs"])
             for variant, od in (("f32", None), ("bf16", torch.bfloat16)):
                 label = (f"B5b fft_x_mixed (x-leaf) {prec} {variant} out "
@@ -1247,7 +1238,7 @@ def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
                 def plain(p=prec, od=od):
                     return fk.fft_x_mixed_plain(yr, yi, od, p)
                 got = kern()
-                tol_x = max(TOL_TIER_EXACT[prec], TOL_B5_BF16 if od else 0.0)
+                tol_x = max(fk.TIER_TOL[prec], TOL_B5_BF16 if od else 0.0)
                 design = leaf_design_ms(4 * bd * k1p, n // 4, n // 4, prec)
                 exact = rel_err(torch.complex(got[0].float(),
                                               got[1].float()), spec_x)
@@ -1259,10 +1250,11 @@ def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
                     plain, bound_ms(*b5_xleaf_cost(4 * bd, n, k1p,
                                                    2 if od else 4)),
                     TOL_B5_BF16 if od else TOL_B5, library=lib["b5b"],
-                    extra=f"; vs cuFFT {exact:.3e} (tol {tol_x:g}); the "
-                          f"design's tensor-core time {design:.4f} ms")
+                    extra=f"; vs cuFFT {exact:.3e} (tol {tol_x:g}); a "
+                          f"figure of the design: its tensor-core time "
+                          f"{design:.4f} ms")
                 check(exact <= tol_x, f"{label} against cuFFT: {exact:.3e}")
-                row.update(vs_cufft=exact, design_tc_ms=design)
+                row["vs_cufft"] = exact
                 rows[("b5b", frames, prec, variant)] = row
                 errs["b5b"] = max(errs["b5b"], row["abs"])
             # the whole transform, float32 planes at every tier and the
@@ -1277,17 +1269,21 @@ def phase_fft(gen: torch.Generator) -> tuple[dict, dict]:
                     return fk.rfft2_mixed(x, precision=p, out_dtype=od)
                 leaves = device_ms(whole, ("dft_leaf_kernel",))
                 nat = rel_err(fk.to_natural(whole(), n, n), torch.fft.rfft2(x))
+                chain = _chain_err(x, prec, live)
                 row = measure(
                     label, _on_live(whole(), live),
-                    _on_live(fk.rfft2_mixed_plain(x, precision=prec), live),
+                    _on_live(fk.rfft2_mixed_plain(
+                        x, precision=prec,
+                        y_planes=fk.rfft_y_mixed(x, precision=prec)), live),
                     whole, lambda p=prec, od=od: fk.rfft2_mixed_plain(
                         x, precision=p, out_dtype=od),
                     bound_ms(*b5_rfft2_cost(bd, n, 2 if od else 4)),
-                    TOL_B5_BF16 if od else TOL_B5_CHAIN[prec],
-                    library=lib["rfft2"],
-                    extra=f"; the two leaves {leaves:.4f} ms of it; natural "
-                          f"order vs cuFFT {nat:.3e}")
-                check(nat <= max(TOL_TIER_EXACT[prec],
+                    TOL_B5_BF16 if od else TOL_B5, library=lib["rfft2"],
+                    extra=f"; the plain x-stage on the kernels' y-stage; "
+                          f"the whole plain pipeline {chain:.3e}; the two "
+                          f"leaves {leaves:.4f} ms of it; natural order vs "
+                          f"cuFFT {nat:.3e}")
+                check(nat <= max(fk.TIER_TOL[prec],
                                  TOL_B5_BF16 if od else 0),
                       f"{label} natural order against cuFFT: {nat:.3e}")
                 row["vs_cufft"] = nat
@@ -1331,25 +1327,29 @@ def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
              fk._bfly_rows(yr, yi.contiguous(), 256),
              fk._bfly_rows_plain(yr, yi, 256), TOL_B5)
         zr, zi = xb.reshape(-1, 256, 32), xi.reshape(-1, 256, 32)
-        for prec in TIERS:
+        for prec in fk.TIERS:
             hold(f"B5e fft_yc (complex y-leaf) {prec} [48, 256, 32]", "b5e",
                  fk._y_leaf(zr, zi, prec), fk._fft_yc_plain(zr, zi, prec),
                  TOL_B5)
         live = torch.as_tensor(fk.perm_y(256) >= 0, device="cuda")
-        for prec, od in [(p, None) for p in TIERS] + [
+        for prec, od in [(p, None) for p in fk.TIERS] + [
                 (ROUTE_TIER["fft-bf16"], torch.bfloat16)]:
             before = counts()
             got = fk.rfft2_mixed(x, precision=prec, out_dtype=od)
             torch.cuda.synchronize()
             grew = grown(before)
-            want = fk.rfft2_mixed_plain(x, precision=prec)
+            want = fk.rfft2_mixed_plain(
+                x, precision=prec,
+                y_planes=fk.rfft_y_mixed(x, precision=prec))
             err = rel_err(_on_live(got, live), _on_live(want, live))
             nat = rel_err(fk.to_natural(got, 256, 256), torch.fft.rfft2(x))
-            tol = TOL_B5_BF16 if od else TOL_B5_CHAIN[prec]
-            tol_nat = max(TOL_TIER_EXACT[prec], TOL_B5_BF16 if od else 0.0)
+            tol = TOL_B5_BF16 if od else TOL_B5
+            tol_nat = max(fk.TIER_TOL[prec], TOL_B5_BF16 if od else 0.0)
             print(f"B5 rfft2_mixed [2, 3, 256, 256] at _MAX_M1 = 8, {prec}, "
                   f"{'bf16' if od else 'f32'} out: card vs its tier's plain "
-                  f"pipeline rel {err:.3e} (tol {tol:g}), natural order vs "
+                  f"x-stage on the card's y-stage rel {err:.3e} (tol "
+                  f"{tol:g}; the whole plain pipeline "
+                  f"{_chain_err(x, prec, live):.3e}), natural order vs "
                   f"cuFFT {nat:.3e} (tol {tol_nat:g}); launches {grew}",
                   flush=True)
             check(err <= tol and nat <= tol_nat, "forced recursion disagrees")
@@ -1365,7 +1365,7 @@ def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
     cufft_ms = device_ms(lambda: torch.fft.rfft2(x4))
     nat_ref = torch.fft.rfft2(x4)
     launched, whole = None, {}
-    for prec in TIERS:
+    for prec in fk.TIERS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1379,11 +1379,11 @@ def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
         whole[prec] = {"ms": device_ms(lambda p=prec: fk.rfft2_mixed(
             x4, precision=p)), "vs_cufft": err, "cufft_ms": cufft_ms}
         print(f"B5 rfft2_mixed {tag} {prec}: natural order vs cuFFT rel "
-              f"{err:.3e} (tol {TOL_TIER_EXACT[prec]:g}); launches "
+              f"{err:.3e} (tol {fk.TIER_TOL[prec]:g}); launches "
               f"{launched}; peak {peak:.1f} MiB above the input; device "
               f"{whole[prec]['ms']:.4f} ms, cuFFT {cufft_ms:.4f} ms",
               flush=True)
-        check(err <= TOL_TIER_EXACT[prec], f"rfft2_mixed {tag} {prec}: "
+        check(err <= fk.TIER_TOL[prec], f"rfft2_mixed {tag} {prec}: "
               f"{err:.3e}")
         check(launched["b5c"] == 1 and launched["b5d"] == 1
               and launched["b5e"] == 1 and launched["b5b"] == 1
@@ -1406,7 +1406,7 @@ def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
     spec = torch.fft.fft(zc, dim=-1)
     lib = _library_ms(lambda: torch.fft.fft(zc, dim=-1))
     rows["b5e"] = {}
-    for prec in TIERS:
+    for prec in fk.TIERS:
         label = f"B5e fft_yc (complex y-leaf) {prec} [12, {n}, {m}]"
         got = fk._y_leaf(zr, zi, prec)
         exact = _vs_fft_y(got, spec, m)
@@ -1418,9 +1418,10 @@ def phase_fft_recursion(gen: torch.Generator) -> tuple[dict, dict, dict]:
             lambda p=prec: fk._fft_yc_plain(zr, zi, p),
             bound_ms(*b5_yleaf_cost(12, n, m, False)), TOL_B5, library=lib,
             extra=f"; library: all m bins of each stream; vs cuFFT "
-                  f"{exact:.3e} (tol {TOL_TIER_EXACT[prec]:g}); the design's "
+                  f"{exact:.3e} (tol {fk.TIER_TOL[prec]:g}); a figure of "
+                  f"the design: its "
                   f"tensor-core time {design:.4f} ms")
-        rows["b5e"][prec] = _tier_row(row, prec, exact, design, label)
+        rows["b5e"][prec] = _tier_row(row, prec, exact, label)
         errs["b5e"] = max(errs["b5e"], row["abs"])
     del got, spec
     sr, si = fk._y_leaf(zr, zi, ROUTE_TIER["fft"])
@@ -2400,22 +2401,22 @@ def phase_train_vs_cpu(tmp: Path) -> None:
              three_steps(domain, "cpu", True, card_routes), TOL_BF16[domain])
 
 
-# the matmul-DFT kernels that must run on the tensor cores: their
-# instantiations (the leaf: real, complex, complex with bf16 out; each at
-# three tiers) and dynamic shared memory per tier (csrc/rfft2_mixed.cu,
-# csrc/probes.cu)
-TC_KERNELS = {"dft_leaf_kernel": (9, lambda t: 5 * (t + 1) * 8192
-                                  + (65536 if t else 0)),
-              "ydft_sweep_kernel": (3, lambda t: 4 * (t + 1) * 8192
-                                    + (65536 if t else 0))}
+# the matmul-DFT kernels that must run on the tensor cores: the library's
+# query of their attributes and its arguments for each instantiation (the
+# leaf: real, complex, complex with bf16 out, each at three tiers)
+TC_KERNELS = {"dft_leaf_kernel": ("dft_leaf_attrs", [(v, t) for v in range(3)
+                                                     for t in range(3)]),
+              "ydft_sweep_kernel": ("ydft_sweep_attrs", [(t,) for t in
+                                                         range(3)])}
 
 
 def tensor_core_proof(build) -> dict:
     """The HGMMA (wgmma) instructions in each instantiation of the two
-    matmul-DFT kernels, from ``cuobjdump -sass`` of the built library, with
-    ptxas's registers, spills and static shared memory per instantiation
-    from the build log; fails if a kernel has none.  Returns the counts by
-    kernel name."""
+    matmul-DFT kernels, from ``cuobjdump -sass`` of the built library, and
+    each instantiation's registers, local (spilled) bytes and shared memory
+    as the runtime reports them (``cudaFuncGetAttributes``; the dynamic
+    shared memory is what its launch asks for); fails if a kernel has no
+    HGMMA.  Returns the counts by kernel name."""
     from spectralae_torch import _kernels
     tool = Path(_kernels._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(build.path)],
@@ -2425,32 +2426,19 @@ def tensor_core_proof(build) -> dict:
         name = chunk.split("\n", 1)[0].strip()
         if any(k in name for k in TC_KERNELS):
             hgmma[name] = sum("HGMMA" in line for line in chunk.splitlines())
-    ptxas, fn = {}, None
-    for line in build.log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and fn:
-            ptxas.setdefault(fn, {})["spill_stores"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn:
-            smem = re.search(r"(\d+) bytes smem", line)
-            ptxas.setdefault(fn, {}).update(
-                registers=int(m.group(1)),
-                static_smem=int(smem.group(1)) if smem else 0)
     for name, count in sorted(hgmma.items()):
-        print(f"tensor cores: {name}: {count} HGMMA instructions; ptxas "
-              f"{ptxas.get(name, 'not in the build log (library reused)')}",
-              flush=True)
-    for kernel, (count, smem) in TC_KERNELS.items():
+        print(f"tensor cores: {name}: {count} HGMMA instructions", flush=True)
+    for kernel, (query, instances) in TC_KERNELS.items():
         got = {n: c for n, c in hgmma.items() if kernel in n}
-        check(len(got) == count and all(c > 0 for c in got.values()),
+        check(len(got) == len(instances) and all(c > 0 for c in
+                                                 got.values()),
               f"{kernel}: HGMMA counts {got}")
-        print(f"tensor cores: {kernel}: {len(got)} instantiations, each "
-              f"with HGMMA; dynamic shared memory per tier "
-              + ", ".join(f"{t} {smem(i) // 1024} KB" for i, t in
-                          enumerate(TIERS)), flush=True)
+        for args in instances:
+            out = (ctypes.c_int * 4)()
+            _kernels.check(getattr(build.lib, query)(*args, out), query)
+            print(f"tensor cores: {kernel}{list(args)}: {out[0]} registers, "
+                  f"{out[1]} local bytes, {out[2]} B static and "
+                  f"{out[3] // 1024} KB dynamic shared memory", flush=True)
     return hgmma
 
 
@@ -2608,7 +2596,7 @@ def main() -> int:
                "source": "spectralae_torch/csrc/rfft2_mixed.cu",
                "replaces": replaces, "launches": sum(paths.values()),
                "launches_by_path": paths, "max_abs_err": errs[key]}
-        tiered = timing + ("vs_cufft", "design_tc_ms")
+        tiered = timing + ("vs_cufft",)
         if key in ("b5a", "b5b"):
             # the main path's tier: the --pallas-fft route's float32 planes
             tier_key = (ROUTE_TIER["fft"],) + (("f32",) if key == "b5b"
@@ -2627,7 +2615,7 @@ def main() -> int:
             row["by_frame_size"] = {
                 str(size): {prec + (f" {v} out" if v else ""): {
                     k: fft_rows[(key, size, prec) + ((v,) if v else ())][k]
-                    for k in tiered} for prec in TIERS for v in variants}
+                    for k in tiered} for prec in fk.TIERS for v in variants}
                 for size, _ in WINDOW_SIZES}
             if key == "b5b":
                 row["transform_by_frame_size"] = {
@@ -2640,7 +2628,7 @@ def main() -> int:
             r = rec_rows[key]
             if key == "b5e":
                 row["by_tier"] = {prec: {k: r[prec][k] for k in tiered}
-                                  for prec in TIERS}
+                                  for prec in fk.TIERS}
                 r = r[ROUTE_TIER["fft"]]
                 row["tier"] = ROUTE_TIER["fft"]
             row.update({k: r[k] for k in timing + ("bound_by",)})
@@ -2688,8 +2676,7 @@ def main() -> int:
             extra = {
                 "tier": "default",
                 "by_tier": {prec: {k: r[prec][k] for k in timing + (
-                    "vs_ref", "design_tc_ms")} for prec in TIERS},
-                "matmul_dft_ms": r["default"]["matmul_dft_ms"],
+                    "vs_ref",)} for prec in fk.TIERS},
                 "hgmma": {n: c for n, c in hgmma.items()
                           if "ydft_sweep_kernel" in n},
                 "per": f"one launch (two grids) at [3, {P2_N}, {P2_N}]; "

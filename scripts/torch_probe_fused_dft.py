@@ -11,7 +11,7 @@ through ``torch.fft.rfft`` (``ref_energy``).
 
 ``--check`` runs the JAX probe's small case, ``x [3, 32, 48]`` with
 ``y_chunk=16``, at each tier, and asserts a relative error under the
-tier's bound (:data:`CHECK_TOL`).  Without it, the script times ``[3, n,
+tier's bound (``fft_kernels.p2_tier_tol``).  Without it, the script times ``[3, n,
 n]`` (default n = 2048): the ``torch.fft.rfft`` route (the JAX probe's
 ``xla_rfft_y`` row), the kernel at each tier and the plain version (two
 cuBLAS float32 products a chunk), each with its value, its error against
@@ -39,19 +39,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from spectralae_torch.ops import fft_kernels as fk  # noqa: E402
 from spectralae_torch.ops import probe_kernels as pk  # noqa: E402
 
-TIERS = ("default", "high", "highest")
-# the JAX probe's own 1e-5 (its interpret check is float32); the "default"
-# tier's bf16 operands move the energy by 3e-4..8e-4 at the small shapes
-CHECK_TOL = {"default": 1e-3, "high": 1e-5, "highest": 1e-5}
-# the card's peaks (NVIDIA's H100 SXM data sheet): the memory rate, the
-# float32 rate outside the tensor cores and the tensor cores' bf16 rate,
-# and each tier's bf16 passes
+# the card's peaks (NVIDIA's H100 SXM data sheet): the memory rate and the
+# float32 rate outside the tensor cores (the tensor cores' bf16 rate:
+# fft_kernels.design_tc_ms)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-BF16_TC_FLOP_PER_S = 989e12
-PASSES = {"default": 1, "high": 3, "highest": 6}
 
 
 def work(shape) -> dict:
@@ -80,8 +75,8 @@ def bound(shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "matmul_dft_flops": w["matmul_dft_flops"],
             "matmul_dft_ms": w["matmul_dft_flops"] / FP32_FLOP_PER_S * 1e3,
-            "tensor_core_ms": {t: w["matmul_dft_flops"] * PASSES[t]
-                               / BF16_TC_FLOP_PER_S * 1e3 for t in TIERS}}
+            "tensor_core_ms": {t: fk.design_tc_ms(w["matmul_dft_flops"], t)
+                               for t in fk.TIERS}}
 
 
 def check(device: str) -> float:
@@ -92,14 +87,15 @@ def check(device: str) -> float:
     x = x.to(device)
     ref = float(pk.ref_energy(x))
     worst = 0.0
-    for tier in TIERS:
+    for tier in fk.TIERS:
         got = float(pk.ydft_energy(x, y_chunk=16, precision=tier))
         rel = abs(got - ref) / abs(ref)
+        tol = fk.p2_tier_tol(tier, x.numel())
         print(f"check on {device} ({tier}): got {got:.6g} ref {ref:.6g} rel "
               f"{rel:.2e}", flush=True)
-        if rel >= CHECK_TOL[tier]:
+        if rel >= tol:
             raise SystemExit(f"ydft_energy ({tier}) disagrees with the rfft "
-                             f"route: rel {rel:.2e} >= {CHECK_TOL[tier]:g}")
+                             f"route: rel {rel:.2e} >= {tol:g}")
         worst = max(worst, rel)
     print("OK", flush=True)
     return worst
@@ -139,7 +135,7 @@ def timing(n: int, device: str, reps: int) -> dict:
           + ", ".join(f"{t} {ms:.4f} ms" for t, ms in
                       b["tensor_core_ms"].items()), flush=True)
     routes = {"torch_rfft_y": lambda: pk.ref_energy(x)}
-    for tier in TIERS:
+    for tier in fk.TIERS:
         routes[f"kernel_{tier}"] = (
             lambda tier=tier: pk.ydft_energy(x, precision=tier))
     routes["plain"] = lambda: pk.ydft_energy_plain(x)
@@ -151,7 +147,7 @@ def timing(n: int, device: str, reps: int) -> dict:
         rel = abs(v - ref) / abs(ref)
         rows[name] = {"value": v, "rel": rel, "ms": ms}
         print(f"{name}: val {v:.6g} rel {rel:.2e} ms {ms:.4f}", flush=True)
-    faster = [t for t in TIERS
+    faster = [t for t in fk.TIERS
               if rows[f"kernel_{t}"]["ms"] < rows["torch_rfft_y"]["ms"]]
     print("tiers that beat the rfft route: "
           + (", ".join(faster) if faster else "none"), flush=True)

@@ -15,7 +15,9 @@ unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
 exception (``corr_windows_scratch_floats``, ``omega_scratch_floats`` and
-``ydft_energy_blocks``, host-side size queries, launch nothing).
+``ydft_energy_blocks``, host-side size queries, launch nothing;
+``dft_leaf_attrs`` and ``ydft_sweep_attrs`` read the runtime's attributes of
+the two tensor-core kernels).
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
@@ -63,10 +65,14 @@ _SIGNATURES = {
     # X, xre, xim, taps, consts, out, scratch, B, D, nx, nyr, nk2, nl2, s1,
     # bf16, stream
     "anchor_windows_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
-    # xr, xi, consts, tiles, outr, outi, BD, R, n, k1p, tier, stream
-    "rfft_y_leaf_launch": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # yr, yi, consts, tiles, outr, outi, BD, nx, L, bf16, tier, stream
-    "fft_x_leaf_launch": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # xr, xi, consts, tiles, outr, outi, BD, R, n, k1p, tier, tf, jc,
+    # stream
+    "rfft_y_leaf_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # yr, yi, consts, tiles, outr, outi, BD, nx, L, bf16, tier, tf, jc,
+    # stream
+    "fft_x_leaf_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # variant, tier, out[4]
+    "dft_leaf_attrs": (_I, _I, _P),
     # xr, xi, consts, outr, outi, BD, A, n, lanes, stream
     "bfly_round_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     # kind, nb, M, D, P, W (returns long long)
@@ -91,8 +97,10 @@ _SIGNATURES = {
     "probe_middle_store_launch": (_P, _P, _L, _I, _P),
     # R, nyr (returns long long)
     "ydft_energy_blocks": (_I, _I),
-    # x, tiles, w, scratch, out, R, ny, nyr, tier, stream
-    "ydft_energy_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # x, tiles, w, scratch, out, R, ny, nyr, tier, tb, ty, stream
+    "ydft_energy_launch": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # tier, out[4]
+    "ydft_sweep_attrs": (_I, _P),
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong,

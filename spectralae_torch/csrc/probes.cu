@@ -18,22 +18,25 @@
 //   What bounds it: the function needs x read once (50 MB at [3, 2048,
 //   2048]: 0.015 ms at 3.35 TB/s), but the matmul DFT does
 //   4*D*nx*ny*nyr = 51.6 GFLOP for it: 0.77 ms on CUDA cores in float32,
-//   0.052 ms a bf16 pass on the tensor cores.  As tiled below, each block
-//   re-reads x from L2 for each of its row band's bin tiles (17 at 2048^2),
-//   ~1.25 GB a call with the bases, and that traffic bounds the kernel
-//   more than its products (PERF.md).  The design (wgmma, bf16 operand
-//   pieces by the JAX precision tier, csrc/wgmma.cuh):
+//   0.052 ms a bf16 pass on the tensor cores.  Each block re-reads x from
+//   L2 for each of its row band's bin tiles (17 at 2048^2), ~1.25 GB a
+//   call with the bases; whether that traffic or the staging bounds the
+//   kernel is open (PERF.md).  The design (wgmma, bf16 operand pieces by
+//   the JAX precision tier, csrc/wgmma.cuh):
 //    - a block of two warpgroups owns 128 rows (flattened over D) x 64
 //      bins; B = [cos | sin] of the bins, N = 128 as two n64 products per
 //      k16 step; each warpgroup accumulates its 64 rows in registers (64
 //      floats a thread) over y in chunks of 64;
-//    - x is split into the tier's bf16 pieces while it is staged, each
-//      thread 4 x 8 consecutive y of a row (two float4 loads where ny %
-//      4 == 0) written as 16-byte rows of the K-major A tiles; the bases'
-//      pieces arrive in tile order from the host (probe_kernels.
-//      _ydft_tiles_on, cached; 8.4 MB a piece at 2048^2, L2-resident);
-//    - the next chunk is loaded into registers while the tensor cores work
-//      on this one;
+//    - the operands pass through a ring of shared-memory stages, two where
+//      they fit beside the totals ("default" 64 KB, "high" 192 KB), one at
+//      "highest" (160 KB): while the tensor cores work on chunk c, the
+//      block stages chunk c + 1 into the other stage.  The bases' pieces
+//      arrive by 16-byte cp.async in tile order from the host
+//      (probe_kernels._ydft_tiles_on, cached; 8.4 MB a piece at 2048^2,
+//      L2-resident); x is split into the tier's bf16 pieces on its way in,
+//      each thread 4 x 8 consecutive y of a row (two float4 loads where ny
+//      % 4 == 0, a chunk ahead) written as 16-byte rows of the K-major A
+//      tiles;
 //    - the grid runs the bin tiles of a row band side by side (bin tile =
 //      blockIdx.x), so x comes from HBM once and from L2 for the rest;
 //    - the epilogue weighs |Y|^2 by w and sums the block's tile in a fixed
@@ -83,20 +86,15 @@ constexpr int kPM = 128;   // rows per block: two warpgroups of 64
 constexpr int kPB = 64;    // bins per block (N = 128: cos | sin)
 constexpr int kPY = 64;    // y per chunk (the tile's contraction)
 
-// One chunk's registers of one thread: 4 groups of 8 consecutive y of one
-// row each, and its share of the chunk's bases tile (NP pieces of
-// 128 x 64 bf16).
-template <int NP>
+// One chunk's x in one thread's registers: 4 groups of 8 consecutive y
+// of one row each.
 struct XStage {
   float v[4][8];
-  uint4 b[NP * 4];
 };
 
-template <int NP>
 __device__ __forceinline__ void load_xstage(const float* __restrict__ x,
-                                            const uint4* __restrict__ tiles,
                                             int row0, int y0, int R, int ny,
-                                            bool vec, XStage<NP>& st) {
+                                            bool vec, XStage& st) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int unit = threadIdx.x + u * kThreads;
@@ -113,34 +111,53 @@ __device__ __forceinline__ void load_xstage(const float* __restrict__ x,
         st.v[u][e] = (r < R && y + e < ny) ? p[e] : 0.f;
     }
   }
-#pragma unroll
-  for (int u = 0; u < NP * 4; ++u)
-    st.b[u] = tiles[threadIdx.x + u * kThreads];
 }
 
-// Grid: (bin tiles, row bands).  Dynamic shared memory: the A tiles
-// [NP pieces][2 warpgroups], then the B tile's NP pieces of 128 rows;
-// above "default" the float32 totals (wg::promote), 64 KB.  At "default"
-// (32 KB) two blocks share an SM, one staging while the other multiplies,
-// in 128 registers a thread (none spilled).
+// A stage of the ring: the A tile's NP pieces (128 rows: both
+// warpgroups), then the B tile's NP pieces of 128 rows, 16 KB each; two
+// stages where they fit beside the float32 totals ("default", "high"),
+// one at "highest"
+template <int TIER>
+__host__ __device__ constexpr int sweep_stage_bytes() {
+  return 4 * wg::pieces(TIER) * wg::kTileElems * 2;
+}
+template <int TIER>
+__host__ __device__ constexpr int sweep_stages() {
+  return wg::ring_stages(sweep_stage_bytes<TIER>(),
+                         wg::total_bytes(TIER, 2, kThreads));
+}
+template <int TIER>
+__host__ __device__ constexpr int sweep_smem() {
+  return sweep_stages<TIER>() * sweep_stage_bytes<TIER>() +
+         wg::total_bytes(TIER, 2, kThreads);
+}
+
+// Grid: (bin tiles, row bands).  Dynamic shared memory (sweep_smem): the
+// ring's stages, then above "default" the float32 totals (wg::promote),
+// 64 KB.  While the products of chunk c read stage c % S, the block loads
+// chunk c + 1's x into registers and stages the chunk into the other
+// stage: its bases by cp.async, x's pieces from those registers.  With
+// one stage the staging waits for the products.  At "default" (64 KB) two
+// blocks share an SM in 128 registers a thread.
 template <int TIER>
 __global__ void __launch_bounds__(kThreads, TIER == 0 ? 2 : 1)
 ydft_sweep_kernel(const float* __restrict__ x,
                   const uint4* __restrict__ tiles,
                   const float* __restrict__ wt, float* __restrict__ partial,
                   int R, int ny, int nyr, int vec) {
-  constexpr int NP = wg::pieces(TIER);
+  constexpr int NP = wg::pieces(TIER), S = sweep_stages<TIER>();
   constexpr int kA = 2 * wg::kTileElems;       // A: one piece, 128 rows
   constexpr int kB = 2 * wg::kTileElems;       // B: one piece, 128 rows
+  constexpr int kStage = sweep_stage_bytes<TIER>() / 2;  // bf16 elements
+  constexpr int kChunk = NP * kB / 8;                    // uint4 of bases
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* const Bs = As + NP * kA;
-  float4* const tot = reinterpret_cast<float4*>(Bs + NP * kB);
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  float4* const tot = reinterpret_cast<float4*>(ring + S * kStage);
   __shared__ float red[kThreads];
   const int t = threadIdx.x, g = t >> 7;
   const int row0 = blockIdx.y * kPM, b0 = blockIdx.x * kPB;
   const int nc = (ny + kPY - 1) / kPY;
-  const uint4* bt = tiles + (size_t)blockIdx.x * nc * NP * (kB / 8);
+  const uint4* bt = tiles + (size_t)blockIdx.x * nc * kChunk;
 
   float acc[2][32];
 #pragma unroll
@@ -148,9 +165,15 @@ ydft_sweep_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int v = 0; v < 32; ++v) acc[s][v] = 0.f;
 
-  XStage<NP> st;
-  load_xstage<NP>(x, bt, row0, 0, R, ny, vec, st);
-  for (int c = 0; c < nc; ++c) {
+  XStage st;
+  // chunk c's bases and x's pieces (from st) into stage s
+  const auto stage = [&](int c, int s) {
+    __nv_bfloat16* const A = ring + s * kStage;
+    uint4* const B = reinterpret_cast<uint4*>(A + NP * kA);
+#pragma unroll
+    for (int u = 0; u < 4 * NP; ++u)
+      wg::cp_async16(B + t + u * kThreads,
+                     bt + (size_t)c * kChunk + t + u * kThreads);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int unit = t + u * kThreads;
@@ -158,22 +181,31 @@ ydft_sweep_kernel(const float* __restrict__ x,
       __nv_bfloat16* dst[NP];
 #pragma unroll
       for (int p = 0; p < NP; ++p)
-        dst[p] = As + p * kA + (r >> 6) * wg::kTileElems +
+        dst[p] = A + p * kA + (r >> 6) * wg::kTileElems +
                  wg::tile_off(r & 63, k);
       wg::store_row8<NP>(st.v[u], dst);
     }
-#pragma unroll
-    for (int u = 0; u < NP * 4; ++u)
-      reinterpret_cast<uint4*>(Bs)[t + u * kThreads] = st.b[u];
-    wg::fence_stores();
-    __syncthreads();
-    wg::mma_chunk<TIER, 2>(acc, As + g * wg::kTileElems, kA, Bs, kB,
+  };
+  load_xstage(x, row0, 0, R, ny, vec, st);
+  stage(0, 0);
+  wg::cp_async_wait_all();
+  wg::fence_stores();
+  __syncthreads();
+  for (int c = 0; c < nc; ++c) {
+    const __nv_bfloat16* const A = ring + (c % S) * kStage;
+    wg::mma_chunk<TIER, 2>(acc, A + g * wg::kTileElems, kA, A + NP * kA, kB,
                            TIER > 0 || c == 0);
-    if (c + 1 < nc)
-      load_xstage<NP>(x, bt + (size_t)(c + 1) * NP * (kB / 8), row0,
-                      (c + 1) * kPY, R, ny, vec, st);
+    // the next chunk's x loads while the products run
+    if (c + 1 < nc) load_xstage(x, row0, (c + 1) * kPY, R, ny, vec, st);
+    if (S == 2 && c + 1 < nc) stage(c + 1, (c + 1) % 2);
     wg::finish<2>(acc);
     if constexpr (TIER > 0) wg::promote<2>(acc, tot, kThreads, c == 0);
+    if (S == 1 && c + 1 < nc) {
+      __syncthreads();              // every product has read the stage
+      stage(c + 1, 0);
+    }
+    wg::cp_async_wait_all();
+    wg::fence_stores();
     __syncthreads();
   }
   if constexpr (TIER > 0) wg::totals<2>(acc, tot, kThreads);
@@ -200,8 +232,7 @@ template <int TIER>
 cudaError_t launch_sweep(dim3 grid, const float* x, const uint4* tiles,
                          const float* w, float* partial, int R, int ny,
                          int nyr, int vec, cudaStream_t st) {
-  constexpr int smem = 2 * wg::pieces(TIER) * 2 * wg::kTileElems * 2 +
-                       wg::total_bytes(TIER, 2, kThreads);
+  constexpr int smem = sweep_smem<TIER>();
   const cudaError_t err = cudaFuncSetAttribute(
       ydft_sweep_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -272,14 +303,16 @@ extern "C" long long ydft_energy_blocks(int R, int nyr) {
 
 // x: [R, ny] float32 (R = D*nx), contiguous; tiles: the [ny, nyr] cos and
 // sin bases' bf16 pieces of the precision tier (0 default, 1 high, 2
-// highest) in tile order, [ceil(nyr/64)][ceil(ny/64)][tier + 1][128 x 64]
-// (probe_kernels._ydft_tiles_on); w: [nyr] float32; scratch:
-// ydft_energy_blocks(R, nyr) floats; out: one float.  Two grids: the
-// sweep, then the ordered sum of its partials.
+// highest) in tile order, [ceil(nyr/tb)][ceil(ny/ty)][tier + 1][2 tb x ty]
+// (probe_kernels._ydft_tiles_on), laid out for tb = kPB bins and ty = kPY
+// y (checked here); w: [nyr] float32; scratch: ydft_energy_blocks(R, nyr)
+// floats; out: one float.  Two grids: the sweep, then the ordered sum of
+// its partials.
 extern "C" int ydft_energy_launch(const void* x, const void* tiles,
                                   const void* w, void* scratch, void* out,
-                                  int R, int ny, int nyr, int tier,
-                                  void* stream) {
+                                  int R, int ny, int nyr, int tier, int tb,
+                                  int ty, void* stream) {
+  if (tb != kPB || ty != kPY) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)((nyr + kPB - 1) / kPB),
                   (unsigned)((R + kPM - 1) / kPM));
@@ -303,4 +336,15 @@ extern "C" int ydft_energy_launch(const void* x, const void* tiles,
   ydft_reduce_kernel<<<1, kThreads, 0, st>>>(
       part, (int)(grid.x * grid.y), static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// The sweep kernel's registers, local bytes, static and dynamic shared
+// memory at a tier (wg::attrs): out[0..3].
+extern "C" int ydft_sweep_attrs(int tier, int* out) {
+  switch (tier) {
+    case 0: return wg::attrs(ydft_sweep_kernel<0>, sweep_smem<0>(), out);
+    case 1: return wg::attrs(ydft_sweep_kernel<1>, sweep_smem<1>(), out);
+    case 2: return wg::attrs(ydft_sweep_kernel<2>, sweep_smem<2>(), out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -30,6 +30,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace wg {
 
@@ -93,6 +94,20 @@ __device__ __forceinline__ uint64_t desc(const void* smem) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(kLBO >> 4) << 16) |
          ((uint64_t)(kSBO >> 4) << 32);
+}
+
+// 16 bytes global -> shared without registers (cp.async, cached in L2
+// only); both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+// wait for this thread's cp.async copies; fence_stores() then makes them
+// visible to the products like any other store
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // make this thread's shared-memory stores visible to the wgmma (async)
@@ -220,6 +235,16 @@ __host__ __device__ constexpr int total_bytes(int tier, int ns, int threads) {
   return tier == 0 ? 0 : ns * 32 * 4 * threads;
 }
 
+// the dynamic shared memory a block may have on Hopper (227 KB)
+constexpr int kMaxSmem = 232448;
+
+// stages of a ring of operand tiles, `stage` bytes each, beside `other`
+// bytes: two (one staged while the products read the other) where they
+// fit, else one
+__host__ __device__ constexpr int ring_stages(int stage, int other) {
+  return 2 * stage + other <= kMaxSmem ? 2 : 1;
+}
+
 // The accumulator layout of m64nNk16: register i of thread t holds row
 // 16*(t/32 % 4) + (t%32)/4 + 8*(i/2 % 2), column 8*(i/4) + 2*(t%4) + i%2.
 __device__ __forceinline__ int acc_row(int t, int i) {
@@ -227,6 +252,21 @@ __device__ __forceinline__ int acc_row(int t, int i) {
 }
 __device__ __forceinline__ int acc_col(int t, int i) {
   return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+}
+
+// A kernel's registers, local (spilled) bytes and static shared memory as
+// the runtime reports them, and the dynamic shared memory its launch asks
+// for: out[0..3]
+template <typename Kernel>
+int attrs(Kernel* kernel, int dynamic_smem, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = dynamic_smem;
+  return 0;
 }
 
 }  // namespace wg

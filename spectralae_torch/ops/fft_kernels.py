@@ -68,6 +68,8 @@ _LANE = 128
 _MAX_M1 = 512
 
 _PRECISIONS = (None, "default", "high", "highest")
+#: the JAX dot tiers the matmul-DFT kernels run at on the card
+TIERS = ("default", "high", "highest")
 #: the C kernels' tier numbers (csrc/wgmma.cuh)
 _TIERS = {"default": 0, "high": 1, "highest": 2}
 #: (a piece, b piece) of each product of a tier, the small terms first, as
@@ -75,10 +77,49 @@ _TIERS = {"default": 0, "high": 1, "highest": 2}
 _PRODUCTS = {"default": ((0, 0),),
              "high": ((1, 0), (0, 1), (0, 0)),
              "highest": ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))}
+#: the tensor cores' dense bf16 rate (NVIDIA's H100 SXM data sheet): with
+#: a tier's products, what a matmul DFT costs on them, a figure of a
+#: design and not a bound of its function (:func:`design_tc_ms`)
+BF16_TC_FLOP_PER_S = 989e12
 
-# the leaf kernel's tile: frequencies a block and j a contraction chunk
-# (csrc/rfft2_mixed.cu kTF, kJC)
-_LEAF_TF, _LEAF_JC = 32, 32
+# The tiers' bounds, for every check of the two matmul-DFT kernels (the
+# leaves here, P2 in probe_kernels) and their plain versions.
+#: a tier against the exact transform (norm-relative): "highest" (bf16×6)
+#: and "high" (bf16×3) the JAX tests' 2e-6 and 1e-5
+#: (tests/test_pallas_fft.py:25-44); "default" rounds both operands to
+#: bf16, each by up to 2^-8, ~3e-3 rms a product: 2.3e-3 on pixel frames
+#: and 2.8e-3 on noise through the plain tier versions, so 6e-3 (the JAX
+#: docstring's ~2e-4, pallas_fft.py:42-45, does not hold for this norm)
+TIER_TOL = {"default": 6e-3, "high": 1e-5, "highest": 2e-6}
+#: P2's energy against the rfft route (relative): "default" rounds x and
+#: the bases to bf16 and the energy's error averages over its terms, 8e-4
+#: at the JAX probe's check case [3, 32, 48] and less above it, so 1e-3
+#: from there up; the others within the transform's bounds
+P2_TIER_TOL = {"default": 1e-3, "high": 1e-5, "highest": 2e-6}
+#: ... and below the check case's 4,608 values "default" rounds fewer
+#: terms: 1.8e-3 at [1, 64, 7], so the operands' 2^-8
+P2_SMALL, P2_SMALL_DEFAULT_TOL = 3 * 32 * 48, 2 ** -8
+
+#: the kernels' tiles, in which the host lays out the bases' pieces and
+#: which each launch passes for its kernel to check: the leaf's
+#: frequencies a block and j a chunk (csrc/rfft2_mixed.cu kTF, kJC), the
+#: sweep's bins a block and y a chunk (csrc/probes.cu kPB, kPY)
+LEAF_TILE = (32, 32)
+SWEEP_TILE = (64, 64)
+
+
+def design_tc_ms(flops: float, precision: str) -> float:
+    """Milliseconds of ``flops`` of products at the bf16 tensor-core peak,
+    times ``precision``'s products a pair of operands."""
+    return flops * len(_PRODUCTS[precision]) / BF16_TC_FLOP_PER_S * 1e3
+
+
+def p2_tier_tol(precision: str, numel: int) -> float:
+    """P2's bound against the rfft route at ``precision`` for an input of
+    ``numel`` values (:data:`P2_TIER_TOL`, :data:`P2_SMALL_DEFAULT_TOL`)."""
+    if precision == "default" and numel < P2_SMALL:
+        return P2_SMALL_DEFAULT_TOL
+    return P2_TIER_TOL[precision]
 
 
 def _k1p(ny: int) -> int:
@@ -246,6 +287,15 @@ def core_order(t: torch.Tensor) -> torch.Tensor:
             .reshape(*lead, r * k))
 
 
+def tile_pieces(b: torch.Tensor, precision: str) -> torch.Tensor:
+    """``[..., R, 64]`` float32 tiles as ``precision``'s bf16 pieces in
+    core-matrix order, the pieces on a new axis before the last:
+    ``[..., pieces, R·64]`` bf16."""
+    with torch.inference_mode(False):
+        return torch.stack([core_order(p.to(torch.bfloat16)) for p in
+                            pieces(b, _TIERS[precision] + 1)], -2)
+
+
 @functools.lru_cache(maxsize=None)
 def _bases_on(kind: str, n: int, device: torch.device):
     """A kernel's bases and twiddles (``y``: :func:`_y_bases_np`, ``x``:
@@ -328,11 +378,17 @@ def fft_x_mixed_plain(yr: torch.Tensor, yi: torch.Tensor, out_dtype=None,
     return re.to(out), im.to(out)
 
 
-def rfft2_mixed_plain(x: torch.Tensor, *, precision=None, out_dtype=None):
+def rfft2_mixed_plain(x: torch.Tensor, *, precision=None, out_dtype=None,
+                      y_planes=None):
     """:func:`rfft2_mixed` through the plain versions alone, on any device:
     the same butterfly rounds and leaves, the leaves' operands rounded to
     ``precision``'s pieces (None: float32 products).  On the card it is
-    what the kernels compute at that tier, summed in another order."""
+    what the kernels compute at that tier, summed in another order.
+    ``y_planes``: the y-stage's ``(Yre, Yim) [..., G, nx, k1p]``
+    (:func:`rfft_y_mixed`) to take the x-stage from, in place of the plain
+    y-stage: with the kernels' own, the x-stage is held to its plain
+    version alone, since at ``"default"`` the x-leaf rounds to bf16 a
+    y-stage output that kernel and plain sum in other orders."""
     nx, ny = x.shape[-2], x.shape[-1]
     lead = tuple(x.shape[:-2])
 
@@ -354,7 +410,10 @@ def rfft2_mixed_plain(x: torch.Tensor, *, precision=None, out_dtype=None):
                         bi.reshape(-1, n // 4, yr.shape[-1]), n // 4)
         return sr.reshape(yr.shape), si.reshape(yr.shape)
 
-    yr, yi = y_axis(x.reshape(-1, nx, ny), None, ny)
+    if y_planes is None:
+        yr, yi = y_axis(x.reshape(-1, nx, ny), None, ny)
+    else:
+        yr, yi = y_planes
     G, k1p = yr.shape[-3], yr.shape[-1]
     xr, xi = x_axis(yr.reshape(-1, nx, k1p), yi.reshape(-1, nx, k1p), nx)
     return tuple(a.reshape(lead + (G, nx, k1p)).movedim(-3, -2)
@@ -394,17 +453,16 @@ def _leaf_tiles_on(kind: str, n: int, precision: str,
     order: ``[nf, nc, pieces, 4096]`` bf16, built once on the host."""
     bc, bs = (torch.as_tensor(a) for a in _BASES[kind](n)[:2])   # [j, k]
     m1, K = bc.shape
-    nf, nc = -(-K // _LEAF_TF), -(-m1 // _LEAF_JC)
+    tf, jc = LEAF_TILE
+    nf, nc = -(-K // tf), -(-m1 // jc)
 
     def tiled(a):
-        z = torch.zeros(nc * _LEAF_JC, nf * _LEAF_TF)
+        z = torch.zeros(nc * jc, nf * tf)
         z[:m1, :K] = a
-        return z.reshape(nc, _LEAF_JC, nf, _LEAF_TF).permute(2, 0, 3, 1)
+        return z.reshape(nc, jc, nf, tf).permute(2, 0, 3, 1)
     c, s = tiled(bc), tiled(bs)                       # [f, c, k, j]
     b = torch.cat([torch.cat([c, s], -1), torch.cat([-s, c], -1)], -2)
-    with torch.inference_mode(False):
-        return torch.stack([core_order(p.to(torch.bfloat16)) for p in
-                            pieces(b, _TIERS[precision] + 1)], 2).to(device)
+    return tile_pieces(b, precision).to(device)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -420,7 +478,7 @@ def _launch(entry: str, key: str, xr, xi, kind: str, n: int, outs,
     tiles = ()
     if precision is not None:
         tiles = (_leaf_tiles_on(kind, n, precision, dev).data_ptr(),)
-        ints += (_TIERS[precision],)
+        ints += (_TIERS[precision],) + LEAF_TILE
     with torch.cuda.device(dev):
         err = getattr(_kernels.lib(), entry)(
             xr.data_ptr(), None if xi is None else xi.data_ptr(),

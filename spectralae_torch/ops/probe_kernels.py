@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .fft_kernels import _TIERS, core_order, pieces, split_dot
+from .fft_kernels import SWEEP_TILE, _TIERS, split_dot, tile_pieces
 from .spectral import _hermitian_weights
 
 #: kernel launches since import (or the last reset), by kernel
@@ -32,10 +32,6 @@ LAUNCHES = {"lane_strided": 0, "sublane_strided": 0, "middle_store": 0,
 #: bf16 pieces of ``x`` and the bases feed the tensor cores on the card
 #: (``csrc/wgmma.cuh``); None is ``"default"``
 PRECISIONS = (None, "default", "high", "highest")
-
-# the sweep kernel's tile: bins a block and y a contraction chunk
-# (csrc/probes.cu kPB, kPY)
-_P2_TB, _P2_TY = 64, 64
 
 #: stores of :func:`middle_store` (``out[k] = x·(k+1)`` for ``k < 4``)
 MIDDLE_K = 4
@@ -160,17 +156,16 @@ def _ydft_tiles_on(ny: int, precision: str,
     core-matrix order: ``[nb, nc, pieces, 8192]`` bf16, built once on the
     host."""
     nyr = ny // 2 + 1
-    nb, nc = -(-nyr // _P2_TB), -(-ny // _P2_TY)
+    tb, ty = SWEEP_TILE
+    nb, nc = -(-nyr // tb), -(-ny // ty)
     cosb, sinb = _bases(1, ny, torch.device("cpu"))[:2]
 
     def tiled(a):
-        z = torch.zeros(nc * _P2_TY, nb * _P2_TB)
+        z = torch.zeros(nc * ty, nb * tb)
         z[:ny, :nyr] = a
-        return z.reshape(nc, _P2_TY, nb, _P2_TB).permute(2, 0, 3, 1)
+        return z.reshape(nc, ty, nb, tb).permute(2, 0, 3, 1)
     b = torch.cat([tiled(cosb), tiled(sinb)], -2)       # [b, c, 128, 64]
-    with torch.inference_mode(False):
-        return torch.stack([core_order(p.to(torch.bfloat16)) for p in
-                            pieces(b, _TIERS[precision] + 1)], 2).to(device)
+    return tile_pieces(b, precision).to(device)
 
 
 def ydft_energy_plain(x: torch.Tensor, *, y_chunk: int = 512,
@@ -225,7 +220,8 @@ def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
     with torch.cuda.device(x.device):
         err = lib.ydft_energy_launch(
             x.data_ptr(), tiles.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), rows, ny, nyr, _TIERS[tier], _stream())
+            out.data_ptr(), rows, ny, nyr, _TIERS[tier], *SWEEP_TILE,
+            _stream())
     _kernels.check(err, "ydft_energy")
     LAUNCHES["ydft_energy"] += 1
     return out

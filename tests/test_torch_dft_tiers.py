@@ -13,10 +13,11 @@ and the bases).  Here, with numpy inputs from a seed:
   algebra except that on the CPU JAX keeps the residual ``a − hi`` in
   float32 where the tensor cores take ``bf16(a − hi)``: the two differ by
   that rounding, ~2⁻¹⁸ of a product (3.4e-6 norm-relative on random
-  products), so 1e-5; ``"default"`` and ``"highest"`` against JAX's
-  ``HIGHEST`` within the tier's bound: bf16×6 the JAX test's 2e-6
-  (tests/test_pallas_fft.py:25-31), one bf16 product 6e-3 (each operand
-  rounded by up to 2⁻⁸, ~3e-3 rms a product);
+  products), so 1e-5; and against the same JAX transform with its
+  products' operands rounded to bf16 as the TPU's matrix unit and the
+  tensor cores take them, the same algebra, within 1e-6; ``"default"`` and
+  ``"highest"`` against JAX's ``HIGHEST`` within the tier's bound
+  (``fft_kernels.TIER_TOL``);
 - the bf16 pieces reconstructing the float32 bases to 2⁻¹⁶ (two pieces)
   and 2⁻²⁴ (three), and the bases' tiles as the kernels read them
   reproducing each tier's plain product (the host layout of
@@ -42,18 +43,16 @@ from spectralae_torch.ops import probe_kernels as pk
 
 torch.set_num_threads(1)
 
-TIERS = ("default", "high", "highest")
-# each tier against the exact transform (see the module docstring)
-TIER_TOL = {"default": 6e-3, "high": 1e-5, "highest": 2e-6}
+# each tier against the exact transform: fft_kernels.TIER_TOL
+TIERS, TIER_TOL = fk.TIERS, fk.TIER_TOL
 # "high" against JAX's interpret-mode HIGH: the residual's bf16 rounding
 HIGH_VS_JAX = 1e-5
+# ... and against it with bf16 operands in its products: only the order of
+# the float32 sums differs
+HIGH_VS_JAX_BF16 = 1e-6
 # the bases' tiles against the plain products: the same pieces and exact
 # products, summed in another order
 LAYOUT_TOL = 1e-6
-# P2's energy against the rfft route at the JAX probe's check case: the
-# default tier moves it by 7e-4..8e-4 (seeds 0-2), the others within the
-# transform bounds
-ENERGY_TOL = {"default": 1e-3, "high": 1e-5, "highest": 2e-6}
 
 
 def rel(got, want) -> float:
@@ -94,6 +93,50 @@ def test_plain_high_tier_matches_jax_high(nx, ny, max_m1, monkeypatch):
     nat = fk.to_natural(fk.rfft2_mixed_plain(torch.from_numpy(x),
                                              precision="high"), nx, ny)
     assert rel(nat, np.fft.rfft2(x)) < TIER_TOL["high"]
+
+
+def _bf16_operand_dot_fn(precision):
+    """The JAX package's HIGH split (``pallas_fft._dot_fn``) with each
+    product's operands rounded to bf16, as the TPU's matrix unit and the
+    tensor cores take them: the residual reaches its products as
+    ``bf16(a − hi)``; the sums stay float32, in JAX's order."""
+    import jax
+    import jax.numpy as jnp
+    assert precision == jax.lax.Precision.HIGH
+
+    def bf16(t):
+        return t.astype(jnp.bfloat16).astype(jnp.float32)
+
+    def d(a, b):
+        return jnp.dot(bf16(a), bf16(b), preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
+
+    def dot3(a, b):
+        ah, bh = bf16(a), bf16(b)
+        return d(a - ah, bh) + (d(ah, b - bh) + d(ah, bh))
+    return dot3
+
+
+@pytest.mark.parametrize("nx,ny,max_m1", [(64, 64, 512), (32, 48, 512),
+                                          (128, 64, 8)])
+def test_plain_high_tier_matches_jax_high_on_bf16_operands(nx, ny, max_m1,
+                                                           monkeypatch):
+    """The bf16×3 plain transform against JAX's HIGH split with bf16
+    operands in its products (interpret mode), on the live lanes, with
+    and without the recursion: the same algebra to the float32 sums."""
+    import jax
+    import jax.numpy as jnp
+    from spectralae.ops import pallas_fft as pf
+    monkeypatch.setattr(pf, "_MAX_M1", max_m1)
+    monkeypatch.setattr(fk, "_MAX_M1", max_m1)
+    monkeypatch.setattr(pf, "_dot_fn", _bf16_operand_dot_fn)
+    x = frames(0, (3, nx, ny))
+    got = mixed(fk.rfft2_mixed_plain(torch.from_numpy(x), precision="high"))
+    want = mixed(pf.rfft2_mixed(jnp.asarray(x),
+                                precision=jax.lax.Precision.HIGH,
+                                interpret=True))
+    live = fk.perm_y(ny) >= 0
+    assert rel(got[..., live], want[..., live]) < HIGH_VS_JAX_BF16
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
@@ -191,11 +234,12 @@ def test_leaf_tiles_hold_each_tiers_product(kind, n, precision):
     bc, bs = (torch.from_numpy(a) for a in fk._BASES[kind](n)[:2])
     m1, K = bc.shape
     nf, nc = tiles.shape[:2]
-    got = torch.zeros(4, rows, 2, nf * fk._LEAF_TF)
+    tf, jc = fk.LEAF_TILE
+    got = torch.zeros(4, rows, 2, nf * tf)
     for f in range(nf):
         acc = torch.zeros(4, rows, 64)
         for c in range(nc):
-            j = torch.arange(c * fk._LEAF_JC, (c + 1) * fk._LEAF_JC)
+            j = torch.arange(c * jc, (c + 1) * jc)
             ok = j < m1
             jj = torch.where(ok, j, 0)
             a = torch.cat([torch.where(ok, pr[..., jj], 0.0),
@@ -203,7 +247,7 @@ def test_leaf_tiles_hold_each_tiers_product(kind, n, precision):
             ap = fk.pieces(a, fk._TIERS[precision] + 1)
             for i, k in fk._PRODUCTS[precision]:
                 acc = acc + ap[i] @ _tile_matrix(tiles[f, c, k], 64).T
-        got[..., f * 32:(f + 1) * 32] = acc.reshape(4, rows, 2, 32)
+        got[..., f * tf:(f + 1) * tf] = acc.reshape(4, rows, 2, tf)
 
     def dot(a, b):
         return fk.split_dot(a, b, precision)
@@ -223,19 +267,20 @@ def test_ydft_tiles_hold_each_tiers_product(shape, precision):
     tiles = pk._ydft_tiles_on(ny, precision, torch.device("cpu"))
     w = pk._bases(nx, ny, torch.device("cpu"))[2]
     x2 = x.reshape(-1, ny)
+    tb, ty = fk.SWEEP_TILE
     energy = 0.0
     for b in range(tiles.shape[0]):
-        acc = torch.zeros(x2.shape[0], 128)
+        acc = torch.zeros(x2.shape[0], 2 * tb)
         for c in range(tiles.shape[1]):
-            y = torch.arange(c * 64, (c + 1) * 64)
+            y = torch.arange(c * ty, (c + 1) * ty)
             a = torch.where(y < ny, x2[:, torch.where(y < ny, y, 0)], 0.0)
             ap = fk.pieces(a, fk._TIERS[precision] + 1)
             for i, k in fk._PRODUCTS[precision]:
-                acc = acc + ap[i] @ _tile_matrix(tiles[b, c, k], 128).T
-        bins = torch.arange(b * 64, (b + 1) * 64)
+                acc = acc + ap[i] @ _tile_matrix(tiles[b, c, k], 2 * tb).T
+        bins = torch.arange(b * tb, (b + 1) * tb)
         wb = torch.where(bins < nyr, w[torch.where(bins < nyr, bins, 0)],
                          0.0)
-        energy += float((wb * (acc[:, :64] ** 2 + acc[:, 64:] ** 2)).sum())
+        energy += float((wb * (acc[:, :tb] ** 2 + acc[:, tb:] ** 2)).sum())
     want = float(pk.ydft_energy_plain(x, precision=precision))
     assert abs(energy - want) / want < LAYOUT_TOL
 
@@ -261,7 +306,7 @@ def test_ydft_energy_plain_tiers_match_jax_ref(precision):
     want = float(_jax_probe().ref_energy(jnp.asarray(x)))
     got = float(pk.ydft_energy_plain(torch.from_numpy(x), y_chunk=16,
                                      precision=precision))
-    assert abs(got - want) / want < ENERGY_TOL[precision]
+    assert abs(got - want) / want < fk.p2_tier_tol(precision, x.size)
     cpu = float(pk.ydft_energy(torch.from_numpy(x), y_chunk=16,
                                precision=precision))
     assert cpu == float(pk.ydft_energy_plain(torch.from_numpy(x),

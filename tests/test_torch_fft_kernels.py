@@ -275,11 +275,8 @@ def test_butterfly_rounds_match_jax(real):
 # versions (exact float32 products) and sum them in another order (at most
 # 2·512 terms a bin, times the tier's products)
 CARD_TOL = 1e-5
-TIERS = ("default", "high", "highest")
-# each tier against the exact transform: the JAX tests' bounds for
-# "highest" (2e-6) and "high" (1e-5); "default" rounds both operands to
-# bf16 (up to 2^-8 each, ~3e-3 rms a product)
-TIER_TOL = {"default": 6e-3, "high": 1e-5, "highest": 2e-6}
+# each tier against the exact transform: fft_kernels.TIER_TOL
+TIERS, TIER_TOL = fk.TIERS, fk.TIER_TOL
 
 
 @pytest.fixture
@@ -371,8 +368,9 @@ def test_forced_recursion_on_the_card(cuda_device, bf16, precision,
                                       monkeypatch):
     """Every kernel of the recursion (lane and row rounds, the complex
     y-leaf of m1 = 4) at _MAX_M1 = 8: the card's rfft2_mixed against the
-    plain pipeline at its tier on the card, and against torch.fft.rfft2
-    within the tier's bound (bf16 out: the storage rounding)."""
+    plain x-stage at its tier on the card's own y-stage, and against
+    torch.fft.rfft2 within the tier's bound (bf16 out: the storage
+    rounding)."""
     monkeypatch.setattr(fk, "_MAX_M1", 8)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(2, 3, 256, 256, device=cuda_device, generator=gen)
@@ -385,12 +383,14 @@ def test_forced_recursion_on_the_card(cuda_device, bf16, precision,
     # (256 -> 64 -> 16 on each axis)
     assert grew == {"rfft_y_mixed": 0, "fft_yc": 1, "bfly_lanes": 2,
                     "bfly_rows": 2, "fft_x_mixed": 1}
-    want = fk.rfft2_mixed_plain(x, precision=precision)
-    # at "default" the x-leaf rounds to bf16 the y-stage's float32 output,
-    # which kernel and plain sum in other orders: a value that crosses a
-    # bf16 rounding boundary moves by 2^-8 (chip_smoke.py TOL_B5_CHAIN)
-    tol = BF16_TOL if bf16 else (1e-4 if precision == "default"
-                                 else CARD_TOL)
+    # the plain x-stage on the kernels' own y-stage: at "default" the
+    # x-leaf rounds to bf16 a y-stage output that kernel and plain sum in
+    # other orders, so from x alone a value near a rounding boundary moves
+    # by 2^-8
+    want = fk.rfft2_mixed_plain(
+        x, precision=precision,
+        y_planes=fk.rfft_y_mixed(x, precision=precision))
+    tol = BF16_TOL if bf16 else CARD_TOL
     for g, w in zip(got, want):
         assert _card_rel(g.float(), w) < tol
     nat = fk.to_natural(got, 256, 256)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch.ops import fft_kernels as fk
 from spectralae_torch.ops import probe_kernels as pk
 
 torch.set_num_threads(1)
@@ -158,11 +159,9 @@ def test_mosaic_probe_kernels_on_card(cuda_device, name):
     assert pk.LAUNCHES[name] == before + 1
 
 
-# each tier's energy against the rfft route: "default" rounds x and the
-# bases to bf16, each by up to 2^-8 (the energy moved 2.9e-4 to 1.8e-3 at
-# these shapes through the plain version on the CPU, the most at the
-# smallest), the others within the transform's bounds
-TIER_TOL = {"default": 2 ** -8, "high": 1e-5, "highest": 2e-6}
+# each tier's energy against the rfft route: fft_kernels.p2_tier_tol (the
+# energy moved 2.9e-4 to 1.8e-3 at these shapes through the plain
+# "default" version on the CPU, the most at the smallest)
 
 
 @pytest.mark.cuda
@@ -186,4 +185,4 @@ def test_ydft_energy_kernel_matches_plain_on_card(cuda_device, shape,
                                       precision=precision))
     assert abs(got - want) / want < TOL
     ref = float(pk.ref_energy(x))
-    assert abs(got - ref) / ref < TIER_TOL[precision]
+    assert abs(got - ref) / ref < fk.p2_tier_tol(precision, x.numel())
