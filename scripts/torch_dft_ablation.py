@@ -7,8 +7,6 @@ sources, and times each copy with ``scripts/torch_dft_tiers_bench.py``
 (one process a copy, all on one card):
 
 - ``as-is``: the sources unchanged;
-- ``serial``: the ring keeps its stages, but a chunk is staged only after
-  the previous chunk's products finished (no overlap);
 - ``products-only``: every chunk's products on the first chunk's staged
   operands (no loads, no staging after the first chunk): what the tensor
   cores take reading their operands from shared memory;
@@ -31,22 +29,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "ablation"
 
-_OVERLAP = "    if (S == 2 && c + 1 < nc) stage(c + 1, (c + 1) % 2);\n"
-_AFTER = "    if (S == 1 && c + 1 < nc) {\n"
 # (file under csrc/, text, replacement) by variant
 PATCHES = {
     "as-is": [],
-    "serial": [
-        (f, _OVERLAP, "") for f in ("rfft2_mixed.cu", "probes.cu")] + [
-        (f, _AFTER, "    if (c + 1 < nc) {\n")
-        for f in ("rfft2_mixed.cu", "probes.cu")] + [
-        (f, "      stage(c + 1, 0);\n", "      stage(c + 1, (c + 1) % S);\n")
-        for f in ("rfft2_mixed.cu", "probes.cu")],
     "products-only": [
-        (f, _OVERLAP, "") for f in ("rfft2_mixed.cu", "probes.cu")] + [
-        (f, _AFTER, "    if (false) {\n")
+        (f, "    if (c + 1 < nc) {\n      __syncthreads();",
+         "    if (false) {\n      __syncthreads();")
         for f in ("rfft2_mixed.cu", "probes.cu")] + [
-        (f, "ring + (c % S) * kStage", "ring")
+        (f, "      bases(c + 1);\n", "")
         for f in ("rfft2_mixed.cu", "probes.cu")],
     "staging-only": [
         ("wgmma.cuh", "  for (int ks = 0; ks < kK / 16; ++ks)\n",

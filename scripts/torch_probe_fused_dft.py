@@ -11,10 +11,10 @@ through ``torch.fft.rfft`` (``ref_energy``).
 
 ``--check`` runs the JAX probe's small case, ``x [3, 32, 48]`` with
 ``y_chunk=16``, at each tier, and asserts a relative error under the
-tier's bound (``fft_kernels.p2_tier_tol``).  Without it, the script times ``[3, n,
-n]`` (default n = 2048): the ``torch.fft.rfft`` route (the JAX probe's
-``xla_rfft_y`` row), the kernel at each tier and the plain version (two
-cuBLAS float32 products a chunk), each with its value, its error against
+tier's bound (``fft_kernels.p2_tier_tol``).  Without it, the script times
+``[3, n, n]`` (default n = 2048): the ``torch.fft.rfft`` route (the JAX
+probe's ``xla_rfft_y`` row), the kernel at each tier and the plain version
+(two cuBLAS float32 products a chunk), each with its value, its error against
 the rfft route and its mean ms over CUDA events, and says which tier, if
 any, beats the rfft route.  Both run on the card unless ``--device cpu``
 asks for the plain version on the CPU (float32 at every tier)::

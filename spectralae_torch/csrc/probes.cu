@@ -20,23 +20,24 @@
 //   4*D*nx*ny*nyr = 51.6 GFLOP for it: 0.77 ms on CUDA cores in float32,
 //   0.052 ms a bf16 pass on the tensor cores.  Each block re-reads x from
 //   L2 for each of its row band's bin tiles (17 at 2048^2), ~1.25 GB a
-//   call with the bases; whether that traffic or the staging bounds the
-//   kernel is open (PERF.md).  The design (wgmma, bf16 operand pieces by
-//   the JAX precision tier, csrc/wgmma.cuh):
+//   call with the bases.  Timed apart (scripts/torch_dft_ablation.py,
+//   PERF.md), staging the operands takes longer than the products at
+//   every tier, and a second stage of the A tile that let the two overlap
+//   gained nothing, so the A tile has one and the bases two.  The design
+//   (wgmma, bf16 operand pieces by the JAX precision tier,
+//   csrc/wgmma.cuh):
 //    - a block of two warpgroups owns 128 rows (flattened over D) x 64
 //      bins; B = [cos | sin] of the bins, N = 128 as two n64 products per
 //      k16 step; each warpgroup accumulates its 64 rows in registers (64
 //      floats a thread) over y in chunks of 64;
-//    - the operands pass through a ring of shared-memory stages, two where
-//      they fit beside the totals ("default" 64 KB, "high" 192 KB), one at
-//      "highest" (160 KB): while the tensor cores work on chunk c, the
-//      block stages chunk c + 1 into the other stage.  The bases' pieces
-//      arrive by 16-byte cp.async in tile order from the host
-//      (probe_kernels._ydft_tiles_on, cached; 8.4 MB a piece at 2048^2,
-//      L2-resident); x is split into the tier's bf16 pieces on its way in,
-//      each thread 4 x 8 consecutive y of a row (two float4 loads where ny
-//      % 4 == 0, a chunk ahead) written as 16-byte rows of the K-major A
-//      tiles;
+//    - while the tensor cores work on chunk c, the bases' pieces of chunk
+//      c + 1 arrive by 16-byte cp.async in the other of two B stages, in
+//      tile order from the host (probe_kernels._ydft_tiles_on, cached;
+//      8.4 MB a piece at 2048^2, L2-resident), and each thread loads 4 x 8
+//      consecutive y of a row of chunk c + 1 (two float4 loads where ny %
+//      4 == 0); when the products have read the A tile, x is split into
+//      the tier's bf16 pieces, written as 16-byte rows of the K-major A
+//      tile;
 //    - the grid runs the bin tiles of a row band side by side (bin tile =
 //      blockIdx.x), so x comes from HBM once and from L2 for the rest;
 //    - the epilogue weighs |Y|^2 by w and sums the block's tile in a fixed
@@ -113,46 +114,35 @@ __device__ __forceinline__ void load_xstage(const float* __restrict__ x,
   }
 }
 
-// A stage of the ring: the A tile's NP pieces (128 rows: both
-// warpgroups), then the B tile's NP pieces of 128 rows, 16 KB each; two
-// stages where they fit beside the float32 totals ("default", "high"),
-// one at "highest"
-template <int TIER>
-__host__ __device__ constexpr int sweep_stage_bytes() {
-  return 4 * wg::pieces(TIER) * wg::kTileElems * 2;
-}
-template <int TIER>
-__host__ __device__ constexpr int sweep_stages() {
-  return wg::ring_stages(sweep_stage_bytes<TIER>(),
-                         wg::total_bytes(TIER, 2, kThreads));
-}
+// Dynamic shared memory: the A tile's NP pieces (128 rows: both
+// warpgroups), then two stages of the B tile's NP pieces of 128 rows, 16
+// KB each; above "default" the float32 totals (wg::promote), 64 KB
 template <int TIER>
 __host__ __device__ constexpr int sweep_smem() {
-  return sweep_stages<TIER>() * sweep_stage_bytes<TIER>() +
+  return 6 * wg::pieces(TIER) * wg::kTileElems * 2 +
          wg::total_bytes(TIER, 2, kThreads);
 }
 
-// Grid: (bin tiles, row bands).  Dynamic shared memory (sweep_smem): the
-// ring's stages, then above "default" the float32 totals (wg::promote),
-// 64 KB.  While the products of chunk c read stage c % S, the block loads
-// chunk c + 1's x into registers and stages the chunk into the other
-// stage: its bases by cp.async, x's pieces from those registers.  With
-// one stage the staging waits for the products.  At "default" (64 KB) two
-// blocks share an SM in 128 registers a thread.
+// Grid: (bin tiles, row bands); shared memory: sweep_smem.  While the
+// products of chunk c run, chunk c + 1's bases arrive by cp.async in the
+// other B stage and its x loads into registers; once the products have
+// read the A tile, the block writes x's pieces into it.  At "default"
+// (48 KB) two blocks share an SM, one staging while the other
+// multiplies, in 128 registers a thread.
 template <int TIER>
 __global__ void __launch_bounds__(kThreads, TIER == 0 ? 2 : 1)
 ydft_sweep_kernel(const float* __restrict__ x,
                   const uint4* __restrict__ tiles,
                   const float* __restrict__ wt, float* __restrict__ partial,
                   int R, int ny, int nyr, int vec) {
-  constexpr int NP = wg::pieces(TIER), S = sweep_stages<TIER>();
+  constexpr int NP = wg::pieces(TIER);
   constexpr int kA = 2 * wg::kTileElems;       // A: one piece, 128 rows
   constexpr int kB = 2 * wg::kTileElems;       // B: one piece, 128 rows
-  constexpr int kStage = sweep_stage_bytes<TIER>() / 2;  // bf16 elements
-  constexpr int kChunk = NP * kB / 8;                    // uint4 of bases
+  constexpr int kChunk = NP * kB / 8;          // uint4 of bases a chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  float4* const tot = reinterpret_cast<float4*>(ring + S * kStage);
+  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const Bs = As + NP * kA;
+  float4* const tot = reinterpret_cast<float4*>(Bs + 2 * NP * kB);
   __shared__ float red[kThreads];
   const int t = threadIdx.x, g = t >> 7;
   const int row0 = blockIdx.y * kPM, b0 = blockIdx.x * kPB;
@@ -166,14 +156,17 @@ ydft_sweep_kernel(const float* __restrict__ x,
     for (int v = 0; v < 32; ++v) acc[s][v] = 0.f;
 
   XStage st;
-  // chunk c's bases and x's pieces (from st) into stage s
-  const auto stage = [&](int c, int s) {
-    __nv_bfloat16* const A = ring + s * kStage;
-    uint4* const B = reinterpret_cast<uint4*>(A + NP * kA);
+  // chunk c's bases into B stage c % 2
+  const auto bases = [&](int c) {
+    uint4* const B = reinterpret_cast<uint4*>(Bs + (c & 1) * NP * kB);
 #pragma unroll
     for (int u = 0; u < 4 * NP; ++u)
       wg::cp_async16(B + t + u * kThreads,
                      bt + (size_t)c * kChunk + t + u * kThreads);
+  };
+  // chunk c's x pieces (from st) into the A tile; the tile and the
+  // chunk's bases are the products' after the barrier
+  const auto stage = [&](int c) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int unit = t + u * kThreads;
@@ -181,32 +174,30 @@ ydft_sweep_kernel(const float* __restrict__ x,
       __nv_bfloat16* dst[NP];
 #pragma unroll
       for (int p = 0; p < NP; ++p)
-        dst[p] = A + p * kA + (r >> 6) * wg::kTileElems +
+        dst[p] = As + p * kA + (r >> 6) * wg::kTileElems +
                  wg::tile_off(r & 63, k);
       wg::store_row8<NP>(st.v[u], dst);
-    }
-  };
-  load_xstage(x, row0, 0, R, ny, vec, st);
-  stage(0, 0);
-  wg::cp_async_wait_all();
-  wg::fence_stores();
-  __syncthreads();
-  for (int c = 0; c < nc; ++c) {
-    const __nv_bfloat16* const A = ring + (c % S) * kStage;
-    wg::mma_chunk<TIER, 2>(acc, A + g * wg::kTileElems, kA, A + NP * kA, kB,
-                           TIER > 0 || c == 0);
-    // the next chunk's x loads while the products run
-    if (c + 1 < nc) load_xstage(x, row0, (c + 1) * kPY, R, ny, vec, st);
-    if (S == 2 && c + 1 < nc) stage(c + 1, (c + 1) % 2);
-    wg::finish<2>(acc);
-    if constexpr (TIER > 0) wg::promote<2>(acc, tot, kThreads, c == 0);
-    if (S == 1 && c + 1 < nc) {
-      __syncthreads();              // every product has read the stage
-      stage(c + 1, 0);
     }
     wg::cp_async_wait_all();
     wg::fence_stores();
     __syncthreads();
+  };
+  load_xstage(x, row0, 0, R, ny, vec, st);
+  bases(0);
+  stage(0);
+  for (int c = 0; c < nc; ++c) {
+    wg::mma_chunk<TIER, 2>(acc, As + g * wg::kTileElems, kA,
+                           Bs + (c & 1) * NP * kB, kB, TIER > 0 || c == 0);
+    if (c + 1 < nc) {
+      bases(c + 1);
+      load_xstage(x, row0, (c + 1) * kPY, R, ny, vec, st);
+    }
+    wg::finish<2>(acc);
+    if constexpr (TIER > 0) wg::promote<2>(acc, tot, kThreads, c == 0);
+    if (c + 1 < nc) {
+      __syncthreads();              // every product has read the A tile
+      stage(c + 1);
+    }
   }
   if constexpr (TIER > 0) wg::totals<2>(acc, tot, kThreads);
 

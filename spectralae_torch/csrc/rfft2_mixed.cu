@@ -36,26 +36,24 @@
 // runs on the tensor cores (wgmma, bf16 operands, float32 accumulate;
 // csrc/wgmma.cuh), where one bf16 pass takes 0.065 ms at 989 TFLOP/s; the
 // JAX precision tier chooses the passes ("default" 1, "high" 3, "highest"
-// 6).  Each block re-reads its input from L2 for every frequency tile (5
-// at that shape); whether that traffic or the staging bounds the kernel
-// is open (PERF.md):
+// 6).  The products are not what bounds it: timed apart
+// (scripts/torch_dft_ablation.py, PERF.md), staging the operands (the
+// loads, butterfly, split and stores) takes longer than the products at
+// every tier, and a second stage of the A tiles that let the two overlap
+// made the leaf slower, so the A tiles have one and the bases two:
 //  - a block of two warpgroups owns 64 data items x 32 frequencies for all
 //    four k2 streams; the complex product is one real product
 //    [Pr | Pi] . [[bc, -bs], [bs, bc]] of N = 64 columns (re | im),
 //    contracted over 2*m1 in chunks of 32 j (64 wide); warpgroup g
 //    accumulates streams 2g and 2g+1 in registers (64 floats a thread);
-//  - the operands pass through a ring of shared-memory stages, two where
-//    they fit beside the totals ("default" 80 KB, "high" 224 KB), one at
-//    "highest" (184 KB): while the tensor cores work on chunk c, the block
-//    stages chunk c + 1 into the other stage.  The bases' pieces arrive by
-//    16-byte cp.async, laid out in tile order on the host
-//    (fft_kernels._leaf_tiles_on, cached), 8 KB a piece a chunk, shared by
-//    the four streams.  The inputs cannot take that road: P is formed from
-//    them in registers, so each thread holds the four quarters of one data
-//    item at 8 consecutive j, loaded a chunk ahead (a shared stage of
-//    them, 64 KB, does not fit beside the doubled A tiles); it forms
-//    butterfly and twiddle in exact float32 (no contracted FMAs, so P is
-//    bit-equal to the plain version's), a stream pair at a time, splits P
+//  - while the tensor cores work on chunk c, the bases' pieces of chunk
+//    c + 1 arrive by 16-byte cp.async in the other of two B stages, laid
+//    out in tile order on the host (fft_kernels._leaf_tiles_on, cached),
+//    8 KB a piece a chunk, shared by the four streams; and each thread
+//    loads the four input quarters of its data item at 8 consecutive j
+//    of chunk c + 1 into registers.  When the products have read the A
+//    tiles, each thread forms butterfly and twiddle in exact float32 (no
+//    contracted FMAs, so P is bit-equal to the plain version's), splits P
 //    into the tier's bf16 pieces and writes them as 16-byte rows of the
 //    K-major A tiles (no swizzle: wgmma.cuh);
 //  - above "default" each chunk's products start afresh and are added into
@@ -94,49 +92,28 @@ struct Leaf {
   long long out_plane, out_k2, out_d, out_k;
 };
 
-// Half of the radix-4 butterfly of four complex quarters, then the
-// twiddle: streams k2 = H and H + 2 (they share the half-sums: e, o for
-// H = 0, d, f for H = 1), each stream twiddled by (c[u] - i s[u]); real
-// input has zero imaginary parts.  Rounded operations only (never a
-// contracted FMA): the result is the plain version's to the bit.
-template <int H>
-__device__ __forceinline__ void stream_pair(const float r[4],
-                                            const float i[4],
-                                            const float c[2],
-                                            const float s[2], float pr[2],
-                                            float pi[2]) {
-  float sr[2], si[2];
-  if (H == 0) {
-    const float e_r = __fadd_rn(r[0], r[2]), e_i = __fadd_rn(i[0], i[2]);
-    const float o_r = __fadd_rn(r[1], r[3]), o_i = __fadd_rn(i[1], i[3]);
-    sr[0] = __fadd_rn(e_r, o_r), si[0] = __fadd_rn(e_i, o_i);
-    sr[1] = __fsub_rn(e_r, o_r), si[1] = __fsub_rn(e_i, o_i);
-  } else {
-    const float d_r = __fsub_rn(r[0], r[2]), d_i = __fsub_rn(i[0], i[2]);
-    const float f_r = __fsub_rn(r[1], r[3]), f_i = __fsub_rn(i[1], i[3]);
-    sr[0] = __fadd_rn(d_r, f_i), si[0] = __fsub_rn(d_i, f_r);
-    sr[1] = __fsub_rn(d_r, f_i), si[1] = __fadd_rn(d_i, f_r);
-  }
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    pr[u] = __fadd_rn(__fmul_rn(sr[u], c[u]), __fmul_rn(si[u], s[u]));
-    pi[u] = __fsub_rn(__fmul_rn(si[u], c[u]), __fmul_rn(sr[u], s[u]));
-  }
-}
-
-// the whole butterfly and twiddle: stream k2 into pr[k2], pi[k2]
+// the radix-4 butterfly of four complex quarters, then the twiddle of each
+// stream k2 by (c[k2] - i s[k2]); real input has zero imaginary parts.
+// Rounded operations only (never a contracted FMA): the result is the
+// plain version's to the bit.
 __device__ __forceinline__ void butterfly_twiddle(const float r[4],
                                                   const float i[4],
                                                   const float c[4],
                                                   const float s[4],
                                                   float pr[4], float pi[4]) {
-  float qr[2], qi[2];
-  const float c0[2] = {c[0], c[2]}, s0[2] = {s[0], s[2]};
-  stream_pair<0>(r, i, c0, s0, qr, qi);
-  pr[0] = qr[0], pi[0] = qi[0], pr[2] = qr[1], pi[2] = qi[1];
-  const float c1[2] = {c[1], c[3]}, s1[2] = {s[1], s[3]};
-  stream_pair<1>(r, i, c1, s1, qr, qi);
-  pr[1] = qr[0], pi[1] = qi[0], pr[3] = qr[1], pi[3] = qi[1];
+  const float e_r = __fadd_rn(r[0], r[2]), e_i = __fadd_rn(i[0], i[2]);
+  const float o_r = __fadd_rn(r[1], r[3]), o_i = __fadd_rn(i[1], i[3]);
+  const float d_r = __fsub_rn(r[0], r[2]), d_i = __fsub_rn(i[0], i[2]);
+  const float f_r = __fsub_rn(r[1], r[3]), f_i = __fsub_rn(i[1], i[3]);
+  const float sr[4] = {__fadd_rn(e_r, o_r), __fadd_rn(d_r, f_i),
+                       __fsub_rn(e_r, o_r), __fsub_rn(d_r, f_i)};
+  const float si[4] = {__fadd_rn(e_i, o_i), __fsub_rn(d_i, f_r),
+                       __fsub_rn(e_i, o_i), __fadd_rn(d_i, f_r)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    pr[k] = __fadd_rn(__fmul_rn(sr[k], c[k]), __fmul_rn(si[k], s[k]));
+    pi[k] = __fsub_rn(__fmul_rn(si[k], c[k]), __fmul_rn(sr[k], s[k]));
+  }
 }
 
 template <bool BF16>
@@ -196,79 +173,63 @@ __device__ __forceinline__ void load_stage(const Leaf& a, const float* xr,
 // P of one chunk from the staged inputs: the twiddled butterfly of the
 // thread's data item dl at its 8 j (from j0), split into the tier's bf16
 // pieces and written as 16-byte rows of the four streams' K-major A tiles
-// (Pr in contraction 0..31, Pi in 32..63), a stream pair at a time
+// (Pr in contraction 0..31, Pi in 32..63)
 template <int NP>
 __device__ __forceinline__ void form_p(const Leaf& a, const Stage& st, int j0,
                                       int dl, int jl, __nv_bfloat16* As) {
+  float pr[4][8], pi[4][8];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float pr[2][8], pi[2][8];
+  for (int e = 0; e < 8; ++e) {
+    const int j = min(j0 + e, a.m1 - 1);       // past m1 the inputs are 0
+    float r[4], im[4], cc[4], ss[4], qr[4], qi[4];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int j = min(j0 + e, a.m1 - 1);     // past m1 the inputs are 0
-      float r[4], im[4], cc[2], ss[2], qr[2], qi[2];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) r[q] = st.r[q][e], im[q] = st.i[q][e];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        cc[u] = a.twc[(size_t)(h + 2 * u) * a.m1 + j];
-        ss[u] = a.tws[(size_t)(h + 2 * u) * a.m1 + j];
-      }
-      if (h == 0)
-        stream_pair<0>(r, im, cc, ss, qr, qi);
-      else
-        stream_pair<1>(r, im, cc, ss, qr, qi);
-#pragma unroll
-      for (int u = 0; u < 2; ++u) pr[u][e] = qr[u], pi[u][e] = qi[u];
+    for (int q = 0; q < 4; ++q) {
+      r[q] = st.r[q][e], im[q] = st.i[q][e];
+      cc[q] = a.twc[(size_t)q * a.m1 + j];
+      ss[q] = a.tws[(size_t)q * a.m1 + j];
     }
+    butterfly_twiddle(r, im, cc, ss, qr, qi);
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      __nv_bfloat16* const t = As + (h + 2 * u) * NP * wg::kTileElems;
-      __nv_bfloat16* re[NP];
-      __nv_bfloat16* im[NP];
+    for (int k = 0; k < 4; ++k) pr[k][e] = qr[k], pi[k][e] = qi[k];
+  }
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        re[p] = t + p * wg::kTileElems + wg::tile_off(dl, jl);
-        im[p] = t + p * wg::kTileElems + wg::tile_off(dl, kJC + jl);
-      }
-      wg::store_row8<NP>(pr[u], re);
-      wg::store_row8<NP>(pi[u], im);
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat16* const t = As + k * NP * wg::kTileElems;
+    __nv_bfloat16* re[NP];
+    __nv_bfloat16* im[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      re[p] = t + p * wg::kTileElems + wg::tile_off(dl, jl);
+      im[p] = t + p * wg::kTileElems + wg::tile_off(dl, kJC + jl);
     }
+    wg::store_row8<NP>(pr[k], re);
+    wg::store_row8<NP>(pi[k], im);
   }
 }
 
-// A stage of the ring: the A tiles [4 streams][NP pieces], then the B
-// tile's NP pieces, 8 KB each; two stages where they fit beside the
-// float32 totals ("default", "high"), one at "highest"
-template <int TIER>
-__host__ __device__ constexpr int leaf_stage_bytes() {
-  return 5 * wg::pieces(TIER) * wg::kTileElems * 2;
-}
-template <int TIER>
-__host__ __device__ constexpr int leaf_stages() {
-  return wg::ring_stages(leaf_stage_bytes<TIER>(),
-                         wg::total_bytes(TIER, 2, kThreads));
-}
+// Dynamic shared memory: the A tiles [4 streams][NP pieces], then two
+// stages of the B tile's NP pieces, 8 KB each; above "default" the
+// float32 totals (wg::promote), 64 KB
 template <int TIER>
 __host__ __device__ constexpr int leaf_smem() {
-  return leaf_stages<TIER>() * leaf_stage_bytes<TIER>() +
+  return 6 * wg::pieces(TIER) * wg::kTileElems * 2 +
          wg::total_bytes(TIER, 2, kThreads);
 }
 
-// Grid: (data tiles, frequency tiles, planes).  Dynamic shared memory
-// (leaf_smem): the ring's stages, then above "default" the float32 totals
-// (wg::promote), 64 KB.  While the products of chunk c read stage c % S,
-// the block loads chunk c + 1's inputs into registers and stages the
-// chunk into the other stage: its bases by cp.async, its P from those
-// inputs.  With one stage the staging waits for the products.
+// Grid: (data tiles, frequency tiles, planes); shared memory: leaf_smem.
+// While the products of chunk c run, chunk c + 1's bases arrive by
+// cp.async in the other B stage and its inputs load into registers; once
+// the products have read the A tiles, the block forms P from those
+// inputs into them.
 template <bool CPLX, bool BF16, int TIER>
 __global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
-  constexpr int NP = wg::pieces(TIER), S = leaf_stages<TIER>();
-  constexpr int kStage = leaf_stage_bytes<TIER>() / 2;   // bf16 elements
+  constexpr int NP = wg::pieces(TIER);
   constexpr int kChunk = NP * wg::kTileElems / 8;        // uint4 of bases
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  float4* const tot = reinterpret_cast<float4*>(ring + S * kStage);
+  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const Bs = As + 4 * NP * wg::kTileElems;
+  float4* const tot = reinterpret_cast<float4*>(Bs + 2 * NP *
+                                                 wg::kTileElems);
   const int tid = threadIdx.x, g = tid >> 7;
   const int d0 = blockIdx.x * kTD, f = blockIdx.y;
   const size_t plane = blockIdx.z;
@@ -290,46 +251,48 @@ __global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
     for (int v = 0; v < 32; ++v) acc[s][0][v] = 0.f;
 
   Stage st;
-  // chunk c's bases and P (from the inputs in st) into stage s
-  const auto stage = [&](int c, int s) {
-    __nv_bfloat16* const A = ring + s * kStage;
-    uint4* const B = reinterpret_cast<uint4*>(A + 4 * NP * wg::kTileElems);
+  // chunk c's bases into B stage c % 2
+  const auto bases = [&](int c) {
+    uint4* const B = reinterpret_cast<uint4*>(Bs + (c & 1) * NP *
+                                              wg::kTileElems);
 #pragma unroll
     for (int u = 0; u < 2 * NP; ++u)
       wg::cp_async16(B + tid + u * kThreads,
                      tiles + (size_t)c * kChunk + tid + u * kThreads);
-    form_p<NP>(a, st, c * kJC + jl, dl, jl, A);
+  };
+  // chunk c's P (from the inputs in st) into the A tiles; the tiles and
+  // the chunk's bases are the products' after the barrier
+  const auto stage = [&](int c) {
+    form_p<NP>(a, st, c * kJC + jl, dl, jl, As);
+    wg::cp_async_wait_all();
+    wg::fence_stores();
+    __syncthreads();
   };
   load_stage<CPLX>(a, xr, xi, d, jl, st);
-  stage(0, 0);
-  wg::cp_async_wait_all();
-  wg::fence_stores();
-  __syncthreads();
+  bases(0);
+  stage(0);
   for (int c = 0; c < nc; ++c) {
     // warpgroup g: streams 2g and 2g + 1 against the shared bases tile
-    const __nv_bfloat16* const A = ring + (c % S) * kStage;
 #pragma unroll
     for (int s = 0; s < 2; ++s)
-      wg::mma_chunk<TIER, 1>(acc[s], A + (2 * g + s) * NP * wg::kTileElems,
-                             wg::kTileElems, A + 4 * NP * wg::kTileElems,
+      wg::mma_chunk<TIER, 1>(acc[s], As + (2 * g + s) * NP * wg::kTileElems,
+                             wg::kTileElems,
+                             Bs + (c & 1) * NP * wg::kTileElems,
                              wg::kTileElems, TIER > 0 || c == 0);
-    // the next chunk's inputs load while the products run
-    if (c + 1 < nc)
+    if (c + 1 < nc) {
+      bases(c + 1);
       load_stage<CPLX>(a, xr, xi, d, (c + 1) * kJC + jl, st);
-    if (S == 2 && c + 1 < nc) stage(c + 1, (c + 1) % 2);
+    }
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       wg::finish<1>(acc[s]);
       if constexpr (TIER > 0)
         wg::promote<1>(acc[s], tot + s * 8 * kThreads, kThreads, c == 0);
     }
-    if (S == 1 && c + 1 < nc) {
-      __syncthreads();              // every product has read the stage
-      stage(c + 1, 0);
+    if (c + 1 < nc) {
+      __syncthreads();              // every product has read the A tiles
+      stage(c + 1);
     }
-    wg::cp_async_wait_all();
-    wg::fence_stores();
-    __syncthreads();
   }
   if constexpr (TIER > 0) {
 #pragma unroll

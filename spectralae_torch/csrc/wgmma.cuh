@@ -235,15 +235,6 @@ __host__ __device__ constexpr int total_bytes(int tier, int ns, int threads) {
   return tier == 0 ? 0 : ns * 32 * 4 * threads;
 }
 
-// the dynamic shared memory a block may have on Hopper (227 KB)
-constexpr int kMaxSmem = 232448;
-
-// stages of a ring of operand tiles, `stage` bytes each, beside `other`
-// bytes: two (one staged while the products read the other) where they
-// fit, else one
-__host__ __device__ constexpr int ring_stages(int stage, int other) {
-  return 2 * stage + other <= kMaxSmem ? 2 : 1;
-}
 
 // The accumulator layout of m64nNk16: register i of thread t holds row
 // 16*(t/32 % 4) + (t%32)/4 + 8*(i/2 % 2), column 8*(i/4) + 2*(t%4) + i%2.
