@@ -2448,6 +2448,7 @@ def main() -> int:
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from spectralae_torch import _kernels
+    from spectralae_torch.ops import fft_kernels as fk
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

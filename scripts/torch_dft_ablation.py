@@ -33,11 +33,20 @@ OUT = ROOT / "build" / "ablation"
 PATCHES = {
     "as-is": [],
     "products-only": [
-        (f, "    if (c + 1 < nc) {\n      __syncthreads();",
-         "    if (false) {\n      __syncthreads();")
-        for f in ("rfft2_mixed.cu", "probes.cu")] + [
-        (f, "      bases(c + 1);\n", "")
-        for f in ("rfft2_mixed.cu", "probes.cu")],
+        # the leaf: stage the first chunk only, load nothing after it
+        ("rfft2_mixed.cu",
+         "    // P = twiddled butterfly of this chunk, its pieces into the A "
+         "tiles\n", "    if (c == 0) {\n"),
+        ("rfft2_mixed.cu",
+         "    wg::fence_stores();\n    __syncthreads();\n    // warpgroup g",
+         "    }\n    wg::fence_stores();\n    __syncthreads();\n"
+         "    // warpgroup g"),
+        ("rfft2_mixed.cu", "    if (c + 1 < nc)\n      load_stage<CPLX, NP>(",
+         "    if (false)\n      load_stage<CPLX, NP>("),
+        # the sweep: the same
+        ("probes.cu", "    if (c + 1 < nc) {\n      __syncthreads();",
+         "    if (false) {\n      __syncthreads();"),
+        ("probes.cu", "      bases(c + 1);\n", "")],
     "staging-only": [
         ("wgmma.cuh", "  for (int ks = 0; ks < kK / 16; ++ks)\n",
          "  for (int ks = 0; ks < 0; ++ks)\n")],

@@ -164,9 +164,9 @@ ydft_sweep_kernel(const float* __restrict__ x,
       wg::cp_async16(B + t + u * kThreads,
                      bt + (size_t)c * kChunk + t + u * kThreads);
   };
-  // chunk c's x pieces (from st) into the A tile; the tile and the
-  // chunk's bases are the products' after the barrier
-  const auto stage = [&](int c) {
+  // the x pieces in st into the A tile; the tile and the chunk's bases
+  // are the products' after the barrier
+  const auto stage = [&]() {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int unit = t + u * kThreads;
@@ -184,7 +184,7 @@ ydft_sweep_kernel(const float* __restrict__ x,
   };
   load_xstage(x, row0, 0, R, ny, vec, st);
   bases(0);
-  stage(0);
+  stage();
   for (int c = 0; c < nc; ++c) {
     wg::mma_chunk<TIER, 2>(acc, As + g * wg::kTileElems, kA,
                            Bs + (c & 1) * NP * kB, kB, TIER > 0 || c == 0);
@@ -196,7 +196,7 @@ ydft_sweep_kernel(const float* __restrict__ x,
     if constexpr (TIER > 0) wg::promote<2>(acc, tot, kThreads, c == 0);
     if (c + 1 < nc) {
       __syncthreads();              // every product has read the A tile
-      stage(c + 1);
+      stage();
     }
   }
   if constexpr (TIER > 0) wg::totals<2>(acc, tot, kThreads);

@@ -39,23 +39,24 @@
 // 6).  The products are not what bounds it: timed apart
 // (scripts/torch_dft_ablation.py, PERF.md), staging the operands (the
 // loads, butterfly, split and stores) takes longer than the products at
-// every tier, and a second stage of the A tiles that let the two overlap
-// made the leaf slower, so the A tiles have one and the bases two:
+// every tier, and neither a second stage of the tiles that let the two
+// overlap nor a cp.async ring of the bases made the leaf faster, so it
+// stages once a chunk, through registers:
 //  - a block of two warpgroups owns 64 data items x 32 frequencies for all
 //    four k2 streams; the complex product is one real product
 //    [Pr | Pi] . [[bc, -bs], [bs, bc]] of N = 64 columns (re | im),
 //    contracted over 2*m1 in chunks of 32 j (64 wide); warpgroup g
 //    accumulates streams 2g and 2g+1 in registers (64 floats a thread);
-//  - while the tensor cores work on chunk c, the bases' pieces of chunk
-//    c + 1 arrive by 16-byte cp.async in the other of two B stages, laid
-//    out in tile order on the host (fft_kernels._leaf_tiles_on, cached),
-//    8 KB a piece a chunk, shared by the four streams; and each thread
-//    loads the four input quarters of its data item at 8 consecutive j
-//    of chunk c + 1 into registers.  When the products have read the A
-//    tiles, each thread forms butterfly and twiddle in exact float32 (no
-//    contracted FMAs, so P is bit-equal to the plain version's), splits P
-//    into the tier's bf16 pieces and writes them as 16-byte rows of the
-//    K-major A tiles (no swizzle: wgmma.cuh);
+//  - while the tensor cores work on chunk c, each thread loads the four
+//    input quarters of its data item at 8 consecutive j of chunk c + 1,
+//    and its share of the chunk's bases, into registers.  The bases'
+//    pieces come laid out in tile order from the host
+//    (fft_kernels._leaf_tiles_on, cached), 8 KB a piece a chunk, shared
+//    by the four streams.  When the products have read the tiles, each
+//    thread forms butterfly and twiddle in exact float32 (no contracted
+//    FMAs, so P is bit-equal to the plain version's), splits P into the
+//    tier's bf16 pieces and writes them as 16-byte rows of the K-major A
+//    tiles (no swizzle: wgmma.cuh), and stores the bases;
 //  - above "default" each chunk's products start afresh and are added into
 //    float32 totals in shared memory (wg::promote: the tensor cores
 //    truncate as they accumulate);
@@ -124,16 +125,19 @@ __device__ __forceinline__ void store(void* out, size_t i, float v) {
     static_cast<float*>(out)[i] = v;
 }
 
-// One chunk's inputs in one thread's registers: the four quarters (re,
-// im) of its data item at its 8 j.
+// One chunk's registers of one thread: the four quarters (re, im) of its
+// data item at its 8 j, and its share of the chunk's bases tile.
+template <int NP>
 struct Stage {
   float r[4][8], i[4][8];
+  uint4 b[NP * 2];
 };
 
-template <bool CPLX>
+template <bool CPLX, int NP>
 __device__ __forceinline__ void load_stage(const Leaf& a, const float* xr,
                                            const float* xi, int d, int j0,
-                                           Stage& st) {
+                                           const uint4* tiles,
+                                           Stage<NP>& st) {
   const size_t qoff = (size_t)a.m1 * a.in_j;
   if (a.vec && d < a.Dn && j0 < a.m1) {       // m1 % 8 == 0: whole group
     const size_t o = (size_t)d * a.in_d + j0;
@@ -168,68 +172,31 @@ __device__ __forceinline__ void load_stage(const Leaf& a, const float* xr,
       }
     }
   }
+#pragma unroll
+  for (int u = 0; u < NP * 2; ++u)
+    st.b[u] = tiles[threadIdx.x + u * kThreads];
 }
 
-// P of one chunk from the staged inputs: the twiddled butterfly of the
-// thread's data item dl at its 8 j (from j0), split into the tier's bf16
-// pieces and written as 16-byte rows of the four streams' K-major A tiles
-// (Pr in contraction 0..31, Pi in 32..63)
-template <int NP>
-__device__ __forceinline__ void form_p(const Leaf& a, const Stage& st, int j0,
-                                      int dl, int jl, __nv_bfloat16* As) {
-  float pr[4][8], pi[4][8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int j = min(j0 + e, a.m1 - 1);       // past m1 the inputs are 0
-    float r[4], im[4], cc[4], ss[4], qr[4], qi[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      r[q] = st.r[q][e], im[q] = st.i[q][e];
-      cc[q] = a.twc[(size_t)q * a.m1 + j];
-      ss[q] = a.tws[(size_t)q * a.m1 + j];
-    }
-    butterfly_twiddle(r, im, cc, ss, qr, qi);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) pr[k][e] = qr[k], pi[k][e] = qi[k];
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    __nv_bfloat16* const t = As + k * NP * wg::kTileElems;
-    __nv_bfloat16* re[NP];
-    __nv_bfloat16* im[NP];
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      re[p] = t + p * wg::kTileElems + wg::tile_off(dl, jl);
-      im[p] = t + p * wg::kTileElems + wg::tile_off(dl, kJC + jl);
-    }
-    wg::store_row8<NP>(pr[k], re);
-    wg::store_row8<NP>(pi[k], im);
-  }
-}
-
-// Dynamic shared memory: the A tiles [4 streams][NP pieces], then two
-// stages of the B tile's NP pieces, 8 KB each; above "default" the
-// float32 totals (wg::promote), 64 KB
+// Dynamic shared memory: the A tiles [4 streams][NP pieces], then the B
+// tile's NP pieces, 8 KB each; above "default" the float32 totals
+// (wg::promote), 64 KB
 template <int TIER>
 __host__ __device__ constexpr int leaf_smem() {
-  return 6 * wg::pieces(TIER) * wg::kTileElems * 2 +
+  return 5 * wg::pieces(TIER) * wg::kTileElems * 2 +
          wg::total_bytes(TIER, 2, kThreads);
 }
 
 // Grid: (data tiles, frequency tiles, planes); shared memory: leaf_smem.
-// While the products of chunk c run, chunk c + 1's bases arrive by
-// cp.async in the other B stage and its inputs load into registers; once
-// the products have read the A tiles, the block forms P from those
-// inputs into them.
+// While the products of chunk c run, chunk c + 1's inputs and bases load
+// into registers; once the products have read the tiles, the block forms
+// P from those inputs into the A tiles and stores the bases.
 template <bool CPLX, bool BF16, int TIER>
 __global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
   constexpr int NP = wg::pieces(TIER);
-  constexpr int kChunk = NP * wg::kTileElems / 8;        // uint4 of bases
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* const Bs = As + 4 * NP * wg::kTileElems;
-  float4* const tot = reinterpret_cast<float4*>(Bs + 2 * NP *
-                                                 wg::kTileElems);
+  float4* const tot = reinterpret_cast<float4*>(Bs + NP * wg::kTileElems);
   const int tid = threadIdx.x, g = tid >> 7;
   const int d0 = blockIdx.x * kTD, f = blockIdx.y;
   const size_t plane = blockIdx.z;
@@ -239,10 +206,10 @@ __global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
   // contiguous axis runs across neighbouring threads
   const bool dfast = a.in_d == 1;
   const int dl = dfast ? (tid & 63) : (tid >> 2);
-  const int jl = 8 * (dfast ? (tid >> 6) : (tid & 3));
+  const int jg = dfast ? (tid >> 6) : (tid & 3);
   const int d = d0 + dl;
   const int nc = (a.m1 + kJC - 1) / kJC;
-  const uint4* tiles = a.tiles + (size_t)f * nc * kChunk;
+  const uint4* tiles = a.tiles + (size_t)f * nc * NP * (wg::kTileElems / 8);
 
   float acc[2][1][32];
 #pragma unroll
@@ -250,49 +217,61 @@ __global__ void __launch_bounds__(kThreads, 1) dft_leaf_kernel(Leaf a) {
 #pragma unroll
     for (int v = 0; v < 32; ++v) acc[s][0][v] = 0.f;
 
-  Stage st;
-  // chunk c's bases into B stage c % 2
-  const auto bases = [&](int c) {
-    uint4* const B = reinterpret_cast<uint4*>(Bs + (c & 1) * NP *
-                                              wg::kTileElems);
+  Stage<NP> st;
+  load_stage<CPLX, NP>(a, xr, xi, d, jg * 8, tiles, st);
+  for (int c = 0; c < nc; ++c) {
+    // P = twiddled butterfly of this chunk, its pieces into the A tiles
+    float pr[4][8], pi[4][8];
 #pragma unroll
-    for (int u = 0; u < 2 * NP; ++u)
-      wg::cp_async16(B + tid + u * kThreads,
-                     tiles + (size_t)c * kChunk + tid + u * kThreads);
-  };
-  // chunk c's P (from the inputs in st) into the A tiles; the tiles and
-  // the chunk's bases are the products' after the barrier
-  const auto stage = [&](int c) {
-    form_p<NP>(a, st, c * kJC + jl, dl, jl, As);
-    wg::cp_async_wait_all();
+    for (int e = 0; e < 8; ++e) {
+      const int j = min(c * kJC + jg * 8 + e, a.m1 - 1);   // past m1: P = 0
+      float r[4], im[4], cc[4], ss[4], qr[4], qi[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        r[q] = st.r[q][e], im[q] = st.i[q][e];
+        cc[q] = a.twc[(size_t)q * a.m1 + j];
+        ss[q] = a.tws[(size_t)q * a.m1 + j];
+      }
+      butterfly_twiddle(r, im, cc, ss, qr, qi);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pr[k][e] = qr[k], pi[k][e] = qi[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      __nv_bfloat16* const t = As + k * NP * wg::kTileElems;
+      __nv_bfloat16* re[NP];
+      __nv_bfloat16* im[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        re[p] = t + p * wg::kTileElems + wg::tile_off(dl, jg * 8);
+        im[p] = t + p * wg::kTileElems + wg::tile_off(dl, kJC + jg * 8);
+      }
+      wg::store_row8<NP>(pr[k], re);
+      wg::store_row8<NP>(pi[k], im);
+    }
+#pragma unroll
+    for (int u = 0; u < NP * 2; ++u)
+      reinterpret_cast<uint4*>(Bs)[tid + u * kThreads] = st.b[u];
     wg::fence_stores();
     __syncthreads();
-  };
-  load_stage<CPLX>(a, xr, xi, d, jl, st);
-  bases(0);
-  stage(0);
-  for (int c = 0; c < nc; ++c) {
     // warpgroup g: streams 2g and 2g + 1 against the shared bases tile
 #pragma unroll
     for (int s = 0; s < 2; ++s)
-      wg::mma_chunk<TIER, 1>(acc[s], As + (2 * g + s) * NP * wg::kTileElems,
-                             wg::kTileElems,
-                             Bs + (c & 1) * NP * wg::kTileElems,
-                             wg::kTileElems, TIER > 0 || c == 0);
-    if (c + 1 < nc) {
-      bases(c + 1);
-      load_stage<CPLX>(a, xr, xi, d, (c + 1) * kJC + jl, st);
-    }
+      wg::mma_chunk<TIER, 1>(acc[s],
+                             As + (2 * g + s) * NP * wg::kTileElems,
+                             wg::kTileElems, Bs, wg::kTileElems,
+                             TIER > 0 || c == 0);
+    if (c + 1 < nc)
+      load_stage<CPLX, NP>(a, xr, xi, d, (c + 1) * kJC + jg * 8,
+                           tiles + (size_t)(c + 1) * NP * (wg::kTileElems / 8),
+                           st);
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       wg::finish<1>(acc[s]);
       if constexpr (TIER > 0)
         wg::promote<1>(acc[s], tot + s * 8 * kThreads, kThreads, c == 0);
     }
-    if (c + 1 < nc) {
-      __syncthreads();              // every product has read the A tiles
-      stage(c + 1);
-    }
+    __syncthreads();
   }
   if constexpr (TIER > 0) {
 #pragma unroll
