@@ -1630,9 +1630,13 @@ OMEGA_ROWS = (  # counter key, kernel, the Pallas body it replaces
     ("k6", "respectra_conv", "spectralae/train/fft_pallas.py:170"),
     ("k7", "fused_step", "spectralae/train/fft_pallas.py:413"),
     ("k8", "itergrid", "spectralae/train/fft_iter.py:59"))
-OMEGA_GRIDS = ("::sweep_kernel", "::reduce_kernel", "::itergrid_kernel")
-# grids in one launch: K5-K7 sweep, then sum the tiles' partials in order
-OMEGA_GRIDS_PER_LAUNCH = {"k5": 2, "k6": 2, "k7": 2, "k8": 1}
+OMEGA_GRIDS = ("::sweep_kernel", "::reduce_kernel", "::itergrid_kernel",
+               "::tc_sweep_kernel")
+# grids in one launch: K6 sweeps, then sums the tiles' partials in order;
+# K5 and K7 (the tensor-core sweep) sum them inside their one grid
+OMEGA_GRIDS_PER_LAUNCH = {"k5": 1, "k6": 2, "k7": 1, "k8": 1}
+# the kernels on the tensor cores, timed with both operand types
+OMEGA_TC = ("k5", "k7")
 # each kernel's outputs, held one by one against the plain version's (their
 # scales differ by up to 1e17: the MSE sums beside O, g and the biases')
 OMEGA_OUTPUTS = {"k5": ("g", "db", "dp"), "k6": ("O", "mse"),
@@ -1684,6 +1688,25 @@ def omega_cost(key: str, nb: int, m: int, d: int, p: int, w: int,
             4.0 * (6 * bd * w + inputs + 3 * small + iters + 1))
 
 
+def omega_tc_bound(key: str, nb: int, m: int, d: int, p: int, w: int,
+                   bf16: bool) -> tuple[float, str]:
+    """The bound of K5 or K7 as they now run: the larger of the bytes
+    (omega_cost's) over the memory rate and the operations over their
+    rates, the per-bin float32 work at the float32 peak plus the basis
+    products at the bf16 tensor-core peak, each pass of a tier's products
+    counted (burst_kernels.TC_TIERS: the rebuild's and the projection's
+    products of bf16 pieces)."""
+    from spectralae_torch.ops import burst_kernels as bk
+    from spectralae_torch.ops import fft_kernels as fk
+    flops, nbytes = omega_cost(key, nb, m, d, p, w)
+    basis = 4.0 * (2 * m * d) * p * w        # one pass of one product
+    rebuild, project = (len(fk._PRODUCTS[t]) for t in bk.TC_TIERS[bf16])
+    t_tc = (rebuild + project) * basis / fk.BF16_TC_FLOP_PER_S * 1e3
+    t_ops = (flops - 2 * basis) / FP32_FLOP_PER_S * 1e3 + t_tc
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _omega_inputs(gen: torch.Generator) -> list:
     """The two burst inputs: the JAX benchmark's headline (one [3, 256,
     256] frame x 50, O0 from the forward of a one-pair default net,
@@ -1720,10 +1743,11 @@ def _omega_inputs(gen: torch.Generator) -> list:
 
 def _omega_kernel_rows(label, x, out0, w) -> dict:
     """K5-K8 at one input against their plain versions, float32 and bf16
-    operands, timed with float32 operands; K8 at STREAM_CMP_ITERS
-    iterations.  Returns the timed rows by (kernel, variant), and each
-    kernel's largest absolute error and largest norm-relative error of one
-    output over both variants."""
+    operands, timed with float32 operands (K5 and K7, on the tensor cores,
+    with both, each also run twice more and held bit for bit); K8 at
+    STREAM_CMP_ITERS iterations.  Returns the timed rows by (kernel,
+    variant), and each kernel's largest absolute error and largest
+    norm-relative error of one output over both variants."""
     from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.train import fft_pallas as fp
     s = fp._prepare(x, x, out0, w[0], True, torch.float32)
@@ -1743,12 +1767,13 @@ def _omega_kernel_rows(label, x, out0, w) -> dict:
         k8 = dict(k, iters=it, lr_eff=0.02, alpha=0.9)
         tol = TOL_OMEGA_BF16 if bf16 else TOL_OMEGA
         tag = f"{label} {variant} operands, W={W}"
+        tiles = bk.basis_tiles(s.basis, bf16)
         calls = {
-            "k5": (lambda: bk.grad_project(*ops, **k5),
+            "k5": (lambda: bk.grad_project(*ops, **k5, tiles=tiles),
                    lambda: bk.grad_project_plain(*ops, **k5), tol),
             "k6": (lambda: bk.respectra_conv(*ops, p, **k6),
                    lambda: bk.respectra_conv_plain(*ops, p, **k6), tol),
-            "k7": (lambda: bk.fused_step(*ops, p, **k),
+            "k7": (lambda: bk.fused_step(*ops, p, **k, tiles=tiles),
                    lambda: bk.fused_step_plain(*ops, p, **k), tol),
             "k8": (lambda: bk.itergrid(*ops, p, *zeros, **k8),
                    lambda: bk.itergrid_plain(*ops, p, *zeros, **k8),
@@ -1775,13 +1800,21 @@ def _omega_kernel_rows(label, x, out0, w) -> dict:
             got, want = _flat(got), _flat(want)
             errs[key] = max(errs.get(key, 0.0),
                             float((got - want).abs().max()))
-            if bf16:   # held, not timed
+            old = bound_ms(*omega_cost(key, nb, M, D, P, W, it))
+            bound, extra = old, ""
+            if key in OMEGA_TC:
+                same = all(torch.equal(got, _flat(kern())) for _ in range(2))
+                check(same, f"{what}: three runs differ")
+                bound = omega_tc_bound(key, nb, M, D, P, W, bf16)
+                extra = (f"; three runs bit-identical; bound with float32 "
+                         f"basis products {old[0]:.4f} ms ({old[1]})")
+            elif bf16:   # held, not timed
                 continue
             rows[(key, variant)] = measure(
-                what, got, want, kern, plain,
-                bound_ms(*omega_cost(key, nb, M, D, P, W, it)),
+                what, got, want, kern, plain, bound,
                 max(tt for _, tt in held.values()), library=None,
-                names=OMEGA_GRIDS, rel=rel)
+                names=OMEGA_GRIDS, rel=rel, extra=extra)
+            rows[(key, variant)]["bound_f32_products_ms"] = old[0]
     return rows, errs, rels
 
 
@@ -2401,18 +2434,22 @@ def phase_train_vs_cpu(tmp: Path) -> None:
              three_steps(domain, "cpu", True, card_routes), TOL_BF16[domain])
 
 
-# the matmul-DFT kernels that must run on the tensor cores: the library's
-# query of their attributes and its arguments for each instantiation (the
-# leaf: real, complex, complex with bf16 out, each at three tiers)
+# the kernels that must run on the tensor cores: the library's query of
+# their attributes and its arguments for each instantiation (the leaf:
+# real, complex, complex with bf16 out, each at three tiers)
 TC_KERNELS = {"dft_leaf_kernel": ("dft_leaf_attrs", [(v, t) for v in range(3)
                                                      for t in range(3)]),
               "ydft_sweep_kernel": ("ydft_sweep_attrs", [(t,) for t in
-                                                         range(3)])}
+                                                         range(3)]),
+              # K5 (fused 0) and K7 (fused 1), float32 and bf16 operands
+              "tc_sweep_kernel": ("omega_tc_attrs", [(f, b) for f in range(2)
+                                                     for b in range(2)])}
 
 
 def tensor_core_proof(build) -> dict:
-    """The HGMMA (wgmma) instructions in each instantiation of the two
-    matmul-DFT kernels, from ``cuobjdump -sass`` of the built library, and
+    """The HGMMA (wgmma) instructions in each instantiation of the
+    tensor-core kernels (the two matmul DFTs, K5's and K7's sweep), from
+    ``cuobjdump -sass`` of the built library, and
     each instantiation's registers, local (spilled) bytes and shared memory
     as the runtime reports them (``cudaFuncGetAttributes``; the dynamic
     shared memory is what its launch asks for); fails if a kernel has no
@@ -2666,6 +2703,10 @@ def main() -> int:
         if key == "k8":
             row["device_ms_100_iteration_burst"] = omega_timing[
                 (head, "omega_itergrid")]["device_ms"]
+        if key in OMEGA_TC:
+            row["bound_f32_products_ms"] = r["bound_f32_products_ms"]
+            row["hgmma"] = {n: c for n, c in hgmma.items()
+                            if "tc_sweep_kernel" in n}
         kernels.append(row)
     for key, name, replaces in P1_ROWS + (
             ("p2", "ydft_energy", "scripts/probe_fused_dft.py:75"),):

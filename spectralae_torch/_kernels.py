@@ -16,8 +16,8 @@ entry point takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
 exception (``corr_windows_scratch_floats``, ``omega_scratch_floats`` and
 ``ydft_energy_blocks``, host-side size queries, launch nothing;
-``dft_leaf_attrs`` and ``ydft_sweep_attrs`` read the runtime's attributes of
-the two tensor-core kernels).
+``dft_leaf_attrs``, ``ydft_sweep_attrs`` and ``omega_tc_attrs`` read the
+runtime's attributes of the tensor-core kernels).
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
@@ -77,15 +77,17 @@ _SIGNATURES = {
     "bfly_round_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     # kind, nb, M, D, P, W (returns long long)
     "omega_scratch_floats": (_I,) * 6,
-    # planes, basis, wv, cf, b, out, dbdp, scratch, nb, M, D, P, W, norm,
-    # scale, bf16, stream
-    "omega_grad_project_launch": (_P,) * 8 + (_I,) * 5 + (_F, _F, _I, _P),
+    # planes, tiles, wv, cf, b, out, dbdp, scratch, tickets, nb, M, D, P, W,
+    # norm, scale, bf16, stream
+    "omega_grad_project_launch": (_P,) * 9 + (_I,) * 5 + (_F, _F, _I, _P),
+    # fused, bf16, out[4]
+    "omega_tc_attrs": (_I, _I, _P),
     # planes, basis, wv, cf, b, p, o_out, mse_out, scratch, nb, M, D, P, W,
     # norm, inv_m, inv_d, bf16, stream
     "omega_respectra_launch": (_P,) * 9 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
-    # planes, basis, wv, cf, b, p, o_out, out, dbdp, scratch, nb, M, D, P,
-    # W, norm, inv_m, inv_d, scale, bf16, stream
-    "omega_fused_step_launch": (_P,) * 10 + (_I,) * 5 + (_F,) * 4 + (_I, _P),
+    # planes, tiles, wv, cf, b, p, o_out, out, dbdp, scratch, tickets, nb,
+    # M, D, P, W, norm, inv_m, inv_d, scale, bf16, stream
+    "omega_fused_step_launch": (_P,) * 11 + (_I,) * 5 + (_F,) * 4 + (_I, _P),
     # planes, basis, wv, state_in, state_out, mse_out, scratch, nb, M, D, P,
     # W, iters, norm, inv_m, inv_d, scale, lr_eff, alpha, bf16, stream
     "omega_itergrid_launch": (_P,) * 7 + (_I,) * 6 + (_F,) * 6 + (_I, _P),

@@ -65,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -410,6 +412,458 @@ reduce_kernel(const float* __restrict__ part, int ntiles, int n_total,
   out[o] = acc;
 }
 
+bool make_dims(int nb, int M, int D, int P, int W, float norm, float inv_m,
+               float inv_d, float scale, Dims* a) {
+  if (nb < 1 || M < 1 || D < 1 || D > kMaxD || P < 1 || P > kMaxP || W < 1 ||
+      2 * M * D > kMaxRows)
+    return false;
+  a->nb = nb;
+  a->M = M;
+  a->D = D;
+  a->P = P;
+  a->W = W;
+  a->rows = 2 * M * D;
+  a->ntiles = (W + kT - 1) / kT;
+  a->norm = norm;
+  a->inv_m = inv_m;
+  a->inv_d = inv_d;
+  a->scale = scale;
+  return true;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------
+// K5 and K7 on the tensor cores: one warpgroup a tile of kTB bins.
+
+constexpr int kTB = 64;          // bins a tile (block)
+constexpr int kTBS = kTB + 16;   // row stride of the per-bin arrays: the
+                                 // pair of threads of a bin reads rows an
+                                 // odd number apart, 16 banks apart
+constexpr int kTC = 128;         // threads: one warpgroup, two a bin
+constexpr int kTG = 16;          // tiles a group of the fixed-order sum
+constexpr int kCopy = kMaxP * kTB;   // elements of one (piece, cos|sin)
+                                     // basis tile: 32 p x 64 bins
+
+// element offset of (row r, contraction k) in a tile 32 elements wide:
+// 8x8 core matrices, four along K (LBO 128 bytes, SBO 512)
+__host__ __device__ constexpr int off32(int r, int k) {
+  return ((r >> 3) * 4 + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
+}
+
+// the tiers by operand type (wgmma.cuh): bf16 operands "default" for both
+// products; float32 operands "highest" (bf16x6) for the spectra rebuild,
+// whose O error "high" would leave near 1e-5, and "high" (bf16x3) for the
+// projection
+template <bool BF16> struct TcTiers {
+  static constexpr int kRebuild = BF16 ? 0 : 2;
+  static constexpr int kProject = BF16 ? 0 : 1;
+};
+
+// elements of one tile's basis copies in global memory: the rebuild's
+// [piece][cos|sin][off32(bin, p)], then the projection's
+// [piece][cos|sin][tile_off(p, bin)]
+__host__ __device__ constexpr int tc_tile_elems(int rt, int pt) {
+  return (wg::pieces(rt) + wg::pieces(pt)) * 2 * kCopy;
+}
+
+// shared memory (bytes): region X holds the compact kernels' pieces and
+// the rebuild's basis copy, then the gradient products ar/ai; region Y the
+// rebuilt spectra sr/si, then the projection's A pieces; region Z the
+// projection's basis copy; then the MSE terms, the bins' weights, a flag
+constexpr int kRegion = 2 * kMaxRows * kTBS * 4;
+__host__ __device__ constexpr int tc_smem_bytes(int pt) {
+  return 2 * kRegion + wg::pieces(pt) * 2 * kCopy * 2 + (kTC + kTB + 4) * 4;
+}
+static_assert(2 * 3 * (kMaxRows * kMaxP + 2 * kCopy) <= kRegion,
+              "the rebuild's operands fit region X");
+static_assert(2 * 2 * 2 * kMaxRows * kTB <= kRegion,
+              "the projection's A pieces fit region Y");
+
+// One bin, every frame, two threads a bin (each the m of its parity): the
+// forward's O (K7; written to o_out), the MSE term, and the gradient
+// products accumulated over frames into ar/ai at this thread's rows (wv
+// applied later).  The DC bin's threads write db, dp (scaled) to dbdp.
+template <int MODE>
+__device__ float tc_bin_pass(const float* __restrict__ sr,
+                             const float* __restrict__ si,
+                             float* __restrict__ ar, float* __restrict__ ai,
+                             float* __restrict__ swv, const Dims& a,
+                             const float* __restrict__ planes,
+                             const float* __restrict__ wvg,
+                             const float* __restrict__ bias_b,
+                             const float* __restrict__ bias_p,
+                             float* __restrict__ o_out, int tile,
+                             float* __restrict__ dbdp) {
+  constexpr bool FWD = MODE == kFwdGrad;
+  const int u = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int w = tile * kTB + u;
+  const bool valid = w < a.W;
+  const bool dc = w == 0;
+  const int M = a.M, D = a.D, md = M * D;
+  const size_t plane = (size_t)a.nb * D * a.W;
+  const float wv = valid ? wvg[w] : 0.f;
+  if (h == 0) swv[u] = wv;
+  sr += u, si += u, ar += u, ai += u;
+  for (int m = h; m < M; m += 2) {
+    for (int d = 0; d < D; ++d) {
+      ar[(m * D + d) * kTBS] = ai[(m * D + d) * kTBS] = 0.f;
+      ar[(md + d * M + m) * kTBS] = ai[(md + d * M + m) * kTBS] = 0.f;
+    }
+  }
+  float mse = 0.f;
+  for (int b = 0; b < a.nb; ++b) {
+    float xr[kMaxD], xi[kMaxD], er[kMaxD], ei[kMaxD];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      xr[d] = xi[d] = er[d] = ei[d] = 0.f;
+      if (d < D && valid) {
+        const size_t i = (size_t)(b * D + d) * a.W + w;
+        xr[d] = planes[i];
+        xi[d] = planes[plane + i];
+        er[d] = -planes[2 * plane + i];   // -Y, O added below
+        ei[d] = -planes[3 * plane + i];
+        if (!FWD) {
+          er[d] += planes[4 * plane + i];
+          ei[d] += planes[5 * plane + i];
+        }
+      }
+    }
+    if (FWD) {
+      float orr[kMaxD], oii[kMaxD];
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) orr[d] = oii[d] = 0.f;
+      for (int m = h; m < M; m += 2) {
+        float hr = 0.f, hi = 0.f;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+            hr += cr * xr[d] - ci * xi[d];
+            hi += cr * xi[d] + ci * xr[d];
+          }
+        }
+        const float bias = dc ? bias_b[m] * a.norm : 0.f;
+        hr = (hr * a.inv_m + bias) * a.inv_d;
+        hi = hi * a.inv_m * a.inv_d;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const int j = md + d * M + m;
+            const float fr = sr[j * kTBS], fi = si[j * kTBS];
+            orr[d] += fr * hr - fi * hi;
+            oii[d] += fr * hi + fi * hr;
+          }
+        }
+      }
+      // the pair's two halves of the sum over m; a + b in both lanes
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (d < D) {
+          orr[d] += __shfl_xor_sync(0xffffffffu, orr[d], 1);
+          oii[d] += __shfl_xor_sync(0xffffffffu, oii[d], 1);
+          if (dc) orr[d] += bias_p[d] * a.norm;
+          if (valid && o_out && h == 0) {
+            const size_t i = (size_t)(b * D + d) * a.W + w;
+            o_out[i] = orr[d];
+            o_out[plane + i] = oii[d];
+          }
+          er[d] += orr[d];
+          ei[d] += oii[d];
+          if (h == 0) mse += (er[d] * er[d] + ei[d] * ei[d]) * wv;
+        }
+      }
+    }
+    for (int m = h; m < M; m += 2) {
+      float hr = 0.f, hi = 0.f, s_r = 0.f, s_i = 0.f;
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (d < D) {
+          const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+          hr += cr * xr[d] - ci * xi[d];
+          hi += cr * xi[d] + ci * xr[d];
+          const int j = md + d * M + m;
+          const float fr = sr[j * kTBS], fi = si[j * kTBS];
+          s_r += er[d] * fr + ei[d] * fi;
+          s_i += ei[d] * fr - er[d] * fi;
+        }
+      }
+      if (dc) {
+        hr += bias_b[m] * a.norm;
+        dbdp[m] = (b == 0 ? 0.f : dbdp[m]) + s_r;
+      }
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (d < D) {
+          const int jc = (m * D + d) * kTBS, jf = (md + d * M + m) * kTBS;
+          ar[jc] += s_r * xr[d] + s_i * xi[d];
+          ai[jc] += s_i * xr[d] - s_r * xi[d];
+          ar[jf] += er[d] * hr + ei[d] * hi;
+          ai[jf] += ei[d] * hr - er[d] * hi;
+        }
+      }
+    }
+    if (dc && h == 0) {
+      for (int d = 0; d < D; ++d)
+        dbdp[M + d] = (b == 0 ? 0.f : dbdp[M + d]) + er[d];
+    }
+  }
+  if (dc) {
+    for (int m = h; m < M; m += 2) dbdp[m] = dbdp[m] * a.norm * a.scale;
+    if (h == 0)
+      for (int d = 0; d < D; ++d)
+        dbdp[M + d] = dbdp[M + d] * a.norm * a.scale;
+  }
+  return mse;
+}
+
+// The projection's A operand from ar/ai: rows x (64 bins of d_re, then 64
+// of -d_im), each times its bin's weight, as PIECES bf16 pieces in
+// tile_off order ([piece][re|im][4096]); rows past a.rows are zeros.  One
+// 16-byte core-matrix row (8 bins of one row) an item, the 8 rows of a core
+// matrix on 8 neighbouring threads.
+template <int PIECES>
+__device__ void tc_stage_a(const float* __restrict__ ar,
+                           const float* __restrict__ ai,
+                           const float* __restrict__ swv,
+                           __nv_bfloat16* __restrict__ as, int rows) {
+  for (int e = threadIdx.x; e < 2 * kMaxRows * (kTB / 8); e += kTC) {
+    const int im = e >> 9, rem = e & 511;
+    const int bg = (rem >> 3) & 7, j = ((rem >> 6) << 3) | (rem & 7);
+    float v[8];
+    if (j < rows) {
+      const float4* src =
+          reinterpret_cast<const float4*>((im ? ai : ar) + j * kTBS + 8 * bg);
+      const float4 lo = src[0], hi = src[1];
+      const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float t = __fmul_rn(x[k], swv[8 * bg + k]);
+        v[k] = im ? -t : t;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = 0.f;
+    }
+    __nv_bfloat16* dst[PIECES];
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i)
+      dst[i] = as + i * 2 * kMaxRows * kTB + im * kMaxRows * kTB +
+               wg::tile_off(j, 8 * bg);
+    wg::store_row8<PIECES>(v, dst);
+  }
+}
+
+// The fixed-order sum of the tiles' partials (records of n_total floats):
+// the last block of each group of kTG tiles to finish (an atomic ticket
+// after a fence) sums the group's records in tile order into gpart; the
+// last group's block sums the groups in order into out (times scale below
+// n_scaled) and zeroes the tickets for the next launch.  No float atomics:
+// the result repeats bit for bit, whatever order the blocks ran in.
+__device__ void tc_combine(const float* part, float* gpart,
+                           unsigned* tickets, float* __restrict__ out,
+                           int n_total, int n_scaled, float scale, int ntiles,
+                           int* flag) {
+  const int g = blockIdx.x / kTG, ng = (ntiles + kTG - 1) / kTG;
+  const int t0 = g * kTG, t1 = min(ntiles, t0 + kTG);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(tickets + g, 1u) == (unsigned)(t1 - t0 - 1);
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int o = threadIdx.x; o < n_total; o += kTC) {
+    float acc = __ldcg(part + (size_t)t0 * n_total + o);
+    for (int t = t0 + 1; t < t1; ++t)
+      acc += __ldcg(part + (size_t)t * n_total + o);
+    gpart[(size_t)g * n_total + o] = acc;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(tickets + ng, 1u) == (unsigned)(ng - 1);
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int o = threadIdx.x; o < n_total; o += kTC) {
+    float acc = __ldcg(gpart + o);
+    for (int k = 1; k < ng; ++k) acc += __ldcg(gpart + (size_t)k * n_total + o);
+    out[o] = o < n_scaled ? acc * scale : acc;
+  }
+  for (int i = threadIdx.x; i <= ng; i += kTC) tickets[i] = 0u;
+}
+
+// K5 (kGradGivenO) and K7 (kFwdGrad): per tile, the spectra rebuild on the
+// tensor cores, the per-bin pass, the projection on the tensor cores, the
+// tile's partial g and MSE term; then the fixed-order sum into out.
+template <int MODE, bool BF16>
+__global__ void __launch_bounds__(kTC, 2)
+tc_sweep_kernel(const float* __restrict__ planes,
+                const __nv_bfloat16* __restrict__ tiles,
+                const float* __restrict__ wv, const float* __restrict__ cf,
+                const float* __restrict__ bias_b,
+                const float* __restrict__ bias_p, float* __restrict__ o_out,
+                float* part, float* gpart, unsigned* tickets,
+                float* __restrict__ out, float* __restrict__ dbdp, Dims a) {
+  constexpr int RT = TcTiers<BF16>::kRebuild, PT = TcTiers<BF16>::kProject;
+  constexpr int RP = wg::pieces(RT), PP = wg::pieces(PT);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* cfs = reinterpret_cast<__nv_bfloat16*>(smem);  // X
+  __nv_bfloat16* rs = cfs + RP * kMaxRows * kMaxP;
+  float* ar = reinterpret_cast<float*>(smem);                    // X, later
+  float* ai = ar + kMaxRows * kTBS;
+  float* sr = reinterpret_cast<float*>(smem + kRegion);          // Y
+  float* si = sr + kMaxRows * kTBS;
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem + kRegion);
+  __nv_bfloat16* ps =
+      reinterpret_cast<__nv_bfloat16*>(smem + 2 * kRegion);      // Z
+  float* red = reinterpret_cast<float*>(ps + PP * 2 * kCopy);
+  float* swv = red + kTC;
+  int* flag = reinterpret_cast<int*>(swv + kTB);
+  const int t = threadIdx.x, tile = blockIdx.x;
+
+  // the tile's basis copies, by cp.async: the rebuild's, then the
+  // projection's (waited for only before the projection)
+  const __nv_bfloat16* src = tiles + (size_t)tile * tc_tile_elems(RT, PT);
+  for (int c = t; c < RP * 2 * kCopy / 8; c += kTC)
+    wg::cp_async16(rs + 8 * c, src + 8 * c);
+  wg::cp_async_commit();
+  src += RP * 2 * kCopy;
+  for (int c = t; c < PP * 2 * kCopy / 8; c += kTC)
+    wg::cp_async16(ps + 8 * c, src + 8 * c);
+  wg::cp_async_commit();
+  // the compact kernels' pieces: A of the rebuild, rows x P (K = 32)
+  for (int e = t; e < kMaxRows * (kMaxP / 8); e += kTC) {
+    const int j = e >> 2, k0 = 8 * (e & 3);
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = (j < a.rows && k0 + k < a.P) ? cf[j * a.P + k0 + k] : 0.f;
+    __nv_bfloat16* dst[RP];
+#pragma unroll
+    for (int i = 0; i < RP; ++i) dst[i] = cfs + i * kMaxRows * kMaxP + off32(j, k0);
+    wg::store_row8<RP>(v, dst);
+  }
+  wg::cp_async_wait<1>();
+  wg::fence_stores();
+  __syncthreads();
+
+  // the spectra: [rows x 32] . [32 x 64 bins], cos and sin
+  {
+    float acc[2][32];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[s][i] = 0.f;
+    wg::pin(acc[0]);
+    wg::pin(acc[1]);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < kMaxP / 16; ++ks)
+#pragma unroll
+      for (int p = 0; p < wg::products(RT); ++p)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          wg::mma_m64n64k16(
+              acc[s],
+              wg::desc(cfs + wg::prod_a(RT, p) * kMaxRows * kMaxP + ks * 128,
+                       512),
+              wg::desc(rs + wg::prod_b(RT, p) * 2 * kCopy + s * kCopy +
+                           ks * 128,
+                       512),
+              (ks == 0 && p == 0) ? 0 : 1);
+    wg::commit();
+    wg::wait_all();
+    wg::pin(acc[0]);
+    wg::pin(acc[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
+      if (r < a.rows) {
+        sr[r * kTBS + col] = acc[0][i];
+        si[r * kTBS + col] = -acc[1][i];
+      }
+    }
+  }
+  __syncthreads();
+
+  const float v = tc_bin_pass<MODE>(sr, si, ar, ai, swv, a, planes, wv,
+                                    bias_b, bias_p, o_out, tile, dbdp);
+  red[t] = v;
+  __syncthreads();
+  tc_stage_a<PP>(ar, ai, swv, as, a.rows);
+  for (int k = kTC / 2; k > 0; k >>= 1) {
+    if (t < k) red[t] += red[t + k];
+    __syncthreads();
+  }
+  wg::cp_async_wait<0>();
+  wg::fence_stores();
+  __syncthreads();
+
+  // the projection: [rows x 128] . [128 x 32 p], d_re against cos, then
+  // -d_im against sin, fresh for this tile
+  float g[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) g[i] = 0.f;
+  wg::pin(g);
+  wg::fence();
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int ks = 0; ks < kTB / 16; ++ks)
+#pragma unroll
+      for (int p = 0; p < wg::products(PT); ++p)
+        wg::mma_m64n32k16(
+            g,
+            wg::desc(as + wg::prod_a(PT, p) * 2 * kMaxRows * kTB +
+                     c * kMaxRows * kTB + ks * 128),
+            wg::desc(ps + wg::prod_b(PT, p) * 2 * kCopy + c * kCopy +
+                     ks * 128),
+            (c == 0 && ks == 0 && p == 0) ? 0 : 1);
+  wg::commit();
+  wg::wait_all();
+  wg::pin(g);
+  const int n = a.rows * a.P;
+  float* rec = part + (size_t)tile * (n + 1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
+    if (r < a.rows && col < a.P) rec[r * a.P + col] = g[i];
+  }
+  if (t == 0) rec[n] = red[0] / (float)a.nb;
+  tc_combine(part, gpart, tickets, out, n + 1, n, a.scale, a.ntiles, flag);
+}
+
+template <int MODE>
+int launch_tc(const void* planes, const void* tiles, const void* wv,
+              const void* cf, const void* bias_b, const void* bias_p,
+              void* o_out, void* out, void* dbdp, void* scratch,
+              void* tickets, Dims a, int bf16, cudaStream_t st) {
+  auto k = bf16 ? tc_sweep_kernel<MODE, true> : tc_sweep_kernel<MODE, false>;
+  const int bytes = tc_smem_bytes(bf16 ? TcTiers<true>::kProject
+                                       : TcTiers<false>::kProject);
+  int err = set_smem(k, bytes);
+  if (err) return err;
+  a.ntiles = (a.W + kTB - 1) / kTB;
+  float* part = static_cast<float*>(scratch);
+  float* gpart = part + (size_t)a.ntiles * (a.rows * a.P + 1);
+  k<<<a.ntiles, kTC, bytes, st>>>(
+      static_cast<const float*>(planes),
+      static_cast<const __nv_bfloat16*>(tiles),
+      static_cast<const float*>(wv), static_cast<const float*>(cf),
+      static_cast<const float*>(bias_b), static_cast<const float*>(bias_p),
+      static_cast<float*>(o_out), part, gpart,
+      static_cast<unsigned*>(tickets), static_cast<float*>(out),
+      static_cast<float*>(dbdp), a);
+  return (int)cudaGetLastError();
+}
+
 // K8: the whole burst.  state_in/state_out: cf [rows*P], b [M], p [D],
 // mcf [rows*P], mb [M], mp [D]; mse_out [iters+1] (raw, / nb); scratch:
 // part [ntiles][rows*P + 1], gsum [rows*P + M + D], dbdp [M + D].
@@ -516,32 +970,6 @@ itergrid_kernel(const float* __restrict__ planes,
   }
 }
 
-bool make_dims(int nb, int M, int D, int P, int W, float norm, float inv_m,
-               float inv_d, float scale, Dims* a) {
-  if (nb < 1 || M < 1 || D < 1 || D > kMaxD || P < 1 || P > kMaxP || W < 1 ||
-      2 * M * D > kMaxRows)
-    return false;
-  a->nb = nb;
-  a->M = M;
-  a->D = D;
-  a->P = P;
-  a->W = W;
-  a->rows = 2 * M * D;
-  a->ntiles = (W + kT - 1) / kT;
-  a->norm = norm;
-  a->inv_m = inv_m;
-  a->inv_d = inv_d;
-  a->scale = scale;
-  return true;
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int MODE>
 int launch_sweep(const void* planes, const void* basis, const void* wv,
                  const void* cf, const void* bias_b, const void* bias_p,
@@ -568,30 +996,51 @@ int launch_sweep(const void* planes, const void* basis, const void* wv,
 }  // namespace
 
 // Floats of scratch the launches below need (0 if the shape cannot run):
-// kind 0 = K5/K7, 1 = K6, 2 = K8.
+// kind 0 = K5/K7 (a record per 64-bin tile and per group of 16), 1 = K6,
+// 2 = K8.
 extern "C" long long omega_scratch_floats(int kind, int nb, int M, int D,
                                           int P, int W) {
   Dims a;
   if (!make_dims(nb, M, D, P, W, 1.f, 1.f, 1.f, 1.f, &a)) return 0;
   const long long n = (long long)a.rows * a.P;
   if (kind == 1) return a.ntiles;
-  if (kind == 0) return a.ntiles * (n + 1);
+  if (kind == 0) {
+    const long long nt = (W + kTB - 1) / kTB;
+    return (nt + (nt + kTG - 1) / kTG) * (n + 1);
+  }
   return a.ntiles * (n + 1) + n + 2 * (M + D);
 }
 
-// K5.  planes: [6][nb*D][W] f32 (X re, im, Y re, im, O re, im); basis:
-// [2][P][W] (cos, sin); wv [W]; cf [2MD][P] (c rows m*D+d, then f rows
-// d*M+m); b [M]; out: g [2MD*P] then one unused float; dbdp: db [M], dp [D].
+// K5.  planes: [6][nb*D][W] f32 (X re, im, Y re, im, O re, im); tiles:
+// the basis as the tensor-core sweep's tiles (bf16, tc_tile_elems a tile of
+// 64 bins; ops/burst_kernels.py basis_tiles); wv [W]; cf [2MD][P] (c rows
+// m*D+d, then f rows d*M+m); b [M]; out: g [2MD*P] then one unused float;
+// dbdp: db [M], dp [D]; scratch: omega_scratch_floats(0, ...); tickets:
+// ceil(ceil(W/64)/16) + 1 zeros, left zero by the launch.
 extern "C" int omega_grad_project_launch(
-    const void* planes, const void* basis, const void* wv, const void* cf,
-    const void* b, void* out, void* dbdp, void* scratch, int nb, int M, int D,
-    int P, int W, float norm, float scale, int bf16, void* stream) {
+    const void* planes, const void* tiles, const void* wv, const void* cf,
+    const void* b, void* out, void* dbdp, void* scratch, void* tickets,
+    int nb, int M, int D, int P, int W, float norm, float scale, int bf16,
+    void* stream) {
   Dims a;
   if (!make_dims(nb, M, D, P, W, norm, 1.f, 1.f, scale, &a))
     return (int)cudaErrorInvalidValue;
-  return launch_sweep<kGradGivenO>(planes, basis, wv, cf, b, nullptr, nullptr,
-                                   out, dbdp, scratch, a, bf16,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_tc<kGradGivenO>(planes, tiles, wv, cf, b, nullptr, nullptr,
+                                out, dbdp, scratch, tickets, a, bf16,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K5's (fused 0) and K7's (fused 1) tensor-core sweep with float32 or
+// bf16 operands: registers, local bytes, static and dynamic shared memory
+// (wg::attrs) into out[0..3].
+extern "C" int omega_tc_attrs(int fused, int bf16, int* out) {
+  auto k = fused ? (bf16 ? tc_sweep_kernel<kFwdGrad, true>
+                         : tc_sweep_kernel<kFwdGrad, false>)
+                 : (bf16 ? tc_sweep_kernel<kGradGivenO, true>
+                         : tc_sweep_kernel<kGradGivenO, false>);
+  return wg::attrs(k, tc_smem_bytes(bf16 ? TcTiers<true>::kProject
+                                         : TcTiers<false>::kProject),
+                   out);
 }
 
 // K6.  planes: [4][nb*D][W] (X, Y); o_out: [2][nb*D][W]; mse_out [1]:
@@ -610,18 +1059,19 @@ extern "C" int omega_respectra_launch(
 }
 
 // K7.  As K6, and the next gradients: out = g [2MD*P] then the MSE sum;
-// dbdp: db [M], dp [D].
+// dbdp: db [M], dp [D]; tiles, scratch and tickets as K5's.
 extern "C" int omega_fused_step_launch(
-    const void* planes, const void* basis, const void* wv, const void* cf,
+    const void* planes, const void* tiles, const void* wv, const void* cf,
     const void* b, const void* p, void* o_out, void* out, void* dbdp,
-    void* scratch, int nb, int M, int D, int P, int W, float norm, float inv_m,
-    float inv_d, float scale, int bf16, void* stream) {
+    void* scratch, void* tickets, int nb, int M, int D, int P, int W,
+    float norm, float inv_m, float inv_d, float scale, int bf16,
+    void* stream) {
   Dims a;
   if (!make_dims(nb, M, D, P, W, norm, inv_m, inv_d, scale, &a))
     return (int)cudaErrorInvalidValue;
-  return launch_sweep<kFwdGrad>(planes, basis, wv, cf, b, p, o_out, out, dbdp,
-                                scratch, a, bf16,
-                                static_cast<cudaStream_t>(stream));
+  return launch_tc<kFwdGrad>(planes, tiles, wv, cf, b, p, o_out, out, dbdp,
+                             scratch, tickets, a, bf16,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // K8.  planes as K5 (O = O0); state_in/state_out: cf [2MD*P], b [M], p [D],

@@ -1,6 +1,7 @@
 // Hopper warpgroup products (wgmma) from shared memory for the matmul-DFT
-// kernels (rfft2_mixed.cu, probes.cu): bf16 operand pieces by precision
-// tier, float32 accumulators in registers.
+// kernels (rfft2_mixed.cu, probes.cu) and the omega-space sweeps
+// (omega_burst.cu): bf16 operand pieces by precision tier, float32
+// accumulators in registers.
 //
 // Precision tiers (the JAX package's dot precisions, as its Pallas kernels
 // fed the TPU's matrix unit):
@@ -90,10 +91,13 @@ __device__ __forceinline__ void store_row8(const float (&v)[8],
                    pack2(p[4][i], p[5][i]), pack2(p[6][i], p[7][i]));
 }
 
-__device__ __forceinline__ uint64_t desc(const void* smem) {
+// sbo: the byte offset of the next 8-row group (kSBO for 64-wide tiles;
+// 512 for a tile 32 elements wide)
+__device__ __forceinline__ uint64_t desc(const void* smem,
+                                         uint32_t sbo = kSBO) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(kLBO >> 4) << 16) |
-         ((uint64_t)(kSBO >> 4) << 32);
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // 16 bytes global -> shared without registers (cp.async, cached in L2
@@ -108,6 +112,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // visible to the products like any other store
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// close this thread's cp.async copies issued so far into one group; wait
+// until at most N of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // make this thread's shared-memory stores visible to the wgmma (async)
@@ -126,9 +139,10 @@ __device__ __forceinline__ void wait_all() {
 }
 // keep the compiler from moving accumulator registers across the async
 // product
-__device__ __forceinline__ void pin(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64, float32) = A (64 x 16) * B (16 x 64) + (scale_d ? d : 0),
@@ -151,6 +165,25 @@ __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, float32) = A (64 x 16) * B (16 x 32) + (scale_d ? d : 0),
+// both operands K-major in shared memory
+__device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -23,12 +23,16 @@ weights.  All live in ``csrc/omega_burst.cu``, whose header note says what
 bounds them and how.  Each has a plain PyTorch version here, which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts one launch per call of a kernel's C entry
-point.  Such a launch of K5, K6 or K7 is two grids, the sweep and then the
-fixed-order sum of its tiles' partials; one of K8 is one grid.
+point.  A launch of K5, K7 or K8 is one grid (K5 and K7 sum their tiles'
+partials in a fixed order inside it); one of K6 is two, the sweep and then
+that sum.
 
 ``mxu_bf16`` rounds the operands of the four basis products to bf16 and
 sums in float32 (the JAX ``mxu_dtype=bfloat16``); every other product is
-IEEE float32, and the plain versions' matmuls run with TF32 off.
+IEEE float32, and the plain versions' matmuls run with TF32 off.  K5 and
+K7 run their basis products on the tensor cores at the tiers of
+:data:`TC_TIERS` (never TF32), from the bf16 pieces :func:`basis_tiles`
+lays out.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from . import dft
+from . import dft, fft_kernels
 from ..optim.update import burst_inertia
 
 #: kernel launches since import (or the last reset), by kernel
@@ -45,6 +49,40 @@ LAUNCHES = {"grad_project": 0, "respectra_conv": 0, "fused_step": 0,
 
 # the shapes the kernels take (csrc/omega_burst.cu: kMaxD, kMaxP, kMaxRows)
 _MAX_D, _MAX_P, _MAX_ROWS = 4, 32, 64
+
+#: K5's and K7's tensor-core sweep (csrc/omega_burst.cu kTB, kTG): bins a
+#: block, and tiles a group of the fixed-order sum of their partials
+TC_TILE, TC_GROUP = 64, 16
+#: the JAX dot tiers of K5's and K7's basis products on the tensor cores,
+#: (spectra rebuild, projection), by ``mxu_bf16``: one bf16 product (the
+#: JAX ``mxu_dtype``) for bf16 operands; for float32 ones bf16×6
+#: ("highest") for the rebuild, where bf16×3 leaves O 8–9e-6 from the
+#: float32 product, and bf16×3 ("high") for the projection, 2–4e-6 on g
+#: (tests/test_torch_omega_tc.py)
+TC_TIERS = {False: ("highest", "high"), True: ("default", "default")}
+
+
+def basis_tiles(basis: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The basis ``[2, P, W]`` as K5's and K7's shared-memory tiles: per
+    tile of :data:`TC_TILE` bins, the rebuild's copy (``[bin][p]``, p the
+    contraction) split into its tier's bf16 pieces, then the projection's
+    (``[p][bin]``, bins the contraction) into its tier's
+    (:data:`TC_TIERS`), each piece cos then sin, P padded to 32 and W to
+    whole tiles with zeros, in the kernels' core-matrix order
+    (``csrc/wgmma.cuh``): ``[tiles, pieces · 2 · 32 · TC_TILE]`` bf16."""
+    _, P, W = basis.shape
+    nt = -(-W // TC_TILE)
+    with torch.inference_mode(False):
+        z = basis.new_zeros(2, _MAX_P, nt * TC_TILE)
+        z[:, :P, :W] = basis
+        pt = z.reshape(2, _MAX_P, nt, TC_TILE).permute(2, 0, 1, 3)  # t,cs,p,u
+        out = []
+        for copy, prec in zip((pt.transpose(-1, -2), pt), TC_TIERS[bf16]):
+            for piece in fft_kernels.pieces(copy,
+                                            fft_kernels._TIERS[prec] + 1):
+                out.append(fft_kernels.core_order(piece.to(torch.bfloat16))
+                           .reshape(nt, -1))
+        return torch.cat(out, 1).contiguous()
 
 
 def _mx(t: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -271,6 +309,39 @@ def _scratch(kind: int, nb, M, D, P, W, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
+#: per card, the tickets of K5's and K7's fixed-order sum: zeros, which
+#: every launch leaves zero (launches on one stream at a time)
+_TICKETS: dict = {}
+
+
+def _tickets(W: int, device) -> torch.Tensor:
+    tiles = -(-W // TC_TILE)
+    n = -(-tiles // TC_GROUP) + 1     # one a group, one for the groups
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        with torch.inference_mode(False):
+            t = _TICKETS[device] = torch.zeros(max(n, 1024),
+                                               dtype=torch.int32,
+                                               device=device)
+    return t
+
+
+def _tiles(tiles, basis, bf16: bool) -> torch.Tensor:
+    """The basis tiles a launch reads: ``tiles`` when given (checked
+    against ``basis``'s shape), else built from ``basis``."""
+    if tiles is None:
+        return basis_tiles(basis, bf16)
+    nt = -(-basis.shape[-1] // TC_TILE)
+    n = sum(fft_kernels._TIERS[p] + 1 for p in TC_TIERS[bf16]) * 2 * _MAX_P \
+        * TC_TILE
+    if (tiles.dtype != torch.bfloat16 or tuple(tiles.shape) != (nt, n)
+            or tiles.device != basis.device or not tiles.is_contiguous()):
+        raise ValueError(f"tiles must be basis_tiles(basis, {bf16}): "
+                         f"[{nt}, {n}] bf16 on {basis.device}, got "
+                         f"{tuple(tiles.shape)} {tiles.dtype}")
+    return tiles
+
+
 def _ptrs(tensors) -> list:
     return [t.data_ptr() for t in tensors]
 
@@ -290,13 +361,15 @@ def _o_out(out, planes, nb, D, W):
 
 
 def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
-                 mxu_bf16: bool = False):
+                 mxu_bf16: bool = False, tiles=None):
     """Projected gradients of one burst iteration from O (K5).
 
     ``planes [6, nb·D, W]`` (X, Y, O re/im); returns ``g [2·M·D, P]``
     (c's rows, then f's), ``db [M]`` and ``dp [D]``, each summed over the
     frames and scaled by ``scale`` (``1/(2·M·D·N²·nb)``), db and dp also by
-    ``norm`` (N = nx·ny).  CPU tensors take :func:`grad_project_plain`.
+    ``norm`` (N = nx·ny).  ``tiles``: ``basis_tiles(basis, mxu_bf16)``,
+    which the kernel reads in place of ``basis`` (built here when None).
+    CPU tensors take :func:`grad_project_plain`.
     """
     _check("grad_project", planes, basis, wv, cf, b, kinds=(6,))
     if not _on_card(planes, "grad_project"):
@@ -306,15 +379,16 @@ def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
     rows, P = cf.shape
     dev = planes.device
     # every buffer stays referenced until the launch is enqueued
-    ins = [t.contiguous() for t in (planes, basis, wv, cf, b)]
+    ins = [t.contiguous() for t in (planes, _tiles(tiles, basis, mxu_bf16),
+                                    wv, cf, b)]
     out = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         scratch = _scratch(0, nb, M, D, P, W, dev)
         err = _kernels.lib().omega_grad_project_launch(
             *_ptrs(ins), out.data_ptr(), dbdp.data_ptr(), scratch.data_ptr(),
-            nb, M, D, P, W, float(norm), float(scale), int(mxu_bf16),
-            _stream())
+            _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
+            float(scale), int(mxu_bf16), _stream())
     _kernels.check(err, "grad_project")
     LAUNCHES["grad_project"] += 1
     return out[:rows * P].view(rows, P), dbdp[:M], dbdp[M:]
@@ -352,12 +426,13 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
 
 
 def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
-               inv_d: float, scale: float, mxu_bf16: bool = False, out=None):
+               inv_d: float, scale: float, mxu_bf16: bool = False, out=None,
+               tiles=None):
     """K6 and then K5 on the fresh O, in one sweep (K7).
 
     Returns O (into ``out`` when given), the MSE sum, g, db, dp, as
-    :func:`respectra_conv` and :func:`grad_project` do.  CPU tensors take
-    :func:`fused_step_plain`.
+    :func:`respectra_conv` and :func:`grad_project` do; ``tiles`` as
+    :func:`grad_project`'s.  CPU tensors take :func:`fused_step_plain`.
     """
     _check("fused_step", planes, basis, wv, cf, b, p)
     nb, M, D, W = _dims(planes, cf, b)
@@ -369,15 +444,17 @@ def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
         return O.copy_(got), mse, g, db, dp
     rows, P = cf.shape
     dev = planes.device
-    ins = [t.contiguous() for t in (planes, basis, wv, cf, b, p)]
+    ins = [t.contiguous() for t in (planes, _tiles(tiles, basis, mxu_bf16),
+                                    wv, cf, b, p)]
     res = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         scratch = _scratch(0, nb, M, D, P, W, dev)
         err = _kernels.lib().omega_fused_step_launch(
             *_ptrs(ins), O.data_ptr(), res.data_ptr(), dbdp.data_ptr(),
-            scratch.data_ptr(), nb, M, D, P, W, float(norm), float(inv_m),
-            float(inv_d), float(scale), int(mxu_bf16), _stream())
+            scratch.data_ptr(), _tickets(W, dev).data_ptr(), nb, M, D, P, W,
+            float(norm), float(inv_m), float(inv_d), float(scale),
+            int(mxu_bf16), _stream())
     _kernels.check(err, "fused_step")
     LAUNCHES["fused_step"] += 1
     return (O, res[rows * P], res[:rows * P].view(rows, P), dbdp[:M],

@@ -54,6 +54,14 @@ def _basis(nk: int, nl: int, nx: int, ny: int,
         return torch.as_tensor(both, device=device)
 
 
+@functools.lru_cache(maxsize=4)
+def _basis_tiles(nk: int, nl: int, nx: int, ny: int, bf16: bool,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`_basis` as K5's and K7's bf16 tiles
+    (:func:`spectralae_torch.ops.burst_kernels.basis_tiles`), built once."""
+    return bk.basis_tiles(_basis(nk, nl, nx, ny, device), bf16)
+
+
 @functools.lru_cache(maxsize=None)
 def _herm_weights(nx: int, ny: int, device: torch.device) -> torch.Tensor:
     """Per-bin Hermitian double-count weights ``[W]`` (the per-column
@@ -77,6 +85,7 @@ class _Burst(NamedTuple):
     wv: torch.Tensor
     consts: dict           # norm, inv_m, inv_d, scale (the kernels' keywords)
     bf16: bool
+    tiles: torch.Tensor | None   # K5's and K7's basis tiles (CUDA only)
 
 
 def _check_mxu(mxu_dtype) -> bool:
@@ -92,7 +101,8 @@ def _no_axis(axis_name) -> None:
                                   "ROADMAP A12")
 
 
-def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype) -> _Burst:
+def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype,
+             with_tiles: bool = True) -> _Burst:
     bf16 = _check_mxu(mxu_dtype)
     if x.dim() == 3:
         x, expout, out0 = x[None], expout[None], out0[None]
@@ -111,7 +121,9 @@ def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype) -> _Burst:
                   scale=1.0 / (n_norm * nb))
     return _Burst(nb, nx, ny, dM * dD, planes, Y, O,
                   _basis(nk, nl, nx, ny, x.device),
-                  _herm_weights(nx, ny, x.device), consts, bf16)
+                  _herm_weights(nx, ny, x.device), consts, bf16,
+                  _basis_tiles(nk, nl, nx, ny, bf16, x.device)
+                  if x.is_cuda and with_tiles else None)
 
 
 def _mse_of(raw, c, nx, ny):
@@ -176,7 +188,8 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
     for i in range(iters):
         g, gb, gp = bk.grad_project(planes, s.basis, s.wv,
                                     _stack(c, f, s.md, P), b, norm=k["norm"],
-                                    scale=k["scale"], mxu_bf16=s.bf16)
+                                    scale=k["scale"], mxu_bf16=s.bf16,
+                                    tiles=s.tiles)
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
@@ -210,14 +223,15 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
     mses = _mses(s, c, iters, x.dtype)
     g, gb, gp = bk.grad_project(s.planes, s.basis, s.wv,
                                 _stack(c, f, s.md, P), b, norm=k["norm"],
-                                scale=k["scale"], mxu_bf16=s.bf16)
+                                scale=k["scale"], mxu_bf16=s.bf16,
+                                tiles=s.tiles)
     for i in range(iters):
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
         _, msep, g, gb, gp = bk.fused_step(
             s.planes, s.basis, s.wv, _stack(c, f, s.md, P), b, p,
-            mxu_bf16=s.bf16, out=s.planes[4:], **k)
+            mxu_bf16=s.bf16, out=s.planes[4:], tiles=s.tiles, **k)
         mses[i + 1] = _mse_of(msep, c, s.nx, s.ny)
     return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms, mses=mses)
 

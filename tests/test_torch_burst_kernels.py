@@ -6,9 +6,11 @@ imports no JAX, so it runs on a machine that has none::
 
     python -m pytest tests/test_torch_burst_kernels.py -m cuda --noconftest
 
-Shapes: the default net's pair 0 (D=3, M=10, 5x5) and a small net (D=2,
-M=4, 3x3), at one and several frames, with W = nx·(ny/2+1) never a
-multiple of the kernels' 128-bin tile (the masked tail).  Tolerances,
+Shapes: the default net's pair 0 (D=3, M=10, 5x5) at the JAX benchmark's
+headline (one 256² frame, W = 33,024) and smaller, and a small net (D=2,
+M=4, 3x3), at one and several frames; W = 840 and 220 leave a masked tail
+in every kernel's tiles (64 bins for K5 and K7, 128 for K6 and K8), W =
+2,112 and 33,024 fill whole 64-bin tiles.  Tolerances,
 norm-relative: 1e-5 for g, O and the MSE sums (the same float32 products
 summed in another order, the projection over up to 33,024 bins); for the
 bf16 operands 2e-3 (a sum that lands across a bf16 rounding boundary in one
@@ -25,6 +27,7 @@ from spectralae_torch.ops import burst_kernels as bk
 TOL, TOL_BF16, TOL_ITER = 1e-5, 2e-3, 1e-4
 
 SHAPES = [  # (nb, D, M, nk, n): W = n·(n/2+1)
+    (1, 3, 10, 5, 256),    # W = 33,024, the headline
     (1, 3, 10, 5, 64),     # W = 2,112
     (4, 3, 10, 5, 40),     # W = 840
     (3, 2, 4, 3, 20),      # W = 220
@@ -131,6 +134,25 @@ def test_kernels_repeat_bit_for_bit(cuda_device):
             *bk.itergrid(s.planes, s.basis, s.wv, cf, b, p, *mom, iters=20,
                          lr_eff=0.02, alpha=0.9, **s.consts))]))
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tensor_core_kernels_repeat_bit_for_bit_at_the_headline(cuda_device,
+                                                                bf16):
+    """K5 and K7 at W = 33,024 (516 tiles, 33 groups of the fixed-order
+    sum): the tiles finish in another order each run, the sums do not."""
+    s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 256, seed=5)
+    tiles = bk.basis_tiles(s.basis, bf16)
+    runs = []
+    for _ in range(3):
+        runs.append(torch.cat([t.reshape(-1) for t in (
+            *bk.grad_project(s.planes, s.basis, s.wv, cf, b,
+                             norm=s.consts["norm"], scale=s.consts["scale"],
+                             mxu_bf16=bf16, tiles=tiles),
+            *bk.fused_step(s.planes, s.basis, s.wv, cf, b, p, mxu_bf16=bf16,
+                           tiles=tiles, **s.consts))]))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
 
 
 @pytest.mark.cuda
