@@ -442,10 +442,13 @@ int set_smem(K kernel, size_t bytes) {
 // K5 and K7 on the tensor cores: one warpgroup a tile of kTB bins.
 
 constexpr int kTB = 64;          // bins a tile (block)
-constexpr int kTBS = kTB + 16;   // row stride of the per-bin arrays: the
-                                 // pair of threads of a bin reads rows an
-                                 // odd number apart, 16 banks apart
-constexpr int kTC = 128;         // threads: one warpgroup, two a bin
+constexpr int kTBS = kTB + 8;    // row stride of the per-bin arrays: the
+                                 // four threads of a bin read rows D or 1
+                                 // apart, 8 banks apart at D = 3
+constexpr int kTC = 256;         // threads: two warpgroups, four a bin
+constexpr int kTPB = kTC / kTB;  // threads a bin
+constexpr int kMU = 3;           // m a thread unrolled together (their
+                                 // shared-memory loads in flight at once)
 constexpr int kTG = 16;          // tiles a group of the fixed-order sum
 constexpr int kCopy = kMaxP * kTB;   // elements of one (piece, cos|sin)
                                      // basis tile: 32 p x 64 bins
@@ -485,7 +488,37 @@ static_assert(2 * 3 * (kMaxRows * kMaxP + 2 * kCopy) <= kRegion,
 static_assert(2 * 2 * 2 * kMaxRows * kTB <= kRegion,
               "the projection's A pieces fit region Y");
 
-// One bin, every frame, two threads a bin (each the m of its parity): the
+// One frame's planes at one bin, as loaded (zeros past W): X, Y, and O for
+// K5.  The pass loads the next frame's while it works on this one, and the
+// kernel the first frame's before anything else, so the loads' latency
+// overlaps the work.
+struct Frame {
+  float xr[kMaxD], xi[kMaxD], yr[kMaxD], yi[kMaxD], orr[kMaxD], oii[kMaxD];
+};
+
+template <int MODE>
+__device__ __forceinline__ void load_frame(Frame& f,
+                                           const float* __restrict__ planes,
+                                           const Dims& a, int b, int w) {
+  const size_t plane = (size_t)a.nb * a.D * a.W;
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) {
+    f.xr[d] = f.xi[d] = f.yr[d] = f.yi[d] = f.orr[d] = f.oii[d] = 0.f;
+    if (d < a.D && w < a.W) {
+      const size_t i = (size_t)(b * a.D + d) * a.W + w;
+      f.xr[d] = planes[i];
+      f.xi[d] = planes[plane + i];
+      f.yr[d] = planes[2 * plane + i];
+      f.yi[d] = planes[3 * plane + i];
+      if (MODE != kFwdGrad) {
+        f.orr[d] = planes[4 * plane + i];
+        f.oii[d] = planes[5 * plane + i];
+      }
+    }
+  }
+}
+
+// One bin, every frame, four threads a bin (thread h the m = h mod 4): the
 // forward's O (K7; written to o_out), the MSE term, and the gradient
 // products accumulated over frames into ar/ai at this thread's rows (wv
 // applied later).  The DC bin's threads write db, dp (scaled) to dbdp.
@@ -499,9 +532,9 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
                              const float* __restrict__ bias_b,
                              const float* __restrict__ bias_p,
                              float* __restrict__ o_out, int tile,
-                             float* __restrict__ dbdp) {
+                             float* __restrict__ dbdp, const Frame& first) {
   constexpr bool FWD = MODE == kFwdGrad;
-  const int u = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int u = threadIdx.x / kTPB, h = threadIdx.x % kTPB;
   const int w = tile * kTB + u;
   const bool valid = w < a.W;
   const bool dc = w == 0;
@@ -510,63 +543,64 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
   const float wv = valid ? wvg[w] : 0.f;
   if (h == 0) swv[u] = wv;
   sr += u, si += u, ar += u, ai += u;
-  for (int m = h; m < M; m += 2) {
-    for (int d = 0; d < D; ++d) {
-      ar[(m * D + d) * kTBS] = ai[(m * D + d) * kTBS] = 0.f;
-      ar[(md + d * M + m) * kTBS] = ai[(md + d * M + m) * kTBS] = 0.f;
-    }
-  }
   float mse = 0.f;
+  Frame cur = first;
   for (int b = 0; b < a.nb; ++b) {
+    Frame next;
+    if (b + 1 < a.nb) load_frame<MODE>(next, planes, a, b + 1, w);
     float xr[kMaxD], xi[kMaxD], er[kMaxD], ei[kMaxD];
 #pragma unroll
     for (int d = 0; d < kMaxD; ++d) {
-      xr[d] = xi[d] = er[d] = ei[d] = 0.f;
-      if (d < D && valid) {
-        const size_t i = (size_t)(b * D + d) * a.W + w;
-        xr[d] = planes[i];
-        xi[d] = planes[plane + i];
-        er[d] = -planes[2 * plane + i];   // -Y, O added below
-        ei[d] = -planes[3 * plane + i];
-        if (!FWD) {
-          er[d] += planes[4 * plane + i];
-          ei[d] += planes[5 * plane + i];
-        }
+      xr[d] = cur.xr[d];
+      xi[d] = cur.xi[d];
+      er[d] = -cur.yr[d];   // -Y, O added below
+      ei[d] = -cur.yi[d];
+      if (!FWD) {
+        er[d] += cur.orr[d];
+        ei[d] += cur.oii[d];
       }
     }
     if (FWD) {
       float orr[kMaxD], oii[kMaxD];
 #pragma unroll
       for (int d = 0; d < kMaxD; ++d) orr[d] = oii[d] = 0.f;
-      for (int m = h; m < M; m += 2) {
-        float hr = 0.f, hi = 0.f;
+      for (int m0 = h; m0 < M; m0 += kMU * kTPB)
 #pragma unroll
-        for (int d = 0; d < kMaxD; ++d) {
-          if (d < D) {
-            const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
-            hr += cr * xr[d] - ci * xi[d];
-            hi += cr * xi[d] + ci * xr[d];
+        for (int mi = 0; mi < kMU; ++mi) {
+          const int m = m0 + mi * kTPB;
+          if (m >= M) break;
+          float hr = 0.f, hi = 0.f;
+#pragma unroll
+          for (int d = 0; d < kMaxD; ++d) {
+            if (d < D) {
+              const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+              hr += cr * xr[d] - ci * xi[d];
+              hi += cr * xi[d] + ci * xr[d];
+            }
+          }
+          const float bias = dc ? bias_b[m] * a.norm : 0.f;
+          hr = (hr * a.inv_m + bias) * a.inv_d;
+          hi = hi * a.inv_m * a.inv_d;
+#pragma unroll
+          for (int d = 0; d < kMaxD; ++d) {
+            if (d < D) {
+              const int j = md + d * M + m;
+              const float fr = sr[j * kTBS], fi = si[j * kTBS];
+              orr[d] += fr * hr - fi * hi;
+              oii[d] += fr * hi + fi * hr;
+            }
           }
         }
-        const float bias = dc ? bias_b[m] * a.norm : 0.f;
-        hr = (hr * a.inv_m + bias) * a.inv_d;
-        hi = hi * a.inv_m * a.inv_d;
-#pragma unroll
-        for (int d = 0; d < kMaxD; ++d) {
-          if (d < D) {
-            const int j = md + d * M + m;
-            const float fr = sr[j * kTBS], fi = si[j * kTBS];
-            orr[d] += fr * hr - fi * hi;
-            oii[d] += fr * hi + fi * hr;
-          }
-        }
-      }
-      // the pair's two halves of the sum over m; a + b in both lanes
+      // the four quarters of the sum over m, (a + b) + (c + d) in every
+      // lane of the bin (float addition commutes)
 #pragma unroll
       for (int d = 0; d < kMaxD; ++d) {
         if (d < D) {
-          orr[d] += __shfl_xor_sync(0xffffffffu, orr[d], 1);
-          oii[d] += __shfl_xor_sync(0xffffffffu, oii[d], 1);
+#pragma unroll
+          for (int x = 1; x < kTPB; x <<= 1) {
+            orr[d] += __shfl_xor_sync(0xffffffffu, orr[d], x);
+            oii[d] += __shfl_xor_sync(0xffffffffu, oii[d], x);
+          }
           if (dc) orr[d] += bias_p[d] * a.norm;
           if (valid && o_out && h == 0) {
             const size_t i = (size_t)(b * D + d) * a.W + w;
@@ -579,42 +613,48 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
         }
       }
     }
-    for (int m = h; m < M; m += 2) {
-      float hr = 0.f, hi = 0.f, s_r = 0.f, s_i = 0.f;
+    for (int m0 = h; m0 < M; m0 += kMU * kTPB)
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) {
-        if (d < D) {
-          const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
-          hr += cr * xr[d] - ci * xi[d];
-          hi += cr * xi[d] + ci * xr[d];
-          const int j = md + d * M + m;
-          const float fr = sr[j * kTBS], fi = si[j * kTBS];
-          s_r += er[d] * fr + ei[d] * fi;
-          s_i += ei[d] * fr - er[d] * fi;
+      for (int mi = 0; mi < kMU; ++mi) {
+        const int m = m0 + mi * kTPB;
+        if (m >= M) break;
+        float hr = 0.f, hi = 0.f, s_r = 0.f, s_i = 0.f;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+            hr += cr * xr[d] - ci * xi[d];
+            hi += cr * xi[d] + ci * xr[d];
+            const int j = md + d * M + m;
+            const float fr = sr[j * kTBS], fi = si[j * kTBS];
+            s_r += er[d] * fr + ei[d] * fi;
+            s_i += ei[d] * fr - er[d] * fi;
+          }
+        }
+        if (dc) {
+          hr += bias_b[m] * a.norm;
+          dbdp[m] = (b == 0 ? 0.f : dbdp[m]) + s_r;
+        }
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const int jc = (m * D + d) * kTBS, jf = (md + d * M + m) * kTBS;
+            // the first frame stores, the others add
+            ar[jc] = (b ? ar[jc] : 0.f) + (s_r * xr[d] + s_i * xi[d]);
+            ai[jc] = (b ? ai[jc] : 0.f) + (s_i * xr[d] - s_r * xi[d]);
+            ar[jf] = (b ? ar[jf] : 0.f) + (er[d] * hr + ei[d] * hi);
+            ai[jf] = (b ? ai[jf] : 0.f) + (ei[d] * hr - er[d] * hi);
+          }
         }
       }
-      if (dc) {
-        hr += bias_b[m] * a.norm;
-        dbdp[m] = (b == 0 ? 0.f : dbdp[m]) + s_r;
-      }
-#pragma unroll
-      for (int d = 0; d < kMaxD; ++d) {
-        if (d < D) {
-          const int jc = (m * D + d) * kTBS, jf = (md + d * M + m) * kTBS;
-          ar[jc] += s_r * xr[d] + s_i * xi[d];
-          ai[jc] += s_i * xr[d] - s_r * xi[d];
-          ar[jf] += er[d] * hr + ei[d] * hi;
-          ai[jf] += ei[d] * hr - er[d] * hi;
-        }
-      }
-    }
     if (dc && h == 0) {
       for (int d = 0; d < D; ++d)
         dbdp[M + d] = (b == 0 ? 0.f : dbdp[M + d]) + er[d];
     }
+    cur = next;
   }
   if (dc) {
-    for (int m = h; m < M; m += 2) dbdp[m] = dbdp[m] * a.norm * a.scale;
+    for (int m = h; m < M; m += kTPB) dbdp[m] = dbdp[m] * a.norm * a.scale;
     if (h == 0)
       for (int d = 0; d < D; ++d)
         dbdp[M + d] = dbdp[M + d] * a.norm * a.scale;
@@ -659,6 +699,60 @@ __device__ void tc_stage_a(const float* __restrict__ ar,
   }
 }
 
+// dst[o] = sum over k < nrec, in order, of src[k * n_total + o] (times
+// scale for o < n_scaled): each thread its outputs o = t + kTC * j, the
+// loads of kBatch records for all of them issued before their adds (one
+// block reads every record: their latency, not their bytes, bounds it)
+constexpr int kOuts = (kMaxRows * kMaxP + 1 + kTC - 1) / kTC;
+constexpr int kBatch = 4;
+__device__ void sum_records(const float* src, int nrec, int n_total,
+                            float* dst, int n_scaled, float scale) {
+  float acc[kOuts];
+#pragma unroll
+  for (int j = 0; j < kOuts; ++j) {
+    const int o = threadIdx.x + kTC * j;
+    acc[j] = o < n_total ? __ldcg(src + o) : 0.f;
+  }
+  for (int k0 = 1; k0 < nrec; k0 += kBatch) {
+    float v[kBatch][kOuts];
+#pragma unroll
+    for (int kk = 0; kk < kBatch; ++kk)
+#pragma unroll
+      for (int j = 0; j < kOuts; ++j) {
+        const int o = threadIdx.x + kTC * j;
+        v[kk][j] = (k0 + kk < nrec && o < n_total)
+                       ? __ldcg(src + (size_t)(k0 + kk) * n_total + o)
+                       : 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kBatch; ++kk)
+      if (k0 + kk < nrec)
+#pragma unroll
+        for (int j = 0; j < kOuts; ++j) acc[j] += v[kk][j];
+  }
+#pragma unroll
+  for (int j = 0; j < kOuts; ++j) {
+    const int o = threadIdx.x + kTC * j;
+    if (o < n_total) dst[o] = o < n_scaled ? acc[j] * scale : acc[j];
+  }
+}
+
+// After the block's stores: true in the block that takes the last of n
+// tickets, which then sees every store the other n - 1 blocks made before
+// theirs.  One thread fences (release, then acquire) and draws the ticket
+// after a barrier, as CUTLASS's semaphore does: a fence in every thread
+// cost more than the sums.
+__device__ bool ticket(unsigned* counter, int n, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *flag = atomicAdd(counter, 1u) == (unsigned)(n - 1);
+    if (*flag) __threadfence();
+  }
+  __syncthreads();
+  return *flag;
+}
+
 // The fixed-order sum of the tiles' partials (records of n_total floats):
 // the last block of each group of kTG tiles to finish (an atomic ticket
 // after a fence) sums the group's records in tile order into gpart; the
@@ -671,37 +765,18 @@ __device__ void tc_combine(const float* part, float* gpart,
                            int* flag) {
   const int g = blockIdx.x / kTG, ng = (ntiles + kTG - 1) / kTG;
   const int t0 = g * kTG, t1 = min(ntiles, t0 + kTG);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    *flag = atomicAdd(tickets + g, 1u) == (unsigned)(t1 - t0 - 1);
-  __syncthreads();
-  if (!*flag) return;
-  __threadfence();
-  for (int o = threadIdx.x; o < n_total; o += kTC) {
-    float acc = __ldcg(part + (size_t)t0 * n_total + o);
-    for (int t = t0 + 1; t < t1; ++t)
-      acc += __ldcg(part + (size_t)t * n_total + o);
-    gpart[(size_t)g * n_total + o] = acc;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    *flag = atomicAdd(tickets + ng, 1u) == (unsigned)(ng - 1);
-  __syncthreads();
-  if (!*flag) return;
-  __threadfence();
-  for (int o = threadIdx.x; o < n_total; o += kTC) {
-    float acc = __ldcg(gpart + o);
-    for (int k = 1; k < ng; ++k) acc += __ldcg(gpart + (size_t)k * n_total + o);
-    out[o] = o < n_scaled ? acc * scale : acc;
-  }
+  if (!ticket(tickets + g, t1 - t0, flag)) return;
+  sum_records(part + (size_t)t0 * n_total, t1 - t0, n_total,
+              gpart + (size_t)g * n_total, 0, 1.f);
+  if (!ticket(tickets + ng, ng, flag)) return;
+  sum_records(gpart, ng, n_total, out, n_scaled, scale);
   for (int i = threadIdx.x; i <= ng; i += kTC) tickets[i] = 0u;
 }
 
 // K5 (kGradGivenO) and K7 (kFwdGrad): per tile, the spectra rebuild on the
 // tensor cores, the per-bin pass, the projection on the tensor cores, the
-// tile's partial g and MSE term; then the fixed-order sum into out.
+// tile's partial g and MSE term; then the fixed-order sum into out.  Two
+// warpgroups: each product's cos and sin halves go to one each.
 template <int MODE, bool BF16>
 __global__ void __launch_bounds__(kTC, 2)
 tc_sweep_kernel(const float* __restrict__ planes,
@@ -727,6 +802,8 @@ tc_sweep_kernel(const float* __restrict__ planes,
   float* swv = red + kTC;
   int* flag = reinterpret_cast<int*>(swv + kTB);
   const int t = threadIdx.x, tile = blockIdx.x;
+  Frame first;
+  load_frame<MODE>(first, planes, a, 0, tile * kTB + t / kTPB);
 
   // the tile's basis copies, by cp.async: the rebuild's, then the
   // projection's (waited for only before the projection)
@@ -754,47 +831,42 @@ tc_sweep_kernel(const float* __restrict__ planes,
   wg::fence_stores();
   __syncthreads();
 
-  // the spectra: [rows x 32] . [32 x 64 bins], cos and sin
+  // the spectra: [rows x 32] . [32 x 64 bins], warpgroup 0 against cos
+  // (the real parts), warpgroup 1 against sin (minus the imaginary parts)
+  const int wgi = t / 128;
   {
-    float acc[2][32];
+    float acc[32];
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[s][i] = 0.f;
-    wg::pin(acc[0]);
-    wg::pin(acc[1]);
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    wg::pin(acc);
     wg::fence();
 #pragma unroll
     for (int ks = 0; ks < kMaxP / 16; ++ks)
 #pragma unroll
       for (int p = 0; p < wg::products(RT); ++p)
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-          wg::mma_m64n64k16(
-              acc[s],
-              wg::desc(cfs + wg::prod_a(RT, p) * kMaxRows * kMaxP + ks * 128,
-                       512),
-              wg::desc(rs + wg::prod_b(RT, p) * 2 * kCopy + s * kCopy +
-                           ks * 128,
-                       512),
-              (ks == 0 && p == 0) ? 0 : 1);
+        wg::mma_m64n64k16(
+            acc,
+            wg::desc(cfs + wg::prod_a(RT, p) * kMaxRows * kMaxP + ks * 128,
+                     512),
+            wg::desc(rs + wg::prod_b(RT, p) * 2 * kCopy + wgi * kCopy +
+                         ks * 128,
+                     512),
+            (ks == 0 && p == 0) ? 0 : 1);
     wg::commit();
     wg::wait_all();
-    wg::pin(acc[0]);
-    wg::pin(acc[1]);
+    wg::pin(acc);
+    float* dst = wgi ? si : sr;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
-      if (r < a.rows) {
-        sr[r * kTBS + col] = acc[0][i];
-        si[r * kTBS + col] = -acc[1][i];
-      }
+      if (r < a.rows) dst[r * kTBS + col] = wgi ? -acc[i] : acc[i];
     }
   }
   __syncthreads();
 
   const float v = tc_bin_pass<MODE>(sr, si, ar, ai, swv, a, planes, wv,
-                                    bias_b, bias_p, o_out, tile, dbdp);
+                                    bias_b, bias_p, o_out, tile, dbdp,
+                                    first);
   red[t] = v;
   __syncthreads();
   tc_stage_a<PP>(ar, ai, swv, as, a.rows);
@@ -806,35 +878,43 @@ tc_sweep_kernel(const float* __restrict__ planes,
   wg::fence_stores();
   __syncthreads();
 
-  // the projection: [rows x 128] . [128 x 32 p], d_re against cos, then
-  // -d_im against sin, fresh for this tile
+  // the projection, fresh for this tile: warpgroup 0 d_re [rows x 64] .
+  // cos [64 x 32 p], warpgroup 1 -d_im against sin; then the two added in
+  // that order (warpgroup 1's through region X, free after staging)
   float g[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) g[i] = 0.f;
   wg::pin(g);
   wg::fence();
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int ks = 0; ks < kTB / 16; ++ks)
 #pragma unroll
-    for (int ks = 0; ks < kTB / 16; ++ks)
-#pragma unroll
-      for (int p = 0; p < wg::products(PT); ++p)
-        wg::mma_m64n32k16(
-            g,
-            wg::desc(as + wg::prod_a(PT, p) * 2 * kMaxRows * kTB +
-                     c * kMaxRows * kTB + ks * 128),
-            wg::desc(ps + wg::prod_b(PT, p) * 2 * kCopy + c * kCopy +
-                     ks * 128),
-            (c == 0 && ks == 0 && p == 0) ? 0 : 1);
+    for (int p = 0; p < wg::products(PT); ++p)
+      wg::mma_m64n32k16(
+          g,
+          wg::desc(as + wg::prod_a(PT, p) * 2 * kMaxRows * kTB +
+                   wgi * kMaxRows * kTB + ks * 128),
+          wg::desc(ps + wg::prod_b(PT, p) * 2 * kCopy + wgi * kCopy +
+                   ks * 128),
+          (ks == 0 && p == 0) ? 0 : 1);
   wg::commit();
   wg::wait_all();
   wg::pin(g);
+  float* xch = ar;   // [16][128]: warpgroup 1's sums, thread-private columns
+  if (wgi) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xch[i * 128 + t - 128] = g[i];
+  }
+  __syncthreads();
   const int n = a.rows * a.P;
   float* rec = part + (size_t)tile * (n + 1);
+  if (!wgi) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
-    if (r < a.rows && col < a.P) rec[r * a.P + col] = g[i];
+    for (int i = 0; i < 16; ++i) {
+      const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
+      if (r < a.rows && col < a.P)
+        rec[r * a.P + col] = g[i] + xch[i * 128 + t];
+    }
   }
   if (t == 0) rec[n] = red[0] / (float)a.nb;
   tc_combine(part, gpart, tickets, out, n + 1, n, a.scale, a.ntiles, flag);
