@@ -2441,9 +2441,11 @@ TC_KERNELS = {"dft_leaf_kernel": ("dft_leaf_attrs", [(v, t) for v in range(3)
                                                      for t in range(3)]),
               "ydft_sweep_kernel": ("ydft_sweep_attrs", [(t,) for t in
                                                          range(3)]),
-              # K5 (fused 0) and K7 (fused 1), float32 and bf16 operands
-              "tc_sweep_kernel": ("omega_tc_attrs", [(f, b) for f in range(2)
-                                                     for b in range(2)])}
+              # K5 (fused 0) and K7 (fused 1), float32 and bf16 operands,
+              # D = 1..4 channels
+              "tc_sweep_kernel": ("omega_tc_attrs", [
+                  (f, b, d) for f in range(2) for b in range(2)
+                  for d in range(1, 5)])}
 
 
 def tensor_core_proof(build) -> dict:

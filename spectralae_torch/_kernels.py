@@ -80,8 +80,8 @@ _SIGNATURES = {
     # planes, tiles, wv, cf, b, out, dbdp, scratch, tickets, nb, M, D, P, W,
     # norm, scale, bf16, stream
     "omega_grad_project_launch": (_P,) * 9 + (_I,) * 5 + (_F, _F, _I, _P),
-    # fused, bf16, out[4]
-    "omega_tc_attrs": (_I, _I, _P),
+    # fused, bf16, D, out[4]
+    "omega_tc_attrs": (_I, _I, _I, _P),
     # planes, basis, wv, cf, b, p, o_out, mse_out, scratch, nb, M, D, P, W,
     # norm, inv_m, inv_d, bf16, stream
     "omega_respectra_launch": (_P,) * 9 + (_I,) * 5 + (_F,) * 3 + (_I, _P),

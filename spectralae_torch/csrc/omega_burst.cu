@@ -496,16 +496,16 @@ struct Frame {
   float xr[kMaxD], xi[kMaxD], yr[kMaxD], yi[kMaxD], orr[kMaxD], oii[kMaxD];
 };
 
-template <int MODE>
+template <int MODE, int D>
 __device__ __forceinline__ void load_frame(Frame& f,
                                            const float* __restrict__ planes,
                                            const Dims& a, int b, int w) {
-  const size_t plane = (size_t)a.nb * a.D * a.W;
+  const size_t plane = (size_t)a.nb * D * a.W;
 #pragma unroll
   for (int d = 0; d < kMaxD; ++d) {
     f.xr[d] = f.xi[d] = f.yr[d] = f.yi[d] = f.orr[d] = f.oii[d] = 0.f;
-    if (d < a.D && w < a.W) {
-      const size_t i = (size_t)(b * a.D + d) * a.W + w;
+    if (d < D && w < a.W) {
+      const size_t i = (size_t)(b * D + d) * a.W + w;
       f.xr[d] = planes[i];
       f.xi[d] = planes[plane + i];
       f.yr[d] = planes[2 * plane + i];
@@ -521,8 +521,10 @@ __device__ __forceinline__ void load_frame(Frame& f,
 // One bin, every frame, four threads a bin (thread h the m = h mod 4): the
 // forward's O (K7; written to o_out), the MSE term, and the gradient
 // products accumulated over frames into ar/ai at this thread's rows (wv
-// applied later).  The DC bin's threads write db, dp (scaled) to dbdp.
-template <int MODE>
+// applied later).  The DC bin's threads write db, dp (scaled) to dbdp.  D
+// is a template argument: with a run-time D every channel's loads sat
+// behind their own branch, one shared-memory latency each.
+template <int MODE, int D>
 __device__ float tc_bin_pass(const float* __restrict__ sr,
                              const float* __restrict__ si,
                              float* __restrict__ ar, float* __restrict__ ai,
@@ -538,7 +540,7 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
   const int w = tile * kTB + u;
   const bool valid = w < a.W;
   const bool dc = w == 0;
-  const int M = a.M, D = a.D, md = M * D;
+  const int M = a.M, md = M * D;
   const size_t plane = (size_t)a.nb * D * a.W;
   const float wv = valid ? wvg[w] : 0.f;
   if (h == 0) swv[u] = wv;
@@ -547,7 +549,7 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
   Frame cur = first;
   for (int b = 0; b < a.nb; ++b) {
     Frame next;
-    if (b + 1 < a.nb) load_frame<MODE>(next, planes, a, b + 1, w);
+    if (b + 1 < a.nb) load_frame<MODE, D>(next, planes, a, b + 1, w);
     float xr[kMaxD], xi[kMaxD], er[kMaxD], ei[kMaxD];
 #pragma unroll
     for (int d = 0; d < kMaxD; ++d) {
@@ -777,7 +779,7 @@ __device__ void tc_combine(const float* part, float* gpart,
 // tensor cores, the per-bin pass, the projection on the tensor cores, the
 // tile's partial g and MSE term; then the fixed-order sum into out.  Two
 // warpgroups: each product's cos and sin halves go to one each.
-template <int MODE, bool BF16>
+template <int MODE, bool BF16, int D>
 __global__ void __launch_bounds__(kTC, 2)
 tc_sweep_kernel(const float* __restrict__ planes,
                 const __nv_bfloat16* __restrict__ tiles,
@@ -803,7 +805,7 @@ tc_sweep_kernel(const float* __restrict__ planes,
   int* flag = reinterpret_cast<int*>(swv + kTB);
   const int t = threadIdx.x, tile = blockIdx.x;
   Frame first;
-  load_frame<MODE>(first, planes, a, 0, tile * kTB + t / kTPB);
+  load_frame<MODE, D>(first, planes, a, 0, tile * kTB + t / kTPB);
 
   // the tile's basis copies, by cp.async: the rebuild's, then the
   // projection's (waited for only before the projection)
@@ -864,7 +866,7 @@ tc_sweep_kernel(const float* __restrict__ planes,
   }
   __syncthreads();
 
-  const float v = tc_bin_pass<MODE>(sr, si, ar, ai, swv, a, planes, wv,
+  const float v = tc_bin_pass<MODE, D>(sr, si, ar, ai, swv, a, planes, wv,
                                     bias_b, bias_p, o_out, tile, dbdp,
                                     first);
   red[t] = v;
@@ -920,12 +922,30 @@ tc_sweep_kernel(const float* __restrict__ planes,
   tc_combine(part, gpart, tickets, out, n + 1, n, a.scale, a.ntiles, flag);
 }
 
+// the instantiation for (MODE, bf16, D)
+typedef void (*TcKernel)(const float*, const __nv_bfloat16*, const float*,
+                         const float*, const float*, const float*, float*,
+                         float*, float*, unsigned*, float*, float*, Dims);
+template <int MODE, bool BF16>
+TcKernel tc_kernel_d(int D) {
+  switch (D) {
+    case 1: return tc_sweep_kernel<MODE, BF16, 1>;
+    case 2: return tc_sweep_kernel<MODE, BF16, 2>;
+    case 3: return tc_sweep_kernel<MODE, BF16, 3>;
+    default: return tc_sweep_kernel<MODE, BF16, 4>;
+  }
+}
+template <int MODE>
+TcKernel tc_kernel(int bf16, int D) {
+  return bf16 ? tc_kernel_d<MODE, true>(D) : tc_kernel_d<MODE, false>(D);
+}
+
 template <int MODE>
 int launch_tc(const void* planes, const void* tiles, const void* wv,
               const void* cf, const void* bias_b, const void* bias_p,
               void* o_out, void* out, void* dbdp, void* scratch,
               void* tickets, Dims a, int bf16, cudaStream_t st) {
-  auto k = bf16 ? tc_sweep_kernel<MODE, true> : tc_sweep_kernel<MODE, false>;
+  const TcKernel k = tc_kernel<MODE>(bf16, a.D);
   const int bytes = tc_smem_bytes(bf16 ? TcTiers<true>::kProject
                                        : TcTiers<false>::kProject);
   int err = set_smem(k, bytes);
@@ -1111,13 +1131,12 @@ extern "C" int omega_grad_project_launch(
 }
 
 // K5's (fused 0) and K7's (fused 1) tensor-core sweep with float32 or
-// bf16 operands: registers, local bytes, static and dynamic shared memory
-// (wg::attrs) into out[0..3].
-extern "C" int omega_tc_attrs(int fused, int bf16, int* out) {
-  auto k = fused ? (bf16 ? tc_sweep_kernel<kFwdGrad, true>
-                         : tc_sweep_kernel<kFwdGrad, false>)
-                 : (bf16 ? tc_sweep_kernel<kGradGivenO, true>
-                         : tc_sweep_kernel<kGradGivenO, false>);
+// bf16 operands, for D channels (1..4): registers, local bytes, static and
+// dynamic shared memory (wg::attrs) into out[0..3].
+extern "C" int omega_tc_attrs(int fused, int bf16, int D, int* out) {
+  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  const TcKernel k = fused ? tc_kernel<kFwdGrad>(bf16, D)
+                           : tc_kernel<kGradGivenO>(bf16, D);
   return wg::attrs(k, tc_smem_bytes(bf16 ? TcTiers<true>::kProject
                                          : TcTiers<false>::kProject),
                    out);
