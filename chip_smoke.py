@@ -10,10 +10,11 @@ Phases (any failure raises and exits non-zero):
 1. Device: require CUDA; print the card's name and power limit; turn TF32
    off for matmuls and cuDNN, so every plain version runs in float32.
 2. Build: compile the hand-written kernels from ``spectralae_torch/csrc``;
-   then the proof that the two matmul-DFT kernels run on the tensor cores:
+   then the proof that the tensor-core kernels run on the tensor cores:
    the HGMMA (wgmma) instructions of each instantiation of
-   ``dft_leaf_kernel`` and ``ydft_sweep_kernel`` in ``cuobjdump -sass`` of
-   the built library, with ptxas's registers, spills and shared memory.
+   ``dft_leaf_kernel``, ``ydft_sweep_kernel`` and ``tc_sweep_kernel`` (K5,
+   K7) in ``cuobjdump -sass`` of the built library, with each one's
+   registers, spills and shared memory.
 3. Kernels: K1 (``cmul_contract``) and K2 (``conv_valid``) against their
    plain PyTorch versions at the stage shapes of the reference's default
    3-pair net (D=3, M=10, 5x5) at 256^2 batch 8 and at 1024^2 batch 4 —
@@ -65,8 +66,12 @@ Phases (any failure raises and exits non-zero):
    JAX benchmark's headline input (one [3, 256, 256] frame) and at the
    stream's pair-0 input (128^2 b8): K5-K8 against their plain versions
    with float32 and bf16 operands, each output held on its own (O, the MSE
-   sum, g, db, dp; K8's weights, momenta and MSEs), timed beside the plain
-   version and the bound (no single PyTorch call computes any of them);
+   sum, g, db, dp; K8's weights, momenta and MSEs), timed with float32
+   operands (K5 and K7, on the tensor cores, with both, each run twice
+   more and held bit for bit) beside the plain version and the bound (K5,
+   K7: the bytes or their float32 work plus their wgmma passes, with the
+   float32-products bound beside it; no single PyTorch call computes any
+   of them); each time says whether it is the profile's or the events';
    then each engine (``fft_burst_pallas``: K5 and K6 an iteration;
    ``fft_burst_pallas_fused``: one K5, then K7 an iteration;
    ``fft_burst_itergrid``: one K8 a burst) with its launches counted and no

@@ -27,12 +27,11 @@
 // rounding).  mxu_bf16 rounds the operands of the four basis products to
 // bf16 (the JAX mxu_dtype), accumulating in float32.
 //
-// What bounds it on Hopper: float32 operations.  At D = 3, M = 10, 5x5
+// K6 and K8 (sweep_kernel, itergrid_kernel) keep their first design.
+// What bounds them on Hopper: float32 operations.  At D = 3, M = 10, 5x5
 // kernels the four basis products are 2 * 2 * 60 * 25 = 6,000 FMAs a bin
 // per sweep against ~100 bytes of planes and basis, far above the card's
-// flop/byte balance.  No tensor cores: the sums stay IEEE float32.
-//
-// What the design does about it:
+// flop/byte balance; they run them on the CUDA cores in IEEE float32:
 //  - one block per tile of 128 bins, one thread per bin; the basis tile
 //    goes to shared memory as [bin][p] (conflict-free rows of P floats),
 //    the compact kernels as [row][p] (broadcast reads); each thread holds
@@ -43,13 +42,50 @@
 //  - the projection is a [2MD, 128] x [128, P] product per tile, one
 //    thread per (row, 5 p), from shared memory;
 //  - sums across tiles are deterministic: each tile writes its partial g
-//    and MSE to scratch, and a second grid (or, in K8, a stage after a
-//    grid-wide barrier) sums them in tile order — no float atomics, so a
+//    and MSE to scratch, and a second grid (K6) or, in K8, a stage after a
+//    grid-wide barrier sums them in tile order — no float atomics, so a
 //    burst repeats bit for bit and its result does not depend on how many
 //    blocks ran;
 //  - the masked tail: bins past W read zeros and weigh nothing, as the
 //    TPU kernel's zero-padded basis and wv do.
 //
+// K5 and K7 (tc_sweep_kernel) run the two basis products on the tensor
+// cores, which leaves them bound by bytes: at the JAX benchmark's headline
+// (one 256^2 frame, W = 33,024) 9.1 MB of planes, basis and weights, 2.7
+// us at the card's memory rate, against 1.8 us of wgmma passes and 0.8 us
+// of per-bin float32 work.  The design:
+//  - one block of two warpgroups per 64-bin tile, four threads a bin
+//    (each the m = h mod 4 of the per-bin sums), ~89 KB of shared memory:
+//    two blocks, 16 warps, an SM; 516 blocks at the headline, 130 at the
+//    stream's pair-0 input (W = 8,320);
+//  - the spectra rebuild [64 rows x 32 p] . [32 p x 64 bins] and the
+//    projection [64 rows x 64 bins] . [64 bins x 32 p] as m64n64k16 and
+//    m64n32k16 wgmma from shared memory, rows padded 60 -> 64 and P 25 ->
+//    32 with zeros, cos on one warpgroup and sin on the other; operands as
+//    bf16 pieces (wgmma.cuh): with bf16 operands one product (the JAX
+//    mxu_dtype), with float32 ones bf16x6 for the rebuild (bf16x3 left O
+//    8-9e-6 from the float32 product) and bf16x3 for the projection, each
+//    tile's projection fresh (the per-chunk promotion: the tensor cores
+//    truncate as they accumulate); never TF32;
+//  - the host lays the basis out once in the kernel's tile order, two
+//    copies ([bin][p] for the rebuild, [p][bin] for the projection), and
+//    a block takes its tile's by cp.async; the compact kernels are split
+//    into pieces in the block, the gradient products written straight into
+//    the projection's A layout as pieces;
+//  - D is a template argument (the channel loops unroll without branches);
+//    the first frame's planes load before anything else, each next frame's
+//    during the current one;
+//  - one grid a launch: each tile writes its partial; the last block of
+//    each group of 16 tiles to take an atomic ticket (one fence a block,
+//    after a barrier) sums the group's partials in tile order, the last
+//    group's block sums the groups in order.  No float atomics: the result
+//    repeats bit for bit, whatever order the blocks ran in.
+// What remains (scripts/torch_omega_timeline.py): per block ~3.5 us of
+// setup (the 40 KB of basis pieces a tile; float32 operands) and the
+// rebuild, 2.3 us of per-bin pass a frame at nb = 1 and 1.5 us a frame at
+// nb = 8, and a serial tail of ~7-9 us after the last partial (two fences
+// and the last group's and the groups' sums).
+
 // K8, the whole burst in one launch: a cooperative launch
 // (cudaLaunchCooperativeKernel) with every block resident (grid sized by
 // the occupancy query, blocks striding over the tiles).  Per iteration:
@@ -439,7 +475,7 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------
-// K5 and K7 on the tensor cores: one warpgroup a tile of kTB bins.
+// K5 and K7 on the tensor cores: two warpgroups a tile of kTB bins.
 
 constexpr int kTB = 64;          // bins a tile (block)
 constexpr int kTBS = kTB + 8;    // row stride of the per-bin arrays: the
@@ -575,7 +611,8 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
 #pragma unroll
           for (int d = 0; d < kMaxD; ++d) {
             if (d < D) {
-              const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+              const int jc = (m * D + d) * kTBS;
+              const float cr = sr[jc], ci = si[jc];
               hr += cr * xr[d] - ci * xi[d];
               hi += cr * xi[d] + ci * xr[d];
             }
@@ -624,7 +661,8 @@ __device__ float tc_bin_pass(const float* __restrict__ sr,
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d) {
           if (d < D) {
-            const float cr = sr[(m * D + d) * kTBS], ci = si[(m * D + d) * kTBS];
+            const int jc = (m * D + d) * kTBS;
+            const float cr = sr[jc], ci = si[jc];
             hr += cr * xr[d] - ci * xi[d];
             hi += cr * xi[d] + ci * xr[d];
             const int j = md + d * M + m;
@@ -826,7 +864,8 @@ tc_sweep_kernel(const float* __restrict__ planes,
       v[k] = (j < a.rows && k0 + k < a.P) ? cf[j * a.P + k0 + k] : 0.f;
     __nv_bfloat16* dst[RP];
 #pragma unroll
-    for (int i = 0; i < RP; ++i) dst[i] = cfs + i * kMaxRows * kMaxP + off32(j, k0);
+    for (int i = 0; i < RP; ++i)
+      dst[i] = cfs + i * kMaxRows * kMaxP + off32(j, k0);
     wg::store_row8<RP>(v, dst);
   }
   wg::cp_async_wait<1>();

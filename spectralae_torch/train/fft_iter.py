@@ -34,8 +34,7 @@ def burst_itergrid(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
     """One-launch burst; ``x/expout/out0``: ``[D, h, w]`` (the reference
     burst) or ``[B, D, h, w]`` (batch-averaged gradients, ``fft_burst_dp``
     semantics)."""
-    s = _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype,
-                 with_tiles=False)
+    s = _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype)
     P = c.shape[-2] * c.shape[-1]
     mom = mom if mom is not None else zero_moms(c, f, b, p)
     cf, bn, pn, mcf, mb, mp, mse_raw = bk.itergrid(

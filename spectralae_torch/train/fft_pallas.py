@@ -85,7 +85,6 @@ class _Burst(NamedTuple):
     wv: torch.Tensor
     consts: dict           # norm, inv_m, inv_d, scale (the kernels' keywords)
     bf16: bool
-    tiles: torch.Tensor | None   # K5's and K7's basis tiles (CUDA only)
 
 
 def _check_mxu(mxu_dtype) -> bool:
@@ -101,8 +100,7 @@ def _no_axis(axis_name) -> None:
                                   "ROADMAP A12")
 
 
-def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype,
-             with_tiles: bool = True) -> _Burst:
+def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype) -> _Burst:
     bf16 = _check_mxu(mxu_dtype)
     if x.dim() == 3:
         x, expout, out0 = x[None], expout[None], out0[None]
@@ -121,9 +119,16 @@ def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype,
                   scale=1.0 / (n_norm * nb))
     return _Burst(nb, nx, ny, dM * dD, planes, Y, O,
                   _basis(nk, nl, nx, ny, x.device),
-                  _herm_weights(nx, ny, x.device), consts, bf16,
-                  _basis_tiles(nk, nl, nx, ny, bf16, x.device)
-                  if x.is_cuda and with_tiles else None)
+                  _herm_weights(nx, ny, x.device), consts, bf16)
+
+
+def _card_tiles(s: _Burst, c) -> torch.Tensor | None:
+    """K5's and K7's basis tiles for a burst on the card (None on the CPU,
+    where the wrappers take the plain versions)."""
+    if not s.planes.is_cuda:
+        return None
+    return _basis_tiles(c.shape[-2], c.shape[-1], s.nx, s.ny, s.bf16,
+                        s.planes.device)
 
 
 def _mse_of(raw, c, nx, ny):
@@ -184,12 +189,12 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
     k = s.consts
     moms = mom if mom is not None else zero_moms(c, f, b, p)
     mses = _mses(s, c, iters, x.dtype)
-    planes = s.planes
+    planes, tiles = s.planes, _card_tiles(s, c)
     for i in range(iters):
         g, gb, gp = bk.grad_project(planes, s.basis, s.wv,
                                     _stack(c, f, s.md, P), b, norm=k["norm"],
                                     scale=k["scale"], mxu_bf16=s.bf16,
-                                    tiles=s.tiles)
+                                    tiles=tiles)
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
@@ -221,17 +226,18 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
     k = s.consts
     moms = mom if mom is not None else zero_moms(c, f, b, p)
     mses = _mses(s, c, iters, x.dtype)
+    tiles = _card_tiles(s, c)
     g, gb, gp = bk.grad_project(s.planes, s.basis, s.wv,
                                 _stack(c, f, s.md, P), b, norm=k["norm"],
                                 scale=k["scale"], mxu_bf16=s.bf16,
-                                tiles=s.tiles)
+                                tiles=tiles)
     for i in range(iters):
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
         _, msep, g, gb, gp = bk.fused_step(
             s.planes, s.basis, s.wv, _stack(c, f, s.md, P), b, p,
-            mxu_bf16=s.bf16, out=s.planes[4:], tiles=s.tiles, **k)
+            mxu_bf16=s.bf16, out=s.planes[4:], tiles=tiles, **k)
         mses[i + 1] = _mse_of(msep, c, s.nx, s.ny)
     return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms, mses=mses)
 

@@ -106,10 +106,10 @@ def _emulate(planes, basis, wv, cf, b, p, consts, bf16, fused):
     """K7 (``fused``) or K5 as the tensor-core sweep computes it: the
     spectra from the bf16 pieces at the rebuild's tier, the per-bin pass in
     float32, then per 64-bin tile the projection of ``d_re·wv`` against cos
-    and ``−d_im·wv`` against sin at the projection's tier, the tiles'
-    partials summed in groups of :data:`TC_GROUP` in tile order and the
-    groups in order, times ``scale`` at the end.  Returns O (K7), the MSE
-    sum, g, db, dp."""
+    plus that of ``−d_im·wv`` against sin (one warpgroup each) at the
+    projection's tier, the tiles' partials summed in groups of
+    :data:`TC_GROUP` in tile order and the groups in order, times
+    ``scale`` at the end.  Returns O (K7), the MSE sum, g, db, dp."""
     rt, pt = bk.TC_TIERS[bf16]
     nb, M, D, W = bk._dims(planes, cf, b)
     allr = fk.split_dot(cf, basis[0], rt)
@@ -134,14 +134,13 @@ def _emulate(planes, basis, wv, cf, b, p, consts, bf16, fused):
     T, G = bk.TC_TILE, bk.TC_GROUP
     ng = -(-(-(-W // T)) // G)
 
-    def tiled(a):                         # [r, W] -> [ng·G, r, T], zeros past W
+    def tiled(a):              # [r, W] -> [ng·G, r, T], zeros past W
         z = a.new_zeros(a.shape[0], ng * G * T)
         z[:, :W] = a
         return z.reshape(a.shape[0], ng * G, T).permute(1, 0, 2)
-    A = torch.cat([tiled(d_re), tiled(-d_im)], -1)
-    B = torch.cat([tiled(basis[0]), tiled(basis[1])], -1)
-    part = fk.split_dot(A, B.transpose(-1, -2), pt).reshape(ng, G, -1,
-                                                            basis.shape[1])
+    part = (fk.split_dot(tiled(d_re), tiled(basis[0]).transpose(-1, -2), pt)
+            + fk.split_dot(tiled(-d_im), tiled(basis[1]).transpose(-1, -2),
+                           pt)).reshape(ng, G, -1, basis.shape[1])
     group = part[:, 0]
     for i in range(1, G):
         group = group + part[:, i]
@@ -214,5 +213,5 @@ def test_tiles_are_checked_and_built_on_demand():
     with pytest.raises(ValueError, match="basis_tiles"):
         bk._tiles(built.float(), s.basis, False)
     # the engines build them for CUDA tensors only, once per shape
-    assert s.tiles is None
+    assert fp._card_tiles(s, torch.zeros(10, 3, 5, 5)) is None
 
