@@ -1665,6 +1665,17 @@ OMEGA_ITERS = 100
 TOL_OMEGA, TOL_OMEGA_BF16 = 1e-5, 2e-3
 
 
+def omega_tols(key: str, bf16: bool) -> dict:
+    """Each output's tolerance of K5-K8 against its plain version:
+    TOL_OMEGA (K8's weights: TOL_STREAM_W), TOL_OMEGA_BF16 with bf16
+    operands; K8's momenta and MSEs at least the stream comparison's."""
+    t = (TOL_OMEGA_BF16 if bf16 else TOL_STREAM_W if key == "k8"
+         else TOL_OMEGA)
+    return {out: max(t, TOL_STREAM_MSE if out == "mses" else TOL_STREAM_MOM)
+            if key == "k8" and out[0] == "m" else t
+            for out in OMEGA_OUTPUTS[key]}
+
+
 def omega_cost(key: str, nb: int, m: int, d: int, p: int, w: int,
                iters: int = 0):
     """Float32 operations and bytes of one launch of K5-K8 over ``w`` bins
@@ -1696,7 +1707,8 @@ def omega_cost(key: str, nb: int, m: int, d: int, p: int, w: int,
 def omega_tc_bound(key: str, nb: int, m: int, d: int, p: int, w: int,
                    bf16: bool) -> tuple[float, str]:
     """The bound of K5 or K7 as they now run: the larger of the bytes
-    (omega_cost's) over the memory rate and the operations over their
+    (omega_cost's, the basis at 2 bytes an element with bf16 operands)
+    over the memory rate and the operations over their
     rates, the per-bin float32 work at the float32 peak plus the basis
     products at the bf16 tensor-core peak, each pass of a tier's products
     counted (burst_kernels.TC_TIERS: the rebuild's and the projection's
@@ -1704,6 +1716,8 @@ def omega_tc_bound(key: str, nb: int, m: int, d: int, p: int, w: int,
     from spectralae_torch.ops import burst_kernels as bk
     from spectralae_torch.ops import fft_kernels as fk
     flops, nbytes = omega_cost(key, nb, m, d, p, w)
+    if bf16:    # the function needs the basis once, as bf16
+        nbytes -= 2.0 * 2 * p * w
     basis = 4.0 * (2 * m * d) * p * w        # one pass of one product
     rebuild, project = (len(fk._PRODUCTS[t]) for t in bk.TC_TIERS[bf16])
     t_tc = (rebuild + project) * basis / fk.BF16_TC_FLOP_PER_S * 1e3
@@ -1770,31 +1784,25 @@ def _omega_kernel_rows(label, x, out0, w) -> dict:
         k5 = {n: k[n] for n in ("norm", "scale", "mxu_bf16")}
         k6 = {n: k[n] for n in ("norm", "inv_m", "inv_d", "mxu_bf16")}
         k8 = dict(k, iters=it, lr_eff=0.02, alpha=0.9)
-        tol = TOL_OMEGA_BF16 if bf16 else TOL_OMEGA
         tag = f"{label} {variant} operands, W={W}"
-        tiles = bk.basis_tiles(s.basis, bf16)
         calls = {
-            "k5": (lambda: bk.grad_project(*ops, **k5, tiles=tiles),
-                   lambda: bk.grad_project_plain(*ops, **k5), tol),
+            "k5": (lambda: bk.grad_project(*ops, **k5),
+                   lambda: bk.grad_project_plain(*ops, **k5)),
             "k6": (lambda: bk.respectra_conv(*ops, p, **k6),
-                   lambda: bk.respectra_conv_plain(*ops, p, **k6), tol),
-            "k7": (lambda: bk.fused_step(*ops, p, **k, tiles=tiles),
-                   lambda: bk.fused_step_plain(*ops, p, **k), tol),
+                   lambda: bk.respectra_conv_plain(*ops, p, **k6)),
+            "k7": (lambda: bk.fused_step(*ops, p, **k),
+                   lambda: bk.fused_step_plain(*ops, p, **k)),
             "k8": (lambda: bk.itergrid(*ops, p, *zeros, **k8),
-                   lambda: bk.itergrid_plain(*ops, p, *zeros, **k8),
-                   TOL_OMEGA_BF16 if bf16 else TOL_STREAM_W)}
+                   lambda: bk.itergrid_plain(*ops, p, *zeros, **k8))}
         for key, name, _ in OMEGA_ROWS:
-            kern, plain, t = calls[key]
+            kern, plain = calls[key]
+            tols = omega_tols(key, bf16)
             got, want = kern(), plain()
             what = f"K{key[1]} {name} {tag}" + (f", {it} iterations"
                                                 if key == "k8" else "")
-            held = {}   # output -> (norm-relative error, tolerance)
-            for out, g_, w_ in zip(OMEGA_OUTPUTS[key], got, want):
-                tt = t   # K8's momenta and MSEs: the stream comparison's
-                if key == "k8" and out[0] == "m":
-                    tt = max(t, TOL_STREAM_MSE if out == "mses"
-                             else TOL_STREAM_MOM)
-                held[out] = (rel_err(g_.reshape(-1), w_.reshape(-1)), tt)
+            held = {out: (rel_err(g_.reshape(-1), w_.reshape(-1)),
+                          tols[out])   # norm-relative error, tolerance
+                    for out, g_, w_ in zip(OMEGA_OUTPUTS[key], got, want)}
             print(f"{what}: " + ", ".join(f"{o} rel {e:.3e} (tol {tt:g})"
                                           for o, (e, tt) in held.items()),
                   flush=True)
@@ -1811,15 +1819,15 @@ def _omega_kernel_rows(label, x, out0, w) -> dict:
                 same = all(torch.equal(got, _flat(kern())) for _ in range(2))
                 check(same, f"{what}: three runs differ")
                 bound = omega_tc_bound(key, nb, M, D, P, W, bf16)
-                extra = (f"; three runs bit-identical; bound with float32 "
-                         f"basis products {old[0]:.4f} ms ({old[1]})")
+                extra = (f"; three runs bit-identical; the old bound "
+                         f"(float32 basis products) {old[0]:.4f} ms "
+                         f"({old[1]})")
             elif bf16:   # held, not timed
                 continue
             rows[(key, variant)] = measure(
                 what, got, want, kern, plain, bound,
                 max(tt for _, tt in held.values()), library=None,
                 names=OMEGA_GRIDS, rel=rel, extra=extra)
-            rows[(key, variant)]["bound_f32_products_ms"] = old[0]
     return rows, errs, rels
 
 
@@ -2711,7 +2719,6 @@ def main() -> int:
             row["device_ms_100_iteration_burst"] = omega_timing[
                 (head, "omega_itergrid")]["device_ms"]
         if key in OMEGA_TC:
-            row["bound_f32_products_ms"] = r["bound_f32_products_ms"]
             row["hgmma"] = {n: c for n, c in hgmma.items()
                             if "tc_sweep_kernel" in n}
         kernels.append(row)

@@ -148,14 +148,14 @@ def main() -> int:
         ops = (s.planes, s.basis, s.wv, cf, w[2])
         k = dict(s.consts)
         ntiles = -(-s.planes.shape[-1] // bk.TC_TILE)
-        tiles = fp._card_tiles(s, w[0])
         calls = {
-            "K7": lambda: bk.fused_step(*ops, w[3], tiles=tiles, **k),
+            "K7": lambda: bk.fused_step(*ops, w[3], **k),
             "K5": lambda: bk.grad_project(*ops, norm=k["norm"],
-                                          scale=k["scale"], tiles=tiles)}
+                                          scale=k["scale"])}
+        key = (s.planes.device, torch.cuda.current_stream().cuda_stream)
         for name, call in calls.items():
             report(f"{name} {label}, {ntiles} tiles",
-                   timeline(bk, lambda: bk._TICKETS[s.planes.device], call,
+                   timeline(bk, lambda: bk._TICKETS[key], call,
                             ntiles))
     return 0
 

@@ -212,8 +212,10 @@ __device__ float bin_pass(const Smem& s, const Dims& a,
                           const float* __restrict__ bias_p,
                           float* __restrict__ o_out, int tile,
                           float* __restrict__ dbdp) {
+  static_assert(MODE == kFwd || MODE == kItGivenO || MODE == kItFwd,
+                "K5 and K7 run tc_bin_pass");
   constexpr bool GRAD = MODE != kFwd;
-  constexpr bool FWD = MODE == kFwd || MODE == kFwdGrad || MODE == kItFwd;
+  constexpr bool FWD = MODE == kFwd || MODE == kItFwd;
   constexpr bool ERW = MODE == kItGivenO || MODE == kItFwd;
   const int t = threadIdx.x;
   const int w = tile * kT + t;
@@ -351,16 +353,8 @@ __device__ float bin_pass(const Smem& s, const Dims& a,
       }
     }
   }
-  if (GRAD) {
-    if (!ERW) {
-      for (int j = 0; j < a.rows; ++j) {
-        ar[j * kTS] *= wv;
-        ai[j * kTS] *= wv;
-      }
-    }
-    if (dc) {
-      for (int k = 0; k < M + D; ++k) dbdp[k] = dbdp[k] * a.norm * a.scale;
-    }
+  if (GRAD && dc) {
+    for (int k = 0; k < M + D; ++k) dbdp[k] = dbdp[k] * a.norm * a.scale;
   }
   return mse;
 }
@@ -411,8 +405,8 @@ __device__ void load_cf(const Smem& s, const Dims& a, const float* cf) {
   for (int i = threadIdx.x; i < a.rows * a.P; i += kT) s.cf[i] = cf[i];
 }
 
-// K5 (GRAD_ONLY) and K7: per tile, partial g [rows*P] then the MSE term
-template <int MODE, bool BF16>
+// K6: per tile, the MSE term of its bins (O written to o_out)
+template <bool BF16>
 __global__ void __launch_bounds__(kT)
 sweep_kernel(const float* __restrict__ planes, const float* __restrict__ basis,
              const float* __restrict__ wv, const float* __restrict__ cf,
@@ -427,12 +421,10 @@ sweep_kernel(const float* __restrict__ planes, const float* __restrict__ basis,
   __syncthreads();
   spectra<BF16>(s, a);
   __syncthreads();
-  const float v = bin_pass<MODE>(s, a, planes, wv, bias_b, bias_p, o_out,
+  const float v = bin_pass<kFwd>(s, a, planes, wv, bias_b, bias_p, o_out,
                                  tile, dbdp);
   const float mse = block_mse(s, a, v);
-  const int n = MODE == kFwd ? 0 : a.rows * a.P;
-  if (MODE != kFwd) project<BF16>(s, a, part + (size_t)tile * (n + 1));
-  if (threadIdx.x == 0) part[(size_t)tile * (n + 1) + n] = mse;
+  if (threadIdx.x == 0) part[tile] = mse;
 }
 
 // out[o] = sum over tiles, in tile order, of part[tile][o] (times scale for
@@ -1109,12 +1101,12 @@ itergrid_kernel(const float* __restrict__ planes,
   }
 }
 
-template <int MODE>
+// K6: the sweep, then the MSE terms summed in tile order into out[0]
 int launch_sweep(const void* planes, const void* basis, const void* wv,
                  const void* cf, const void* bias_b, const void* bias_p,
                  void* o_out, void* out, void* dbdp, void* scratch,
                  const Dims& a, int bf16, cudaStream_t st) {
-  auto k = bf16 ? sweep_kernel<MODE, true> : sweep_kernel<MODE, false>;
+  auto k = bf16 ? sweep_kernel<true> : sweep_kernel<false>;
   const size_t bytes = smem_floats(a, false) * sizeof(float);
   int err = set_smem(k, bytes);
   if (err) return err;
@@ -1126,9 +1118,8 @@ int launch_sweep(const void* planes, const void* basis, const void* wv,
       static_cast<float*>(o_out), part, static_cast<float*>(dbdp), a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const int n_total = MODE == kFwd ? 1 : a.rows * a.P + 1;
-  reduce_kernel<<<(n_total + kT - 1) / kT, kT, 0, st>>>(
-      part, a.ntiles, n_total, n_total - 1, a.scale, static_cast<float*>(out));
+  reduce_kernel<<<1, kT, 0, st>>>(part, a.ntiles, 1, 0, 1.f,
+                                  static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1191,9 +1182,8 @@ extern "C" int omega_respectra_launch(
   Dims a;
   if (!make_dims(nb, M, D, P, W, norm, inv_m, inv_d, 1.f, &a))
     return (int)cudaErrorInvalidValue;
-  return launch_sweep<kFwd>(planes, basis, wv, cf, b, p, o_out, mse_out,
-                            nullptr, scratch, a, bf16,
-                            static_cast<cudaStream_t>(stream));
+  return launch_sweep(planes, basis, wv, cf, b, p, o_out, mse_out, nullptr,
+                      scratch, a, bf16, static_cast<cudaStream_t>(stream));
 }
 
 // K7.  As K6, and the next gradients: out = g [2MD*P] then the MSE sum;

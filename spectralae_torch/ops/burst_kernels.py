@@ -309,37 +309,54 @@ def _scratch(kind: int, nb, M, D, P, W, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
-#: per card, the tickets of K5's and K7's fixed-order sum: zeros, which
-#: every launch leaves zero (launches on one stream at a time)
+#: by (card, stream), the tickets of K5's and K7's fixed-order sum:
+#: zeros, which every launch leaves zero.  Launches on one stream run in
+#: order, so each finds them zero; launches on two streams may overlap, so
+#: each stream has its own.
 _TICKETS: dict = {}
 
 
 def _tickets(W: int, device) -> torch.Tensor:
     tiles = -(-W // TC_TILE)
     n = -(-tiles // TC_GROUP) + 1     # one a group, one for the groups
-    t = _TICKETS.get(device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         with torch.inference_mode(False):
-            t = _TICKETS[device] = torch.zeros(max(n, 1024),
-                                               dtype=torch.int32,
-                                               device=device)
+            t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
     return t
 
 
-def _tiles(tiles, basis, bf16: bool) -> torch.Tensor:
-    """The basis tiles a launch reads: ``tiles`` when given (checked
-    against ``basis``'s shape), else built from ``basis``."""
-    if tiles is None:
-        return basis_tiles(basis, bf16)
-    nt = -(-basis.shape[-1] // TC_TILE)
-    n = sum(fft_kernels._TIERS[p] + 1 for p in TC_TIERS[bf16]) * 2 * _MAX_P \
-        * TC_TILE
-    if (tiles.dtype != torch.bfloat16 or tuple(tiles.shape) != (nt, n)
-            or tiles.device != basis.device or not tiles.is_contiguous()):
-        raise ValueError(f"tiles must be basis_tiles(basis, {bf16}): "
-                         f"[{nt}, {n}] bf16 on {basis.device}, got "
-                         f"{tuple(tiles.shape)} {tiles.dtype}")
-    return tiles
+#: K5's and K7's basis tiles by (basis tensor, ``mxu_bf16``), oldest
+#: first: each entry holds its basis (so the key's ``id`` stays its own),
+#: the basis's version counter when laid out, and the tiles.  The engines'
+#: bases are cached (``train/fft_pallas._basis``), so a burst lays its tiles
+#: out once.  At float32 operands the five bf16 pieces take 3.2x the
+#: float32 basis (336 MB at 1024² frames).
+_TILE_CACHE: dict = {}
+_TILE_CACHE_SIZE = 4
+
+
+def _version(t: torch.Tensor):
+    try:
+        return t._version
+    except RuntimeError:     # an inference tensor keeps no version counter
+        return None
+
+
+def _tiles(basis: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """The basis tiles a launch reads: :func:`basis_tiles` of ``basis``,
+    laid out again only when ``basis`` is a tensor not seen lately or was
+    changed in place since."""
+    key = (id(basis), bool(bf16))
+    hit = _TILE_CACHE.pop(key, None)
+    if hit is None or hit[1] != _version(basis):
+        hit = (basis, _version(basis), basis_tiles(basis, bf16))
+    _TILE_CACHE[key] = hit
+    while len(_TILE_CACHE) > _TILE_CACHE_SIZE:
+        del _TILE_CACHE[next(iter(_TILE_CACHE))]
+    return hit[2]
 
 
 def _ptrs(tensors) -> list:
@@ -361,15 +378,15 @@ def _o_out(out, planes, nb, D, W):
 
 
 def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
-                 mxu_bf16: bool = False, tiles=None):
+                 mxu_bf16: bool = False):
     """Projected gradients of one burst iteration from O (K5).
 
     ``planes [6, nb·D, W]`` (X, Y, O re/im); returns ``g [2·M·D, P]``
     (c's rows, then f's), ``db [M]`` and ``dp [D]``, each summed over the
     frames and scaled by ``scale`` (``1/(2·M·D·N²·nb)``), db and dp also by
-    ``norm`` (N = nx·ny).  ``tiles``: ``basis_tiles(basis, mxu_bf16)``,
-    which the kernel reads in place of ``basis`` (built here when None).
-    CPU tensors take :func:`grad_project_plain`.
+    ``norm`` (N = nx·ny).  The kernel reads ``basis`` as its bf16 tiles
+    (:func:`basis_tiles`, laid out once per basis tensor).  CPU tensors
+    take :func:`grad_project_plain`.
     """
     _check("grad_project", planes, basis, wv, cf, b, kinds=(6,))
     if not _on_card(planes, "grad_project"):
@@ -379,7 +396,7 @@ def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
     rows, P = cf.shape
     dev = planes.device
     # every buffer stays referenced until the launch is enqueued
-    ins = [t.contiguous() for t in (planes, _tiles(tiles, basis, mxu_bf16),
+    ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16),
                                     wv, cf, b)]
     out = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)
@@ -426,13 +443,13 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
 
 
 def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
-               inv_d: float, scale: float, mxu_bf16: bool = False, out=None,
-               tiles=None):
+               inv_d: float, scale: float, mxu_bf16: bool = False, out=None):
     """K6 and then K5 on the fresh O, in one sweep (K7).
 
     Returns O (into ``out`` when given), the MSE sum, g, db, dp, as
-    :func:`respectra_conv` and :func:`grad_project` do; ``tiles`` as
-    :func:`grad_project`'s.  CPU tensors take :func:`fused_step_plain`.
+    :func:`respectra_conv` and :func:`grad_project` do, and reads the
+    basis as :func:`grad_project` does.  CPU tensors take
+    :func:`fused_step_plain`.
     """
     _check("fused_step", planes, basis, wv, cf, b, p)
     nb, M, D, W = _dims(planes, cf, b)
@@ -444,7 +461,7 @@ def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
         return O.copy_(got), mse, g, db, dp
     rows, P = cf.shape
     dev = planes.device
-    ins = [t.contiguous() for t in (planes, _tiles(tiles, basis, mxu_bf16),
+    ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16),
                                     wv, cf, b, p)]
     res = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)

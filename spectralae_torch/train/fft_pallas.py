@@ -54,14 +54,6 @@ def _basis(nk: int, nl: int, nx: int, ny: int,
         return torch.as_tensor(both, device=device)
 
 
-@functools.lru_cache(maxsize=4)
-def _basis_tiles(nk: int, nl: int, nx: int, ny: int, bf16: bool,
-                 device: torch.device) -> torch.Tensor:
-    """:func:`_basis` as K5's and K7's bf16 tiles
-    (:func:`spectralae_torch.ops.burst_kernels.basis_tiles`), built once."""
-    return bk.basis_tiles(_basis(nk, nl, nx, ny, device), bf16)
-
-
 @functools.lru_cache(maxsize=None)
 def _herm_weights(nx: int, ny: int, device: torch.device) -> torch.Tensor:
     """Per-bin Hermitian double-count weights ``[W]`` (the per-column
@@ -122,15 +114,6 @@ def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype) -> _Burst:
                   _herm_weights(nx, ny, x.device), consts, bf16)
 
 
-def _card_tiles(s: _Burst, c) -> torch.Tensor | None:
-    """K5's and K7's basis tiles for a burst on the card (None on the CPU,
-    where the wrappers take the plain versions)."""
-    if not s.planes.is_cuda:
-        return None
-    return _basis_tiles(c.shape[-2], c.shape[-1], s.nx, s.ny, s.bf16,
-                        s.planes.device)
-
-
 def _mse_of(raw, c, nx, ny):
     """An MSE sum as the Parseval MSE: ``/ (D·N) / (2·M·N)`` (``calc_mse``
     and ``mse_fft``'s norm)."""
@@ -189,12 +172,11 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
     k = s.consts
     moms = mom if mom is not None else zero_moms(c, f, b, p)
     mses = _mses(s, c, iters, x.dtype)
-    planes, tiles = s.planes, _card_tiles(s, c)
+    planes = s.planes
     for i in range(iters):
         g, gb, gp = bk.grad_project(planes, s.basis, s.wv,
                                     _stack(c, f, s.md, P), b, norm=k["norm"],
-                                    scale=k["scale"], mxu_bf16=s.bf16,
-                                    tiles=tiles)
+                                    scale=k["scale"], mxu_bf16=s.bf16)
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
@@ -226,18 +208,16 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
     k = s.consts
     moms = mom if mom is not None else zero_moms(c, f, b, p)
     mses = _mses(s, c, iters, x.dtype)
-    tiles = _card_tiles(s, c)
     g, gb, gp = bk.grad_project(s.planes, s.basis, s.wv,
                                 _stack(c, f, s.md, P), b, norm=k["norm"],
-                                scale=k["scale"], mxu_bf16=s.bf16,
-                                tiles=tiles)
+                                scale=k["scale"], mxu_bf16=s.bf16)
     for i in range(iters):
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
         _, msep, g, gb, gp = bk.fused_step(
             s.planes, s.basis, s.wv, _stack(c, f, s.md, P), b, p,
-            mxu_bf16=s.bf16, out=s.planes[4:], tiles=tiles, **k)
+            mxu_bf16=s.bf16, out=s.planes[4:], **k)
         mses[i + 1] = _mse_of(msep, c, s.nx, s.ny)
     return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms, mses=mses)
 

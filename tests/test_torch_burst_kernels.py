@@ -143,16 +143,49 @@ def test_tensor_core_kernels_repeat_bit_for_bit_at_the_headline(cuda_device,
     """K5 and K7 at W = 33,024 (516 tiles, 33 groups of the fixed-order
     sum): the tiles finish in another order each run, the sums do not."""
     s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 256, seed=5)
-    tiles = bk.basis_tiles(s.basis, bf16)
     runs = []
     for _ in range(3):
         runs.append(torch.cat([t.reshape(-1) for t in (
             *bk.grad_project(s.planes, s.basis, s.wv, cf, b,
                              norm=s.consts["norm"], scale=s.consts["scale"],
-                             mxu_bf16=bf16, tiles=tiles),
+                             mxu_bf16=bf16),
             *bk.fused_step(s.planes, s.basis, s.wv, cf, b, p, mxu_bf16=bf16,
-                           tiles=tiles, **s.consts))]))
+                           **s.consts))]))
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_on_two_streams_at_once(cuda_device):
+    """K5 on one stream and K7 on another, their launches side by side,
+    give bit for bit what each gives alone: the tickets of the fixed-order
+    sum are a stream's own.  Both streams wait behind ~25 ms of spinning on
+    the main one, so that each holds its 20 launches queued when the card
+    turns to them (enqueued one by one, a launch ends before the next)."""
+    s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 256, seed=7)
+
+    def k5():
+        return torch.cat([t.reshape(-1) for t in bk.grad_project(
+            s.planes, s.basis, s.wv, cf, b, norm=s.consts["norm"],
+            scale=s.consts["scale"])])
+
+    def k7():
+        return torch.cat([t.reshape(-1) for t in bk.fused_step(
+            s.planes, s.basis, s.wv, cf, b, p, **s.consts)])
+    want = (k5(), k7())
+    main = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda._sleep(50_000_000)
+    for st in streams:
+        st.wait_stream(main)
+    got = []
+    for _ in range(20):
+        for st, run in zip(streams, (k5, k7)):
+            with torch.cuda.stream(st):
+                got.append(run())
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want[i % 2]) for i, g in enumerate(got))
 
 
 @pytest.mark.cuda

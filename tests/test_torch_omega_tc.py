@@ -204,14 +204,24 @@ def test_three_products_would_miss_the_rebuild_budget():
 
 
 def test_tiles_are_checked_and_built_on_demand():
+    """A launch's tiles are laid out once per basis tensor and operand
+    type, and again when the basis changes in place."""
     s, cf, b, p = _problem(1, 3, 10, 5, 16)
-    built = bk._tiles(None, s.basis, False)
+    built = bk._tiles(s.basis, False)
     assert torch.equal(built, bk.basis_tiles(s.basis, False))
-    assert bk._tiles(built, s.basis, False) is built
-    with pytest.raises(ValueError, match="basis_tiles"):
-        bk._tiles(built, s.basis, True)      # the other tiers' pieces
-    with pytest.raises(ValueError, match="basis_tiles"):
-        bk._tiles(built.float(), s.basis, False)
-    # the engines build them for CUDA tensors only, once per shape
-    assert fp._card_tiles(s, torch.zeros(10, 3, 5, 5)) is None
+    assert bk._tiles(s.basis, False) is built
+    # the engines' basis is one cached tensor, so a burst reuses its tiles
+    again = _problem(1, 3, 10, 5, 16, seed=1)[0]
+    assert again.basis is s.basis and bk._tiles(again.basis, False) is built
+    other = bk._tiles(s.basis, True)     # the other tiers' pieces
+    assert torch.equal(other, bk.basis_tiles(s.basis, True))
+    basis = s.basis.clone()
+    first = bk._tiles(basis, False)
+    assert first is not built and torch.equal(first, built)
+    basis[0, 0, 0] += 1.0
+    assert torch.equal(bk._tiles(basis, False),
+                       bk.basis_tiles(basis, False))
+    for _ in range(bk._TILE_CACHE_SIZE + 1):     # the cache stays bounded
+        bk._tiles(s.basis.clone(), False)
+    assert len(bk._TILE_CACHE) == bk._TILE_CACHE_SIZE
 
