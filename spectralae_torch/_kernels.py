@@ -80,15 +80,15 @@ _SIGNATURES = {
     # planes, tiles, wv, cf, b, out, dbdp, scratch, tickets, nb, M, D, P, W,
     # norm, scale, bf16, stream
     "omega_grad_project_launch": (_P,) * 9 + (_I,) * 5 + (_F, _F, _I, _P),
-    # fused, bf16, D, out[4]
+    # kind (0 K5, 1 K7, 2 K6, 3 K8), bf16, D, out[4]
     "omega_tc_attrs": (_I, _I, _I, _P),
-    # planes, basis, wv, cf, b, p, o_out, mse_out, scratch, nb, M, D, P, W,
-    # norm, inv_m, inv_d, bf16, stream
-    "omega_respectra_launch": (_P,) * 9 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+    # planes, tiles, wv, cf, b, p, o_out, mse_out, scratch, tickets, nb, M,
+    # D, P, W, norm, inv_m, inv_d, bf16, stream
+    "omega_respectra_launch": (_P,) * 10 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
     # planes, tiles, wv, cf, b, p, o_out, out, dbdp, scratch, tickets, nb,
     # M, D, P, W, norm, inv_m, inv_d, scale, bf16, stream
     "omega_fused_step_launch": (_P,) * 11 + (_I,) * 5 + (_F,) * 4 + (_I, _P),
-    # planes, basis, wv, state_in, state_out, mse_out, scratch, nb, M, D, P,
+    # planes, tiles, wv, state_in, state_out, mse_out, scratch, nb, M, D, P,
     # W, iters, norm, inv_m, inv_d, scale, lr_eff, alpha, bf16, stream
     "omega_itergrid_launch": (_P,) * 7 + (_I,) * 6 + (_F,) * 6 + (_I, _P),
     # x, out, rows, in_cols, out_cols, stream

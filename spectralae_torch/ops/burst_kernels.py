@@ -23,16 +23,18 @@ weights.  All live in ``csrc/omega_burst.cu``, whose header note says what
 bounds them and how.  Each has a plain PyTorch version here, which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts one launch per call of a kernel's C entry
-point.  A launch of K5, K7 or K8 is one grid (K5 and K7 sum their tiles'
-partials in a fixed order inside it); one of K6 is two, the sweep and then
-that sum.
+point, and each launch is one grid: K5, K6 and K7 sum their tiles'
+partials in a fixed order inside it, K8 (a cooperative launch) between
+grid barriers every iteration.
 
 ``mxu_bf16`` rounds the operands of the four basis products to bf16 and
 sums in float32 (the JAX ``mxu_dtype=bfloat16``); every other product is
-IEEE float32, and the plain versions' matmuls run with TF32 off.  K5 and
-K7 run their basis products on the tensor cores at the tiers of
+IEEE float32, and the plain versions' matmuls run with TF32 off.  All four
+kernels run their basis products on the tensor cores at the tiers of
 :data:`TC_TIERS` (never TF32), from the bf16 pieces :func:`basis_tiles`
-lays out.
+lays out once per basis tensor (:func:`_tiles`): K5, K7 and K8 read both
+copies of a tile record, K6 only the rebuild's, so the engines share one
+layout.
 """
 
 from __future__ import annotations
@@ -50,10 +52,10 @@ LAUNCHES = {"grad_project": 0, "respectra_conv": 0, "fused_step": 0,
 # the shapes the kernels take (csrc/omega_burst.cu: kMaxD, kMaxP, kMaxRows)
 _MAX_D, _MAX_P, _MAX_ROWS = 4, 32, 64
 
-#: K5's and K7's tensor-core sweep (csrc/omega_burst.cu kTB, kTG): bins a
-#: block, and tiles a group of the fixed-order sum of their partials
+#: the tensor-core sweep of K5-K8 (csrc/omega_burst.cu kTB, kTG): bins a
+#: tile, and tiles a group of the fixed-order sum of their partials
 TC_TILE, TC_GROUP = 64, 16
-#: the JAX dot tiers of K5's and K7's basis products on the tensor cores,
+#: the JAX dot tiers of K5-K8's basis products on the tensor cores,
 #: (spectra rebuild, projection), by ``mxu_bf16``: one bf16 product (the
 #: JAX ``mxu_dtype``) for bf16 operands; for float32 ones bf16×6
 #: ("highest") for the rebuild, where bf16×3 leaves O 8–9e-6 from the
@@ -63,7 +65,7 @@ TC_TIERS = {False: ("highest", "high"), True: ("default", "default")}
 
 
 def basis_tiles(basis: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """The basis ``[2, P, W]`` as K5's and K7's shared-memory tiles: per
+    """The basis ``[2, P, W]`` as the tensor-core sweep's tiles: per
     tile of :data:`TC_TILE` bins, the rebuild's copy (``[bin][p]``, p the
     contraction) split into its tier's bf16 pieces, then the projection's
     (``[p][bin]``, bins the contraction) into its tier's
@@ -309,7 +311,7 @@ def _scratch(kind: int, nb, M, D, P, W, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
-#: by (card, stream), the tickets of K5's and K7's fixed-order sum:
+#: by (card, stream), the tickets of K5's, K6's and K7's fixed-order sum:
 #: zeros, which every launch leaves zero.  Launches on one stream run in
 #: order, so each finds them zero; launches on two streams may overlap, so
 #: each stream has its own.
@@ -328,7 +330,7 @@ def _tickets(W: int, device) -> torch.Tensor:
     return t
 
 
-#: K5's and K7's basis tiles by (basis tensor, ``mxu_bf16``), oldest
+#: K5-K8's basis tiles by (basis tensor, ``mxu_bf16``), oldest
 #: first: each entry holds its basis (so the key's ``id`` stays its own),
 #: the basis's version counter when laid out, and the tiles.  The engines'
 #: bases are cached (``train/fft_pallas._basis``), so a burst lays its tiles
@@ -417,7 +419,10 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
 
     Reads X, Y from ``planes[:4]``; returns ``O [2, nb·D, W]`` (written
     into ``out`` when given) and ``Σ_bins w·|O − Y|² / nb`` (a 0-d tensor).
-    CPU tensors take :func:`respectra_conv_plain`.
+    The kernel reads the rebuild's part of the basis tiles K5 reads
+    (:func:`basis_tiles`, laid out once per basis tensor) and sums its
+    tiles' MSE terms in a fixed order inside its one grid.  CPU tensors
+    take :func:`respectra_conv_plain`.
     """
     _check("respectra_conv", planes, basis, wv, cf, b, p)
     nb, M, D, W = _dims(planes, cf, b)
@@ -429,14 +434,15 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
         return O.copy_(got), mse
     P = cf.shape[1]
     dev = planes.device
-    ins = [t.contiguous() for t in (planes, basis, wv, cf, b, p)]
+    ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16),
+                                    wv, cf, b, p)]
     mse = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         scratch = _scratch(1, nb, M, D, P, W, dev)
         err = _kernels.lib().omega_respectra_launch(
-            *_ptrs(ins), O.data_ptr(), mse.data_ptr(), scratch.data_ptr(), nb,
-            M, D, P, W, float(norm), float(inv_m), float(inv_d),
-            int(mxu_bf16), _stream())
+            *_ptrs(ins), O.data_ptr(), mse.data_ptr(), scratch.data_ptr(),
+            _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
+            float(inv_m), float(inv_d), int(mxu_bf16), _stream())
     _kernels.check(err, "respectra_conv")
     LAUNCHES["respectra_conv"] += 1
     return O, mse[0]
@@ -487,6 +493,9 @@ def itergrid(planes, basis, wv, cf, b, p, mcf, mb, mp, *, iters: int,
     ``planes [6, nb·D, W]`` (X, Y, O₀); ``cf, b, p`` the weights and
     ``mcf, mb, mp`` their momenta.  Returns ``(cf, b, p, mcf, mb, mp, mse
     [iters+1])``, the MSE sums raw (``Σ w|O − Y|² / nb`` per iteration).
+    The kernel reads the basis tiles K5 and K7 read (:func:`basis_tiles`),
+    every block resident (as many as fit, at most one a tile), and sums
+    each iteration's tile partials in a fixed order between grid barriers.
     CPU tensors take :func:`itergrid_plain`; a card without cooperative
     launch raises.
     """
@@ -503,7 +512,7 @@ def itergrid(planes, basis, wv, cf, b, p, mcf, mb, mp, *, iters: int,
     state = torch.cat([t.reshape(-1) for t in (cf, b, p, mcf, mb, mp)])
     if state.dtype != torch.float32 or state.numel() != 2 * (n + M + D):
         raise ValueError("itergrid: the momenta must match the weights")
-    ins = [t.contiguous() for t in (planes, basis, wv)]
+    ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16), wv)]
     new = torch.empty_like(state)
     mse = torch.empty(iters + 1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -6,9 +6,11 @@ two launches plus the inertia update as tensor code on the host.  Here the
 reference's 100-iteration loop (source/fft_backproplib.cu:1446-1464) runs
 inside one cooperative launch of K8
 (:func:`spectralae_torch.ops.burst_kernels.itergrid`): every block stays
-resident, sweeps its bin tiles, and a grid-wide barrier separates the
-iterations; the per-tile gradient partials are summed in tile order, and
-every block applies the inertia to its own copy of the weights.
+resident and sweeps its 64-bin tiles with the tensor-core sweep of K5 and
+K7 (the spectra rebuild and the projection on ``wgmma``); the per-tile
+gradient partials are summed in a fixed order (groups of 16 tiles in tile
+order, then the groups) between grid barriers, and every block applies
+the inertia to its own copy of the weights.
 
 Iteration 0 is the gradient pass on the caller's O₀ (which also gives
 ``mses[0]``).  The Hermitian weights are folded into E = O − Y once, as the

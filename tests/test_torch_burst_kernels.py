@@ -9,8 +9,8 @@ imports no JAX, so it runs on a machine that has none::
 Shapes: the default net's pair 0 (D=3, M=10, 5x5) at the JAX benchmark's
 headline (one 256² frame, W = 33,024) and smaller, and a small net (D=2,
 M=4, 3x3), at one and several frames; W = 840 and 220 leave a masked tail
-in every kernel's tiles (64 bins for K5 and K7, 128 for K6 and K8), W =
-2,112 and 33,024 fill whole 64-bin tiles.  Tolerances,
+in the kernels' 64-bin tiles, W = 2,112 and 33,024 fill whole tiles (516
+at the headline: K8's grid strides over them).  Tolerances,
 norm-relative: 1e-5 for g, O and the MSE sums (the same float32 products
 summed in another order, the projection over up to 33,024 bins); for the
 bf16 operands 2e-3 (a sum that lands across a bf16 rounding boundary in one
@@ -199,3 +199,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         bk.grad_project(s.planes, basis7, s.wv,
                         torch.zeros(60, 49, device=cuda_device), b,
                         norm=1.0, scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k6_and_k8_repeat_bit_for_bit_at_the_headline(cuda_device, bf16):
+    """K6 and K8 at W = 33,024 (516 tiles, 33 groups of the fixed-order
+    sum; K8's blocks stride over ~2 tiles an iteration): three runs of each
+    agree exactly."""
+    s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 256, seed=9)
+    k = dict(s.consts, mxu_bf16=bf16)
+    k6 = {n: k[n] for n in ("norm", "inv_m", "inv_d", "mxu_bf16")}
+    runs = []
+    for _ in range(3):
+        mom = [torch.zeros_like(t) for t in (cf, b, p)]
+        runs.append(torch.cat([t.reshape(-1) for t in (
+            *bk.respectra_conv(s.planes, s.basis, s.wv, cf, b, p, **k6),
+            *bk.itergrid(s.planes, s.basis, s.wv, cf, b, p, *mom, iters=10,
+                         lr_eff=0.02, alpha=0.9, **k))]))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+def test_k6_on_two_streams_at_once(cuda_device):
+    """K6 on two streams, their launches side by side, gives bit for bit
+    what it gives alone: its tickets, like K5's and K7's, are a stream's
+    own.  Both streams wait behind ~25 ms of spinning on the main one, so
+    that each holds its 20 launches queued when the card turns to them."""
+    s, cf, b, p = _problem(cuda_device, 1, 3, 10, 5, 256, seed=13)
+    k6 = {n: s.consts[n] for n in ("norm", "inv_m", "inv_d")}
+
+    def k6_run(scale):
+        O, mse = bk.respectra_conv(s.planes, s.basis, s.wv, cf * scale, b,
+                                   p, **k6)
+        return torch.cat([O.reshape(-1), mse.reshape(-1)])
+    scales = (1.0, 0.5)       # two problems, so a mix-up shows
+    want = [k6_run(c) for c in scales]
+    main = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda._sleep(50_000_000)
+    for st in streams:
+        st.wait_stream(main)
+    got = []
+    for _ in range(20):
+        for st, c in zip(streams, scales):
+            with torch.cuda.stream(st):
+                got.append(k6_run(c))
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want[i % 2]) for i, g in enumerate(got))
+
+
+@pytest.mark.cuda
+def test_itergrid_burst_repeats_bit_for_bit(cuda_device):
+    """B9 (``fft_burst_itergrid``, one K8 launch) twice over 100 iterations
+    of one 256² frame: weights, momenta and MSEs agree exactly."""
+    from spectralae_torch.train import fft_iter
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.rand(3, 256, 256, device=cuda_device, generator=gen) * 255
+    out0 = x * 0.9 + torch.randn(3, 256, 256, device=cuda_device,
+                                 generator=gen) * 5
+    c = torch.randn(10, 3, 5, 5, device=cuda_device, generator=gen) * 0.3
+    f = torch.randn(3, 10, 5, 5, device=cuda_device, generator=gen) * 0.3
+    b = torch.randn(10, device=cuda_device, generator=gen) * 0.5
+    p = torch.randn(3, device=cuda_device, generator=gen) * 0.5
+    before = bk.LAUNCHES["itergrid"]
+    runs = [fft_iter.fft_burst_itergrid(x, x, out0, c, f, b, p, iters=100)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["itergrid"] == before + 2
+    a, z = runs
+    for n in ("c", "f", "b", "p", "mses"):
+        assert torch.equal(getattr(a, n), getattr(z, n)), n
+    assert all(torch.equal(u, v) for u, v in zip(a.mom, z.mom))
