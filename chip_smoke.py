@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero):
    device time beside the plain call's, the library call's (one einsum for
    K1, cuDNN for K2) and the bound, one line per shape; K1's three
    launches with bf16 operands at the 256^2 stage shapes (no library
-   call: PyTorch has no complex bf16); then the whole forward and the
+   call: PyTorch has no complex bf16); each K1 and K2 line names the
+   launch plan the wrapper took (``k1_plan``, ``k2_plan``) and each launch
+   is run twice and held bit for bit; then the whole forward and the
    whole train step in both domains at both sizes, in float32 and with
    bf16 operands (``compute_dtype``): host time, device time and the
    kernels that take it, with the shape of each kernel launch of one 256^2
@@ -520,6 +522,38 @@ def _grads_line(label: str, pairs, tol: float) -> float:
                if t is None)
 
 
+def k1_plan_text(p, q, vec: int) -> str:
+    """The launch plan K1's wrapper takes for these operands (rows whose
+    16-byte vectors are aligned, as at every stage shape here)."""
+    from spectralae_torch.ops import spectral_kernels as sk
+    a, k, w = p.shape[:3]
+    plan = sk.k1_plan(a, k, q.shape[1], w, vec)
+    return (f"; plan {plan.group} channel warps a block, {plan.rows} rows a "
+            f"thread, grid {plan.grid}")
+
+
+def k1_repeated(p, q, kw) -> torch.Tensor:
+    """One K1 launch, run again and held bit for bit (every output is one
+    thread's fixed-order sum)."""
+    from spectralae_torch.ops import spectral_kernels as sk
+    got = sk.cmul_contract(p, q, **kw)
+    check(torch.equal(got, sk.cmul_contract(p, q, **kw)),
+          f"K1 at {tuple(p.shape)} x {tuple(q.shape)} does not repeat")
+    return got
+
+
+def k2_repeated(xpad, w) -> tuple[torch.Tensor, str]:
+    """One K2 launch, run again and held bit for bit, and its plan."""
+    from spectralae_torch.ops import coord_kernels as ck
+    got = ck.conv_valid(xpad, w)
+    check(torch.equal(got, ck.conv_valid(xpad, w)),
+          f"K2 at {tuple(xpad.shape)} x {tuple(w.shape)} does not repeat")
+    b, d, hp, wp = xpad.shape
+    plan = ck.k2_plan(b, d, w.shape[0], hp, wp, *w.shape[2:])
+    return got, (f"; plan {plan.tx}x{plan.ty} threads, {plan.mb} channels "
+                 f"a thread, grid {plan.grid}")
+
+
 def k1_shape(gen, n: int, batch: int, d: int, m: int,
              bf16: bool = False) -> tuple[dict, float]:
     """K1 at one stage shape: the forward, the backward's dX and dC
@@ -561,11 +595,10 @@ def k1_shape(gen, n: int, batch: int, d: int, m: int,
         for part, label, p, q, kw, bound in cases:
             row = measure(
                 f"K1 cmul_contract {label}",
-                sk.cmul_contract(p, q, **kw),
-                sk.cmul_contract_plain(p, q, **kw),
+                k1_repeated(p, q, kw), sk.cmul_contract_plain(p, q, **kw),
                 lambda: sk.cmul_contract(p, q, **kw),
                 lambda: sk.cmul_contract_plain(p, q, **kw), bound,
-                TOL_K1_BF16, library=None)
+                TOL_K1_BF16, library=None, extra=k1_plan_text(p, q, 4))
             rows[k1_key(p, q, kw.get("conj_q"), kw.get("bias"))] = dict(
                 row, part=part)
         return rows, max(r["abs"] for r in rows.values())
@@ -582,10 +615,11 @@ def k1_shape(gen, n: int, batch: int, d: int, m: int,
         q_lib = q.conj() if kw.get("conj_q") else q
         row = measure(
             f"K1 cmul_contract {label}",
-            sk.cmul_contract(p, q, **kw), sk.cmul_contract_plain(p, q, **kw),
+            k1_repeated(p, q, kw), sk.cmul_contract_plain(p, q, **kw),
             lambda: sk.cmul_contract(p, q, **kw),
             lambda: sk.cmul_contract_plain(p, q, **kw), bound, TOL_K1,
-            library=lambda: torch.einsum("akw,kbw->abw", p, q_lib))
+            library=lambda: torch.einsum("akw,kbw->abw", p, q_lib),
+            extra=k1_plan_text(p, q, 2))
         rows[k1_key(p, q, kw.get("conj_q"), kw.get("bias"))] = dict(
             row, part=part)
     grads = []
@@ -619,7 +653,7 @@ def k2_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
     wt = c.flip((-2, -1)).contiguous()
     dy = torch.randn(batch, m, n, n, device="cuda", generator=gen)
     rows = {}
-    got = ck.conv_valid(xpad, wt)
+    got, plan = k2_repeated(xpad, wt)
     err64 = rel_err(got, ck.conv_valid_plain(xpad.double(), wt.double()))
     check(err64 <= TOL_K2, f"K2 {tag} disagrees with float64: {err64:.3e}")
     rows[k2_key(xpad, wt)] = dict(measure(
@@ -627,12 +661,12 @@ def k2_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
         ck.conv_valid_plain(xpad, wt), lambda: ck.conv_valid(xpad, wt),
         lambda: ck.conv_valid_plain(xpad, wt),
         k2_bound(batch, d, m, n + 4, n + 4, 5, 5), TOL_K2,
-        extra=f"; vs float64 {err64:.3e}"), part="fwd")
+        extra=f"; vs float64 {err64:.3e}{plan}"), part="fwd")
     # the data grad: dy padded by the taps, weights M/D-transposed and
     # flipped — a valid correlation with M input and D output channels
     dy_pad = F.pad(dy, (4, 4, 4, 4))
     wtt = wt.transpose(0, 1).flip((-2, -1)).contiguous()
-    got = ck.conv_valid(dy_pad, wtt)
+    got, plan = k2_repeated(dy_pad, wtt)
     err64 = rel_err(got, F.conv2d(dy_pad.double(), wtt.double()))
     check(err64 <= TOL_K2, f"K2 dx {tag} disagrees with float64: {err64:.3e}")
     rows[k2_key(dy_pad, wtt)] = dict(measure(
@@ -641,7 +675,7 @@ def k2_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
         F.conv2d(dy_pad, wtt), lambda: ck.conv_valid(dy_pad, wtt),
         lambda: F.conv2d(dy_pad, wtt),
         k2_bound(batch, m, d, n + 8, n + 8, 5, 5), TOL_K2,
-        extra=f"; vs float64 {err64:.3e}"), part="bwd")
+        extra=f"; vs float64 {err64:.3e}{plan}"), part="bwd")
     grads = {}
     for name, fn, dtype in (("fn", ck.conv_valid, torch.float32),
                             ("f32", F.conv2d, torch.float32),

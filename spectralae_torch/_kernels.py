@@ -36,6 +36,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: streaming multiprocessors of the card the launch plans are sized for
+#: (NVIDIA H100 SXM, the sm_90a target)
+NUM_SMS = 132
+#: the grid's y and z limit
+GRID_YZ = 65535
 BUILD_DIR = CSRC.parent.parent / "build" / "spectralae_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
@@ -50,14 +55,15 @@ _F = ctypes.c_float
 # the cudaError_t of its launch
 _SIGNATURES = {
     # p, q, out, A, K, B, W, p_stride_a, p_stride_k, q_stride_k,
-    # q_stride_b, conj_q, p_scale, bias, bias_scale, stream
+    # q_stride_b, conj_q, p_scale, bias, bias_scale, vec, group, rows,
+    # stream
     "cmul_contract_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _I,
-                             _F, _P, _F, _P),
+                             _F, _P, _F, _I, _I, _I, _P),
     # the same, p and q bf16 (re, im) pairs
     "cmul_contract_bf16_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
-                                  _I, _F, _P, _F, _P),
-    # xpad, w, out, B, D, Hp, Wp, M, nk, nl, stream
-    "conv_valid_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _F, _P, _F, _I, _I, _I, _P),
+    # xpad, w, out, B, D, Hp, Wp, M, nk, nl, tx, ty, mb, vec, stream
+    "conv_valid_launch": (_P, _P, _P) + (_I,) * 11 + (_P,),
     # anchor, B, D, E, nx, nyr, nk2, nl2, vy, same (returns long long)
     "corr_windows_scratch_floats": (_I,) * 10,
     # X, Z, consts, out, scratch, B, D, E, nx, nyr, hx, hy, same, stream
@@ -206,6 +212,11 @@ def build() -> KernelBuild:
 
 def lib() -> ctypes.CDLL:
     return build().lib
+
+
+def cdiv(n: int, d: int) -> int:
+    """Ceiling division, for the launch plans."""
+    return -(-n // d)
 
 
 def check(err: int, name: str) -> None:

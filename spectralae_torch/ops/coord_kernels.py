@@ -28,6 +28,9 @@ operand's dtype.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -41,10 +44,74 @@ LAUNCHES = 0
 #: accelerator; deciding it on the card is ROADMAP B6 work)
 PALLAS_DATA_GRAD = False
 
-# the kernel's output tile (csrc/conv_valid.cu kTileH x kTileW) and the
-# largest dynamic shared memory one block may take on Hopper
-_TILE_H, _TILE_W = 8, 32
+NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
+# the kernel's launch plan (csrc/conv_valid.cu): R output pixels a thread
+# along j, _TILE_H threads (rows) along i, at most _MAX_GROUP output
+# channels a thread; the largest dynamic shared memory one block may take
+# on Hopper
+_R, _TILE_H, _MAX_GROUP = 4, 8, 16
+# warps an SM below which the output channels are split over the grid, and
+# which the split aims for (the choice measured best at the train steps'
+# shapes, scripts/torch_k1k2_bench.py --sweep)
+_SPLIT_WARPS = 6
 _MAX_SMEM = 232448
+
+
+class K2Plan(NamedTuple):
+    """One K2 launch: ``tx`` × ``ty`` threads a block (``tx`` along j, 4
+    pixels each), ``mb`` output channels a thread, ``smem`` bytes of shared
+    memory a block, and the grid (j tiles, i tiles, batch × channel
+    groups)."""
+    tx: int
+    ty: int
+    mb: int
+    smem: int
+    grid: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=512)
+def k2_plan(b: int, d: int, m: int, hp: int, wp: int, nk: int,
+            nl: int) -> K2Plan:
+    """K2's launch plan for ``[B,D,Hp,Wp] × [M,D,nk,nl]`` from the shape
+    alone.
+
+    Tiles of 8 rows × 64 columns, or × 32 where those pad the output's
+    width less (at most 32 wide, or 68, 132: a 64-wide tile would be
+    nearly empty); each thread 4 adjacent pixels for ``mb`` output
+    channels.  All channels (up to 16) stay in one thread while the grid
+    has 6 warps an SM; a smaller grid splits them into the largest equal
+    groups (``mb`` dividing M) that give it 6, or else into groups of two
+    channels (one channel a thread measured slower).  Raises where no launch can run: the tile and the group's
+    weights over a block's shared memory, or more row tiles or batch ×
+    groups than the grid holds.
+    """
+    h, wo = hp - nk + 1, wp - nl + 1
+    if min(b, d, m, nk, nl, h, wo) < 1:
+        raise ValueError(f"k2_plan: B={b} D={d} M={m} {hp}x{wp} taps "
+                         f"{nk}x{nl}")
+    tx = 16 if _cdiv(wo, 64) * 64 <= _cdiv(wo, 32) * 32 else 8
+    ty = _TILE_H
+    # warps of the grid for each group of g channels a thread
+    warps = _cdiv(wo, _R * tx) * _cdiv(h, ty) * b * tx * ty // 32
+    mb = _cdiv(m, _cdiv(m, _MAX_GROUP))
+    if warps * _cdiv(m, mb) < _SPLIT_WARPS * NUM_SMS:
+        equal = [g for g in range(mb, 1, -1) if m % g == 0] or [mb]
+        mb = next((g for g in equal
+                   if warps * (m // g) >= _SPLIT_WARPS * NUM_SMS), equal[-1])
+    groups = _cdiv(m, mb)
+    cw = _cdiv(_R * tx + nl - 1, 4) * 4
+    smem = 4 * (d * (ty + nk - 1) * cw + d * nk * nl * _cdiv(mb, 4) * 4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"conv_valid: {d} input channels of {nk}x{nl} taps "
+                         f"need {smem} bytes of shared memory a block, over "
+                         f"the {_MAX_SMEM} a block may take")
+    if b * groups > _GRID_YZ or _cdiv(h, ty) > _GRID_YZ:
+        raise ValueError(f"conv_valid: batch {b} x {groups} channel groups "
+                         f"and {_cdiv(h, ty)} row tiles exceed the grid's "
+                         f"limit of {_GRID_YZ}")
+    return K2Plan(tx, ty, mb, smem, (_cdiv(wo, _R * tx), _cdiv(h, ty),
+                                     b * groups))
+
 
 # operand dtypes conv_valid takes; bf16 is upcast before the kernel
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -83,21 +150,16 @@ def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("conv_valid needs contiguous operands")
     b, d, hp, wp = xpad.shape
     m, _, nk, nl = w.shape
-    if b > 65535:
-        raise ValueError(f"conv_valid: batch {b} exceeds the grid's z limit "
-                         "of 65535")
-    smem = 4 * (d * (_TILE_H + nk - 1) * (_TILE_W + nl - 1) + m * d * nk * nl)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"conv_valid: {d} input channels of {nk}x{nl} taps "
-                         f"and {m * d * nk * nl} weights need {smem} bytes "
-                         f"of shared memory, over the {_MAX_SMEM} a block "
-                         "may take")
+    plan = k2_plan(b, d, m, hp, wp, nk, nl)
+    # 16-byte staging loads where every row of xpad starts on 16 bytes
+    vec = int(wp % 4 == 0 and xpad.data_ptr() % 16 == 0)
     out = torch.empty((b, m, hp - nk + 1, wp - nl + 1), dtype=torch.float32,
                       device=xpad.device)
     with torch.cuda.device(xpad.device):
         err = _kernels.lib().conv_valid_launch(
             xpad.data_ptr(), w.data_ptr(), out.data_ptr(), b, d, hp, wp, m,
-            nk, nl, torch.cuda.current_stream().cuda_stream)
+            nk, nl, plan.tx, plan.ty, plan.mb, vec,
+            torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "conv_valid")
     LAUNCHES += 1
     return out

@@ -30,6 +30,9 @@ does to float32 rounding.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .. import _kernels
@@ -38,6 +41,73 @@ from .. import _kernels
 #: reset): complex64 operands, and bf16 operands (the second instantiation)
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+
+NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
+# K1's launch plan (csrc/cmul_contract.cu): a warp's 32 lanes along the
+# bins, at most 8 channel warps a block; rows ``a`` are chunked as long as
+# the grid keeps _K1_THREADS threads, at most _K1_MAX_ROWS rows a thread;
+# a grid of _K1_MANY_BLOCKS blocks or more takes small channel groups (the
+# choices measured best at the train steps' shapes,
+# scripts/torch_k1k2_bench.py)
+_K1_LANES, _K1_MAX_GROUP, _K1_MAX_ROWS = 32, 8, 4
+_K1_THREADS = NUM_SMS * 384
+_K1_MANY_BLOCKS = NUM_SMS * 8
+
+
+class K1Plan(NamedTuple):
+    """One K1 launch: ``vec`` bins a lane (1, or one 16-byte vector: 2
+    complex64 bins, 4 bf16 pairs), ``group`` channel warps a block,
+    ``rows`` rows ``a`` a thread, and the grid (bin tiles, channel
+    groups, row chunks)."""
+    vec: int
+    group: int
+    rows: int
+    grid: tuple[int, int, int]
+
+
+def k1_vec(w: int, strides, ptrs, wide: int) -> int:
+    """Bins a lane of K1: ``wide`` (one 16-byte vector: 2 for complex64, 4
+    for bf16 pairs) where every row of p and q and of the output starts on
+    a vector — W and the four strides (in complex elements) multiples of
+    it, p and q (``ptrs``, their addresses) on 16 bytes — else 1."""
+    return wide if (w % wide == 0 and all(s % wide == 0 for s in strides)
+                    and all(ptr % 16 == 0 for ptr in ptrs)) else 1
+
+
+@functools.lru_cache(maxsize=512)
+def k1_plan(a: int, k: int, b: int, w: int, vec: int) -> K1Plan:
+    """K1's launch plan for ``[A,K,W] × [K,B,W] → [A,B,W]`` from the shape
+    alone (``vec``: the widest vector the operands' layout allows).
+
+    One thread computes one output channel at ``vec`` bins for a chunk of
+    up to 4 rows, holding ``q`` for every ``k`` in registers, so a chunk
+    reads ``q`` once.  Rows are split into as few equal chunks as keep 384
+    threads an SM (one row a thread if none do).  The channels go in equal
+    groups of warps: as large as B allows up to 8, so that the warps of a
+    block share each ``p`` vector through L1, unless that grid already
+    has 8 blocks an SM, where the smallest groups (2, or B's smallest
+    factor) measured faster.  ``A`` is unbounded: a thread takes as many
+    rows as keeps the chunks within the grid's z limit.  ``K`` does not
+    change the plan (the kernel unrolls it).
+    """
+    if min(a, k, b, w) < 1 or vec not in (1, 2, 4):
+        raise ValueError(f"k1_plan: A={a} K={k} B={b} W={w} vec={vec}")
+    tiles = _cdiv(w, _K1_LANES * vec)
+    per_chunk = tiles * _K1_LANES * b          # threads a chunk of rows
+    rows = next((r for r in (_cdiv(a, n) for n in range(
+        _cdiv(a, _K1_MAX_ROWS), a + 1))
+        if per_chunk * _cdiv(a, r) >= _K1_THREADS), 1)
+    rows = max(rows, _cdiv(a, _GRID_YZ))
+    factors = [g for g in range(1, min(b, _K1_MAX_GROUP) + 1) if b % g == 0]
+    group = factors[-1]
+    if tiles * (b // group) * _cdiv(a, rows) >= _K1_MANY_BLOCKS:
+        group = factors[min(1, len(factors) - 1)]
+    groups = b // group
+    if groups > _GRID_YZ:
+        raise ValueError(f"cmul_contract: B={b} output channels need "
+                         f"{groups} channel groups, over the grid's y limit "
+                         f"of {_GRID_YZ}")
+    return K1Plan(vec, group, rows, (tiles, groups, _cdiv(a, rows)))
 
 
 def bf16_planes(z: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -137,7 +207,7 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
                              "(re, im) pairs are contiguous and aligned")
         strides = (p.stride(0) // 2, p.stride(1) // 2, q.stride(0) // 2,
                    q.stride(1) // 2)
-        launch = _kernels.lib().cmul_contract_bf16_launch
+        launch, wide = _kernels.lib().cmul_contract_bf16_launch, 4
     else:
         # a lazily conjugated or negated view flags its storage but does
         # not change it, and the kernel reads the storage: materialise it
@@ -147,20 +217,20 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
             raise ValueError("cmul_contract needs p and q whose last axis "
                              "is contiguous")
         strides = (p.stride(0), p.stride(1), q.stride(0), q.stride(1))
-        launch = _kernels.lib().cmul_contract_launch
+        launch, wide = _kernels.lib().cmul_contract_launch, 2
     if bias is not None and not bias.is_contiguous():
         raise ValueError("bias must be contiguous")
     a, k, w = p.shape[:3]
     b = q.shape[1]
-    if a > 65535:
-        raise ValueError(f"cmul_contract: A={a} exceeds the grid's y limit "
-                         "of 65535")
+    plan = k1_plan(a, k, b, w, k1_vec(w, strides,
+                                      (p.data_ptr(), q.data_ptr()), wide))
     out = torch.empty((a, b, w), dtype=torch.complex64, device=p.device)
     with torch.cuda.device(p.device):
         err = launch(
             p.data_ptr(), q.data_ptr(), out.data_ptr(), a, k, b, w,
             *strides, int(conj_q), float(p_scale),
             None if bias is None else bias.data_ptr(), float(bias_scale),
+            plan.vec, plan.group, plan.rows,
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "cmul_contract")
     if p.dtype == torch.bfloat16:

@@ -300,3 +300,301 @@ def test_conv_valid_grads_on_card(cuda_device, monkeypatch,
     ck.conv_valid_plain(x64, w64).backward(dy.double())
     assert rel(xt.grad.cpu(), x64.grad.cpu()) < TOL
     assert rel(wt.grad.cpu(), w64.grad.cpu()) < 1e-5
+
+
+# ---- the launch plans (pure host functions, checked on the CPU) ----------
+
+K1_SHAPES = [  # (A, K, B, W) of the 256^2 b8 and 1024^2 b4 steps, and edges
+    (8, 3, 10, 8320), (8, 10, 10, 2112), (8, 10, 10, 544), (10, 8, 10, 544),
+    (8, 10, 3, 8320), (3, 8, 10, 8320), (4, 3, 10, 131584),
+    (4, 10, 3, 131584), (1, 3, 10, 8320), (1, 1, 1, 1), (2, 17, 20, 33),
+    (70000, 2, 2, 64)]
+
+
+@pytest.mark.parametrize("a,k,b,w", K1_SHAPES)
+@pytest.mark.parametrize("vec", [1, 2, 4])
+def test_k1_plan_covers_every_output_within_the_grid(a, k, b, w, vec):
+    plan = sk.k1_plan(a, k, b, w, vec)
+    tiles, groups, chunks = plan.grid
+    assert plan.vec == vec
+    assert tiles * 32 * vec >= w > (tiles - 1) * 32 * vec
+    assert 1 <= plan.group <= 8 and groups * plan.group == b
+    assert chunks * plan.rows >= a > (chunks - 1) * plan.rows
+    assert plan.rows <= 4 or chunks * 4 > 65535
+    assert max(groups, chunks) <= 65535
+
+
+def test_k1_plan_large_grid_reads_q_once_for_every_row():
+    """1024^2 b4, stage 0's forward: a thread takes all four rows a (q read
+    once); a grid this large takes the ten channels two warps a block, the
+    three of stage 5 three a block (B's smallest factors)."""
+    plan = sk.k1_plan(4, 3, 10, 131584, 2)
+    assert plan.rows == 4 and plan.group == 2
+    assert plan.grid == (2056, 5, 1)
+    assert sk.k1_plan(4, 10, 3, 131584, 2).group == 3
+
+
+def test_k1_plan_small_grid_shares_p_among_the_channel_warps():
+    """32^2 b8 (W = 544): one row a thread, five channel warps a block
+    sharing each p vector, and still over two blocks for every SM."""
+    plan = sk.k1_plan(8, 10, 10, 544, 2)
+    tiles, groups, chunks = plan.grid
+    assert plan.rows == 1 and chunks == 8 and plan.group == 5
+    assert tiles * groups * chunks >= sk.NUM_SMS
+
+
+def test_k1_plan_chunks_rows_while_the_grid_stays_full():
+    """128^2 b8: four rows a thread at stage 0's forward (ten channels), one
+    at stage 5's (three channels, one block of three warps a tile: two rows
+    would leave under 384 threads an SM), two in stage 0's and stage 5's
+    dC; at most four."""
+    assert sk.k1_plan(8, 3, 10, 8320, 2) == sk.K1Plan(2, 5, 4, (130, 2, 2))
+    assert sk.k1_plan(8, 10, 3, 8320, 2) == sk.K1Plan(2, 3, 1, (130, 1, 8))
+    assert sk.k1_plan(10, 8, 3, 8320, 2).rows == 2
+    assert sk.k1_plan(3, 8, 10, 8320, 2).rows == 2
+    assert sk.k1_plan(10, 4, 10, 33024, 2).rows == 4
+    assert sk.k1_plan(8, 10, 10, 2112, 2).rows == 1
+
+
+def test_k1_plan_lifts_the_row_limit_and_ignores_k():
+    plan = sk.k1_plan(200000, 3, 4, 64, 2)
+    assert plan.grid[2] <= 65535 and plan.rows * plan.grid[2] >= 200000
+    assert sk.k1_plan(8, 3, 10, 8320, 2) == sk.k1_plan(8, 16, 10, 8320, 2)
+
+
+@pytest.mark.parametrize("args", [(0, 3, 4, 64, 2), (2, 3, 4, 0, 2),
+                                  (2, 3, 4, 64, 3),
+                                  (2, 3, 4 * 65537, 64, 1)])
+def test_k1_plan_refuses_what_no_launch_can_run(args):
+    with pytest.raises(ValueError):
+        sk.k1_plan(*args)
+
+
+@pytest.mark.parametrize("w,strides,ptrs,wide,want", [
+    (544, (5440, 544, 5440, 544), (0, 256), 2, 2),
+    (544, (5440, 544, 5440, 544), (0, 256), 4, 4),
+    (545, (5450, 545, 5450, 545), (0, 256), 2, 1),      # odd W
+    (544, (5440, 544, 5440, 546), (0, 256), 4, 1),     # stride % 4
+    (544, (5440, 544, 5440, 544), (8, 256), 2, 1)])     # p off 16 bytes
+def test_k1_vec_takes_16_byte_loads_only_on_aligned_rows(w, strides, ptrs,
+                                                         wide, want):
+    assert sk.k1_vec(w, strides, ptrs, wide) == want
+
+
+K2_SHAPES = [  # (B, D, M, Hp, Wp, nk, nl): the stage shapes of both steps,
+    # their data grads, and edges
+    (8, 3, 10, 132, 132, 5, 5), (8, 10, 3, 132, 132, 5, 5),
+    (8, 10, 10, 68, 68, 5, 5), (8, 10, 10, 36, 36, 5, 5),
+    (8, 10, 3, 136, 136, 5, 5), (8, 10, 10, 72, 72, 5, 5),
+    (4, 3, 10, 516, 516, 5, 5), (4, 10, 3, 516, 516, 5, 5),
+    (2, 2, 20, 41, 44, 5, 5), (2, 10, 10, 39, 47, 3, 3),
+    (1, 3, 4, 26, 29, 7, 7), (1, 1, 1, 5, 5, 5, 5)]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_plan_covers_every_output_within_the_grid(shape):
+    b, d, m, hp, wp, nk, nl = shape
+    plan = ck.k2_plan(*shape)
+    h, wo = hp - nk + 1, wp - nl + 1
+    tj, ti, z = plan.grid
+    assert plan.tx * plan.ty <= 128 and plan.ty == 8
+    assert tj * 4 * plan.tx >= wo > (tj - 1) * 4 * plan.tx
+    assert ti * plan.ty >= h > (ti - 1) * plan.ty
+    groups = -(-m // plan.mb)
+    assert 1 <= plan.mb <= 16 and z == b * groups
+    assert (groups - 1) * plan.mb < m
+    cw = -(-(4 * plan.tx + nl - 1) // 4) * 4
+    assert plan.smem == 4 * (d * (plan.ty + nk - 1) * cw
+                             + d * nk * nl * (-(-plan.mb // 4) * 4))
+
+
+def test_k2_plan_keeps_all_channels_on_a_full_grid():
+    """128^2 b8, stage 0 (3 -> 10): all ten channels a thread, 64-wide
+    tiles, a block for every SM; under 48 KB of shared memory."""
+    plan = ck.k2_plan(8, 3, 10, 132, 132, 5, 5)
+    assert (plan.tx, plan.mb) == (16, 10) and plan.grid == (2, 16, 8)
+    assert plan.smem <= 48 * 1024
+    assert ck.k2_plan(8, 10, 3, 132, 132, 5, 5).mb == 3
+    assert ck.k2_plan(4, 10, 3, 516, 516, 5, 5).grid == (8, 64, 4)
+
+
+@pytest.mark.parametrize("wo,tx", [(32, 8), (36, 16), (64, 16), (68, 8),
+                                   (128, 16), (132, 8), (512, 16)])
+def test_k2_plan_tile_width_pads_the_output_least(wo, tx):
+    """64-wide tiles unless 32-wide ones pad the output's width less."""
+    assert ck.k2_plan(1, 3, 10, 132, wo + 4, 5, 5).tx == tx
+
+
+@pytest.mark.parametrize("n,pad,mb", [(32, 4, 2), (32, 8, 2), (64, 4, 2),
+                                      (64, 8, 5), (128, 8, 10)])
+def test_k2_plan_splits_channels_on_small_grids(n, pad, mb):
+    """b8 at D = M = 10: under 6 warps an SM the channels split into the
+    largest equal groups that give 6, else two a thread (the first port
+    launched 32 and 64 blocks at 32^2 and 64^2); the 128^2 data grad's grid
+    is large enough as it is."""
+    plan = ck.k2_plan(8, 10, 10, n + pad, n + pad, 5, 5)
+    assert plan.mb == mb and 10 % plan.mb == 0
+    warps = plan.grid[0] * plan.grid[1] * plan.grid[2] * plan.tx * plan.ty \
+        // 32
+    assert warps >= 6 * ck.NUM_SMS or plan.mb == 2
+
+
+def test_k2_plan_groups_more_than_sixteen_channels():
+    plan = ck.k2_plan(64, 3, 40, 260, 260, 5, 5)
+    assert plan.mb == 14 and plan.grid[2] == 64 * 3
+
+
+@pytest.mark.parametrize("args", [(1, 400, 10, 20, 20, 5, 5),
+                                  (70000, 3, 10, 20, 20, 5, 5),
+                                  (1, 3, 10, 600000, 20, 5, 5),
+                                  (1, 3, 10, 4, 20, 5, 5)])
+def test_k2_plan_refuses_what_no_launch_can_run(args):
+    with pytest.raises(ValueError):
+        ck.k2_plan(*args)
+
+
+# ---- the redesigned kernels on the card, every branch of their plans -----
+
+def _k1_operands(gen, dev, a, k, b, w, strided, bf16):
+    """p [A,K,W] (a transposed view of [K,A,W] when ``strided``, as dC's
+    gᵀ), q [K,B,W] (a transposed view of [B,K,W], as the forward's Cᵀ) and
+    bias [B]; bf16 planes when ``bf16``."""
+    def c(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device=dev,
+                           generator=gen)
+    p = c(k, a, w).transpose(0, 1) if strided else c(a, k, w)
+    q = c(b, k, w).transpose(0, 1)
+    bias = torch.randn(b, device=dev, generator=gen)
+    if bf16:
+        p = sk.bf16_planes(p.transpose(0, 1)).transpose(0, 1) if strided \
+            else sk.bf16_planes(p)
+        q = sk.bf16_planes(q.transpose(0, 1)).transpose(0, 1)
+    return p, q, bias
+
+
+K1_CARD = [  # (A, K, B, W): A = 1 and A > 8, K and B 1..17, odd W, W not a
+    # multiple of the tile, rows chunked (large W), A over the old limit
+    (1, 3, 10, 8320), (12, 10, 10, 544), (8, 1, 1, 2112), (3, 16, 16, 200),
+    (2, 17, 17, 96), (5, 7, 9, 33), (4, 3, 10, 131584), (8, 10, 3, 8320),
+    (70000, 2, 2, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k,b,w", K1_CARD)
+@pytest.mark.parametrize("form", ["forward", "dC"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cmul_contract_plans_on_card(cuda_device, a, k, b, w, form, bf16):
+    """Each plan branch against the plain version: the forward's form (q a
+    transposed view, the 1/M scale, the DC bias) and dC's (p a transposed
+    view, conj q), complex64 and bf16 planes; twice, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(a + k + b + w)
+    p, q, bias = _k1_operands(gen, cuda_device, a, k, b, w, form == "dC",
+                              bf16)
+    kw = (dict(p_scale=1.0 / b, bias=bias, bias_scale=64.0)
+          if form == "forward" else dict(p_scale=0.1, conj_q=True))
+    before = sk.LAUNCHES_BF16 if bf16 else sk.LAUNCHES
+    got = sk.cmul_contract(p, q, **kw)
+    again = sk.cmul_contract(p, q, **kw)
+    torch.cuda.synchronize()
+    assert (sk.LAUNCHES_BF16 if bf16 else sk.LAUNCHES) == before + 2
+    assert torch.equal(got, again)
+    want = sk.cmul_contract_plain(p, q, **kw)
+    assert rel(got.cpu(), want.cpu()) < (1e-5 if bf16 else TOL)
+
+
+@pytest.mark.cuda
+def test_cmul_contract_unaligned_view_on_card(cuda_device):
+    """p starting 8 bytes past a 16-byte boundary takes one bin a lane."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    base = torch.randn(2, 3, 65, dtype=torch.complex64, device=cuda_device,
+                       generator=gen)
+    p = base[..., 1:]                           # W = 64, off by one bin
+    q = torch.randn(3, 4, 64, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    assert p.data_ptr() % 16 == 8
+    got = sk.cmul_contract(p, q, conj_q=True)
+    want = sk.cmul_contract_plain(p.contiguous(), q, conj_q=True)
+    assert rel(got.cpu(), want.cpu()) < TOL
+
+
+K2_CARD = [  # (B, D, M, H, W, nk, nl): widths 32^2..512^2, D = 10 at 3x3
+        # and 5x5, M above the channel group, ragged H and W, other tap widths
+    (8, 10, 10, 32, 32, 5, 5), (8, 10, 10, 64, 64, 5, 5),
+    (8, 3, 10, 128, 128, 5, 5), (8, 10, 3, 128, 128, 5, 5),
+    (4, 3, 10, 512, 512, 5, 5), (4, 10, 3, 512, 512, 5, 5),
+    (2, 10, 10, 37, 45, 3, 3), (2, 10, 10, 33, 29, 5, 5),
+    (2, 2, 20, 37, 40, 5, 5), (2, 3, 40, 70, 66, 5, 5),
+    (1, 3, 4, 20, 23, 7, 7), (2, 3, 5, 30, 31, 5, 3),
+    (4, 10, 3, 509, 510, 3, 3), (4, 3, 4, 515, 300, 7, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_CARD)
+def test_conv_valid_plans_on_card(cuda_device, shape):
+    """Each plan branch against the plain version in float64 (no TF32), and
+    twice, bit for bit."""
+    b, d, m, h, w, nk, nl = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    xpad = torch.randn(b, d, h + nk - 1, w + nl - 1, device=cuda_device,
+                       generator=gen)
+    wt = torch.randn(m, d, nk, nl, device=cuda_device, generator=gen)
+    before = ck.LAUNCHES
+    got = ck.conv_valid(xpad, wt)
+    again = ck.conv_valid(xpad, wt)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 2
+    assert got.shape == (b, m, h, w) and torch.equal(got, again)
+    want = ck.conv_valid_plain(xpad.double(), wt.double())
+    assert rel(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_conv_valid_unaligned_input_on_card(cuda_device):
+    """An input whose rows do not start on 16 bytes is staged one float at
+    a time."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    base = torch.randn(2 * 3 * 40 * 41 + 1, device=cuda_device,
+                       generator=gen)
+    xpad = base[1:].view(2, 3, 40, 41)          # 4 bytes off, Wp odd
+    wt = torch.randn(10, 3, 5, 5, device=cuda_device, generator=gen)
+    got = ck.conv_valid(xpad, wt)
+    want = ck.conv_valid_plain(xpad.double(), wt.double())
+    assert rel(got.cpu(), want.cpu()) < TOL
+
+
+def _bench_script():
+    """scripts/torch_k1k2_bench.py loaded as a module, from its file."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_k1k2_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_k1k2_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_k1k2_bench_reads_registers_and_spills_of_k1_and_k2():
+    k1 = "_Z20cmul_contract_kernelI6float2Li2ELi3EEvv"
+    k2 = "_Z17conv_valid_kernelILi15ELi5EEvv"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{k1}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k1}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        f"ptxas info    : Compiling entry function '{k2}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k2}",
+        "    24 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
+        "loads",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 8 registers"])
+    got = _bench_script().ptxas_report(log)
+    assert got == {k1: {"spill": 0, "regs": 40},
+                   k2: {"spill": 24, "regs": 96}}
+
+
+def test_k1k2_bench_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _bench_script().main(["--check"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
