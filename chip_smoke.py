@@ -44,7 +44,9 @@ Phases (any failure raises and exits non-zero):
    Then K3 (``corr_pair_windows``) and K4 (``anchor_windows``, float32 and
    bf16 signal) against their plain versions at the burst precompute's
    shapes: pair 0's input of the default net at 128^2 batch 8, 512^2 batch 4
-   and 1024^2 batch 1 (256^2, 1024^2 and 2048^2 frames).
+   and 1024^2 batch 1 (256^2, 1024^2 and 2048^2 frames); each line names
+   the launch plan (``window_plan``), each launch is run three times and
+   held bit for bit, and each kernel's two grids are timed apart.
 3b. The four-step rfft2 (B5, ``csrc/rfft2_mixed.cu``) at the same pair-0
    inputs, at each tier: the y-leaf, the x-leaf (float32 and bf16 out) and
    the whole transform against their tier-matched plain versions on the
@@ -55,8 +57,8 @@ Phases (any failure raises and exits non-zero):
    transform (one round on each axis) at each tier against cuFFT, with its
    peak memory and each kernel timed (B5e at each tier).  K4 on the mixed
    planes (float32 and bf16, gathered to natural order; the gather timed
-   on its own) against its plain version and against K4 on cuFFT's
-   spectra; the fused precompute's "fft" and "fft-bf16" routes (the
+   on its own; three runs bit for bit) against its plain version and
+   against K4 on cuFFT's spectra; the fused precompute's "fft" and "fft-bf16" routes (the
    transform at "high" and "default") against the default one.
 3c. Bursts: host and device time of one fused burst and of one 16-frame
    stream flush at 256^2 batch 8, with the inner iterations per second,
@@ -1010,37 +1012,71 @@ def phase_probes() -> tuple[dict, dict, dict]:
 
 # ------------------------------------------------ K3, K4 and the bursts
 
-K3_GRIDS = ("window_rows_kernel", "window_reduce_kernel")
-K4_GRIDS = K3_GRIDS + ("anchor_taps_kernel",)
+K3_GRIDS = K4_GRIDS = ("window_rows_kernel", "window_reduce_kernel")
+
+
+def _xstage_flops(hx: int, hy: int) -> int:
+    """Flops of one x-row's x-stage for one pair at +-hx, +-hy: the four
+    sums of csrc/corr_windows.cu per (u, v >= 0), less those whose sine is
+    0 (u = 0 or v = 0)."""
+    return 2 * (1 + 2 * hx + 2 * hy + 4 * hx * hy)
 
 
 def k3_bound(b: int, d: int, e: int, n: int, h: int, same: bool):
     """K3 on [B, D, n, nyr] x [B, E, n, nyr] complex64 at window +-h: the
     inputs read once (one when Z is X), the windows written once; per bin
-    and batch 6 flops per pair product and 8 per lag column of the y-stage,
-    per x-row 4 per window entry of the x-stage.  When Z is X only the
+    and batch 6 flops per pair product and its y-stage, 4 + 8h flops (the
+    lags +-v share their cosine: 4 multiply-adds per v >= 1, 2 at v = 0);
+    per x-row the x-stage (``_xstage_flops``).  When Z is X only the
     D(D+1)/2 pairs d <= e are needed (the others are their mirrors)."""
     nyr, v = n // 2 + 1, 2 * h + 1
     bins = b * n * nyr
     pairs = d * (d + 1) // 2 if same else d * e
-    return bound_ms(bins * pairs * (6 + 8 * v) + n * pairs * v * v * 4,
+    return bound_ms(bins * pairs * (6 + 4 + 8 * h)
+                    + n * pairs * _xstage_flops(h, h),
                     8 * bins * (d if same else d + e) + 4 * d * e * v * v)
 
 
 def k4_bound(b: int, d: int, n: int, nk2: int, bf16: bool):
-    """K4 on [B, D, n, nyr] (complex64, or bf16 re/im planes): per bin and
-    batch EG (8·D² + 8·D flops), the pair products (6 each) and the y-stage
-    (8 per lag column); per bin the anchor spectra (8·D²·nk2); per x-row
-    the x-stage (4 per window entry)."""
-    nyr = n // 2 + 1
-    nxx, neg, v4, v2 = d * (d + 1) // 2, d * d, 2 * nk2 - 1, nk2
+    """K4 on [B, D, n, nyr] (complex64, or bf16 re/im planes), square taps
+    nk2 = 2h + 1: per bin and batch EG (8·D² + 8·D flops), the pair
+    products (6 each) and the y-stage (4 + 8·hy a pair, as K3's); per bin
+    the anchor spectra from the taps folded over +-ly (8·h flops an entry
+    of D², plus its DC term); per x-row the taps contracted over kx (4
+    flops a tap and entry) and the x-stage of both windows."""
+    nyr, h = n // 2 + 1, nk2 // 2
+    nxx, neg = d * (d + 1) // 2, d * d
     bins = b * n * nyr
-    per_bin = 8 * d * d + 8 * d + 6 * (nxx + neg) + 8 * (nxx * v4 + neg * v2)
-    flops = (bins * per_bin + n * nyr * d * d * nk2 * 8
-             + n * (nxx * v4 * v4 + neg * v2 * v2) * 4)
+    per_bin = (8 * d * d + 8 * d + 6 * (nxx + neg)
+               + nxx * (4 + 16 * h) + neg * (4 + 8 * h))
+    flops = (bins * per_bin + n * nyr * d * d * (8 * h + 2)
+             + n * (d * d * nk2 * nk2 * 4 + nxx * _xstage_flops(2 * h, 2 * h)
+                    + neg * _xstage_flops(h, h)))
+    v4, v2 = 2 * nk2 - 1, nk2
     nbytes = ((4 if bf16 else 8) * bins * d + 4 * d * d * nk2 * nk2
               + 4 * (d * d * (v4 * v4 + v2 * v2) + 1 + d))
     return bound_ms(flops, nbytes)
+
+
+def window_plan_text(anchor: bool, X, n: int, d: int, e: int, h: int,
+                     same: bool = False) -> str:
+    """The launch plan K3's or K4's wrapper takes at this shape
+    (``window_kernels.window_plan``)."""
+    from spectralae_torch.ops import window_kernels as wk
+    p = wk.window_plan(anchor, X.shape[0], d, e, n, n // 2 + 1, h, h, same)
+    return (f"; plan {p.rows} rows x {p.batches} batches x {p.ychunk} bins "
+            f"a block, steps of {p.ytile}, {p.threads} threads, grid "
+            f"{p.grid}")
+
+
+def windows_repeated(fn, label: str) -> torch.Tensor:
+    """One K3 or K4 launch, run twice more and held bit for bit (fixed
+    sums, no atomics)."""
+    runs = [fn() for _ in range(3)]
+    runs = [_flat(r) if isinstance(r, tuple) else r for r in runs]
+    check(all(torch.equal(runs[0], r) for r in runs[1:]),
+          f"{label} does not repeat")
+    return runs[0]
 
 
 def _grid_times(label: str, fn, names) -> None:
@@ -1092,17 +1128,21 @@ def phase_windows(gen: torch.Generator) -> tuple[dict, dict]:
             lib_err = rel_err(lib(), want)
             check(lib_err <= TOL_WINDOWS, f"K3 library call {tag}: "
                   f"{lib_err:.3e}")
+            label = (f"K3 corr_pair_windows {variant} {tag} D={d} "
+                     f"E={Zs.shape[1]} +-{h}")
             row = measure(
-                f"K3 corr_pair_windows {variant} {tag} D={d} "
-                f"E={Zs.shape[1]} +-{h}", wk.corr_pair_windows(X, Zs, n, n,
-                                                              h, h),
+                label, windows_repeated(
+                    lambda Zs=Zs, h=h: wk.corr_pair_windows(X, Zs, n, n, h,
+                                                            h), label),
                 want, lambda Zs=Zs, h=h: wk.corr_pair_windows(X, Zs, n, n, h,
                                                               h),
                 lambda Zs=Zs, h=h: wk.corr_pair_windows_plain(X, Zs, n, n, h,
                                                               h),
                 k3_bound(batch, d, Zs.shape[1], n, h, Zs is X), TOL_WINDOWS,
                 library=lib, names=K3_GRIDS,
-                extra=f"; library vs plain {lib_err:.3e}")
+                extra=f"; library vs plain {lib_err:.3e}; three runs bit "
+                f"for bit" + window_plan_text(False, X, n, d, Zs.shape[1], h,
+                                              Zs is X))
             rows[("k3", frames, variant)] = row
             errs["k3"] = max(errs["k3"], row["abs"])
             _grid_times(f"K3 {variant} {tag}", lambda Zs=Zs, h=h:
@@ -1115,11 +1155,14 @@ def phase_windows(gen: torch.Generator) -> tuple[dict, dict]:
             def plain(sd=sd):
                 return wk.anchor_windows_plain(X, taps, n, n, h2, h2, s1,
                                                signal_dtype=sd)
+            label = (f"K4 anchor_windows {variant} signal {tag} D={d} taps "
+                     f"{nk2}x{nk2}")
             row = measure(
-                f"K4 anchor_windows {variant} signal {tag} D={d} taps "
-                f"{nk2}x{nk2}", _flat(kern()), _flat(plain()), kern, plain,
-                k4_bound(batch, d, n, nk2, sd is not None), TOL_WINDOWS,
-                library=None, names=K4_GRIDS)
+                label, windows_repeated(kern, label), _flat(plain()), kern,
+                plain, k4_bound(batch, d, n, nk2, sd is not None),
+                TOL_WINDOWS, library=None, names=K4_GRIDS,
+                extra="; three runs bit for bit"
+                + window_plan_text(True, X, n, d, d, h2))
             rows[("k4", frames, variant)] = row
             errs["k4"] = max(errs["k4"], row["abs"])
             _grid_times(f"K4 {variant} {tag}", kern, K4_GRIDS)
@@ -1533,14 +1576,15 @@ def phase_windows_mixed(gen: torch.Generator) -> dict:
             vs = rel_err(_flat(kern()), natural)
             gather_ms = device_ms(
                 lambda planes=planes: fk.gather_natural(planes, n, n))
+            label = (f"K4 anchor_windows mixed {variant} planes ({prec}) "
+                     f"{tag} D={d} taps {nk2}x{nk2}")
             rows[(frames, variant)] = measure(
-                f"K4 anchor_windows mixed {variant} planes ({prec}) {tag} "
-                f"D={d} taps "
-                f"{nk2}x{nk2}", _flat(kern()), _flat(plain()), kern, plain,
-                k4_bound(batch, d, n, nk2, od is not None), TOL_WINDOWS,
-                library=None, names=K4_GRIDS,
+                label, windows_repeated(kern, label), _flat(plain()), kern,
+                plain, k4_bound(batch, d, n, nk2, od is not None),
+                TOL_WINDOWS, library=None, names=K4_GRIDS,
                 extra=f"; vs K4 on cuFFT's spectra {vs:.3e} (tol {tol:g}); "
-                f"the gather to natural order {gather_ms:.4f} ms")
+                f"the gather to natural order {gather_ms:.4f} ms; three runs "
+                "bit for bit" + window_plan_text(True, x, n, d, d, h2))
             rows[(frames, variant)]["gather_ms"] = gather_ms
             check(vs <= tol, f"K4 mixed {variant} {tag} vs natural: {vs:.3e}")
         T = {pw: fft_corr.corr_precompute_fused(x, *w, pallas_windows=pw)

@@ -14,8 +14,8 @@ by a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launches, which :func:`check` turns into an
-exception (``corr_windows_scratch_floats``, ``omega_scratch_floats`` and
-``ydft_energy_blocks``, host-side size queries, launch nothing;
+exception (``omega_scratch_floats`` and ``ydft_energy_blocks``, host-side
+size queries, launch nothing;
 ``dft_leaf_attrs``, ``ydft_sweep_attrs`` and ``omega_tc_attrs`` read the
 runtime's attributes of the tensor-core kernels).
 
@@ -64,13 +64,13 @@ _SIGNATURES = {
                                   _I, _F, _P, _F, _I, _I, _I, _P),
     # xpad, w, out, B, D, Hp, Wp, M, nk, nl, tx, ty, mb, vec, stream
     "conv_valid_launch": (_P, _P, _P) + (_I,) * 11 + (_P,),
-    # anchor, B, D, E, nx, nyr, nk2, nl2, vy, same (returns long long)
-    "corr_windows_scratch_floats": (_I,) * 10,
-    # X, Z, consts, out, scratch, B, D, E, nx, nyr, hx, hy, same, stream
-    "corr_pair_windows_launch": (_P,) * 5 + (_I,) * 8 + (_P,),
-    # X, xre, xim, taps, consts, out, scratch, B, D, nx, nyr, nk2, nl2, s1,
-    # bf16, stream
-    "anchor_windows_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+    # X, Z, consts, out, scratch, scratch_floats, B, D, E, nx, nyr, hx, hy,
+    # same, rows, batches, ychunk, ytile, smem, stream
+    "corr_pair_windows_launch": (_P,) * 5 + (_L,) + (_I,) * 13 + (_P,),
+    # X, xre, xim, taps, consts, out, scratch, scratch_floats, B, D, nx, nyr,
+    # nk2, nl2, s1, bf16, rows, batches, ychunk, ytile, smem, stream
+    "anchor_windows_launch": (_P,) * 7 + (_L,) + (_I,) * 6 + (_F,)
+    + (_I,) * 6 + (_P,),
     # xr, xi, consts, tiles, outr, outi, BD, R, n, k1p, tier, tf, jc,
     # stream
     "rfft_y_leaf_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
@@ -111,8 +111,7 @@ _SIGNATURES = {
     "ydft_sweep_attrs": (_I, _P),
 }
 # entry points that return something other than a cudaError_t
-_RESTYPES = {"corr_windows_scratch_floats": ctypes.c_longlong,
-             "omega_scratch_floats": ctypes.c_longlong,
+_RESTYPES = {"omega_scratch_floats": ctypes.c_longlong,
              "ydft_energy_blocks": ctypes.c_longlong}
 
 

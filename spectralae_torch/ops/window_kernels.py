@@ -19,13 +19,15 @@ burst only ever reads a (2h+1)² window).
   and the DC scalars.  Neither K̂₀ nor EG reaches device memory.
 
 Both live in ``csrc/corr_windows.cu``, whose header note says what bounds
-them and how they are laid out.  K4 also takes the four-step FFT's output
+them and how they are laid out; :func:`window_plan` chooses their tiles
+from the shape.  K4 also takes the four-step FFT's output
 (:func:`spectralae_torch.ops.fft_kernels.rfft2_mixed`, ``mixed=True``),
 gathered to natural bin order first.  Each has a plain PyTorch version here
 (:func:`corr_pair_windows_plain`, :func:`anchor_windows_plain`), which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts kernel launches by kernel: one per call of a
-kernel's C entry point, which runs its grids (two for K3, three for K4).
+kernel's C entry point, which runs its two grids (the rows, then the sum
+over blocks).
 
 Every product here runs in IEEE float32: the plain versions disable TF32
 around their matmuls, the kernels never use tensor cores.
@@ -34,6 +36,7 @@ around their matmuls, the kernels never use tensor cores.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,15 +48,7 @@ from .spectral import _hermitian_weights
 #: kernel launches since import (or the last reset), by kernel
 LAUNCHES = {"corr_pair_windows": 0, "anchor_windows": 0}
 
-
-def _window_basis(nx: int, ny: int, hx: int, hy: int):
-    """Host-side lag-window bases (:func:`dft.lag_basis`) packed for the
-    kernels: ``(byc [nyr, vy], bys, bxcT [vx, nx], bxsT)``, numpy float32.
-    The kernels' y-stage contracts ω_y against the Hermitian-weighted
-    ``byc``/``bys``; their x-stage ω_x against ``bxcT``/``bxsT``; the two
-    fold into ``Σ bxc·sr − bxs·si`` (:func:`_combine_windows`)."""
-    bxc, bxs, byc, bys = dft.lag_basis(nx, ny, hx, hy)
-    return byc, bys, np.ascontiguousarray(bxc.T), np.ascontiguousarray(bxs.T)
+NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
 
 
 def _combine_windows(sr: torch.Tensor, si: torch.Tensor, bxc: torch.Tensor,
@@ -140,33 +135,216 @@ def _check_spectra(name: str, X: torch.Tensor, nx: int, ny: int) -> None:
                          f"nx={nx}, ny={ny} (nyr={ny // 2 + 1})")
 
 
+# K3/K4's launch plan (window_plan): the constants measured best at the
+# precompute's shapes (scripts/torch_windows_bench.py --sweep)
+_SMEM_LIMIT, _BLOCK_THREADS, _MAX_THREADS = 232448, 256, 512
+_ROWS, _MIN_YCHUNK, _YTILE, _STEP_BINS = 16, 8, 16, 16
+_MIN_BLOCKS, _MIN_THREADS = 256, 48 * 1024
+
+
+class WindowPlan(NamedTuple):
+    """One K3 or K4 launch: ``rows`` x-rows, ``batches`` batches and
+    ``ychunk`` ω_y bins a block, walked in steps of ``ytile`` bins;
+    ``threads`` a block, the ``grid`` (row tiles, batch groups, ω_y
+    chunks), the block's shared memory in bytes and the scratch floats of
+    the block partials."""
+    rows: int
+    batches: int
+    ychunk: int
+    ytile: int
+    threads: int
+    grid: tuple[int, int, int]
+    smem: int
+    scratch: int
+
+
+def _cols_per_thread(h: int) -> int:
+    """Lag columns v ≥ 0 a thread takes for a half-extent ``h``: one chunk
+    of 3, 5 or 9, else chunks of 8 (the C side's ``cols_per_thread``)."""
+    nv = h + 1
+    return 3 if nv <= 3 else 5 if nv <= 5 else 9 if nv <= 9 else 8
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _groups(anchor: bool, D: int, E: int, hx: int, hy: int, same: bool):
+    """(pairs, hx, hy) of each window extent: K4's XX (±2h, the upper
+    pairs) and EG (±h) windows, or K3's one."""
+    if anchor:
+        return ((D * (D + 1) // 2, 2 * hx, 2 * hy), (D * D, hx, hy))
+    return ((D * (D + 1) // 2 if same else D * E, hx, hy),)
+
+
+def _layout(groups, anchor: bool, D: int, E: int, same: bool, hx: int,
+            hy: int, rows: int, batches: int, ychunk: int, ytile: int):
+    """Threads, shared-memory floats and x-stage units of a block (the C
+    side's ``layout``)."""
+    threads = pcol = soff = nxu = nvs = 0
+    for npairs, hx_g, hy_g in groups:
+        nvt = _cols_per_thread(hy_g)
+        nvch = _cdiv(hy_g + 1, nvt)
+        threads += 32 * _cdiv(npairs * nvch * rows, 32)
+        pcol += npairs * rows
+        soff += npairs * (hy_g + 1)
+        nxu += npairs * (hx_g + 1) * (hy_g + 1)
+        nvs = max(nvs, nvch * nvt)
+    want = 16 // ytile if ytile < 16 else 1
+    pstride = pcol + (want - pcol) % 16
+    ypad = _cdiv(ychunk, ytile) * ytile
+    dd = D * D
+    floats = (ypad * _round4(2 * nvs) + rows * _round4(2 * (groups[0][1] + 1))
+              + _round4(max(batches * ytile * pstride * 2,
+                            soff * (rows + 1) * 4))
+              + _round4(threads // 32) + _round4(batches * D))
+    # two buffers of one step's signal (complex64, or bf16 re/im rows of
+    # the same bytes)
+    chans = D + (0 if anchor or same else E)
+    floats += 2 * _round4(batches * chans * rows * 2 * ytile)
+    if anchor:
+        floats += (ypad * _round4(2 * hy + 1)
+                   + _round4(dd * (2 * hx + 1) * (2 * hy + 1))
+                   + rows * dd * (hy + 1) * 4 + _round4(dd * rows * ytile * 2))
+    return threads, floats, nxu
+
+
+@functools.lru_cache(maxsize=512)
+def window_plan(anchor: bool, B: int, D: int, E: int, nx: int, nyr: int,
+                hx: int, hy: int, same: bool = False) -> WindowPlan:
+    """K3's (``anchor=False``: pairs of ``D`` and ``E`` channels, or the
+    upper pairs of ``D`` when ``same``, at ±hx, ±hy) or K4's (``anchor=
+    True``: ``hx, hy`` the composed taps' half-extents, windows at ±2h and
+    ±h) launch plan over ``[B, ·, nx, nyr]`` spectra, from the shape alone.
+
+    A thread owns one (pair, x-row) of a window extent and all its lag
+    columns (up to 9 of v ≥ 0; more in chunks of 8), so a block of ``rows``
+    x-rows has ``rows`` threads a pair: 16 rows, fewer (a power of two)
+    where that passes 256 threads.  The grid then splits ω_y into chunks
+    of at least 8 bins until it has 256 blocks and 48 K threads; a grid
+    still under 256 blocks takes blocks of 8 rows, then splits the batch.
+    A block walks its chunk in steps of 16 // batches bins (at least 1).
+    Where the chunk's bases, signal and products pass the 227 KB of shared
+    memory a block may have, the steps, the batches and then the chunk
+    shrink.
+    """
+    if min(B, D, E, nx, nyr) < 1 or min(hx, hy) < 0:
+        raise ValueError(f"window_plan: B={B} D={D} E={E} nx={nx} "
+                         f"nyr={nyr} hx={hx} hy={hy}")
+    groups = _groups(anchor, D, E, hx, hy, same)
+
+    def layout(rows, batches=1, ychunk=1, ytile=1):
+        return _layout(groups, anchor, D, E, same, hx, hy, rows, batches,
+                       ychunk, ytile)
+
+    def blocks():
+        return _cdiv(nx, rows) * _cdiv(B, batches) * _cdiv(nyr, ychunk)
+    rows = min(_ROWS, _pow2_at_most(nx))
+    while rows > 1 and layout(rows)[0] > _BLOCK_THREADS:
+        rows //= 2
+    threads = layout(rows)[0]
+    if threads > _MAX_THREADS:
+        raise ValueError(
+            f"{'anchor_windows' if anchor else 'corr_pair_windows'}: "
+            f"{sum(g[0] for g in groups)} pairs need more than "
+            f"{_MAX_THREADS} threads for one x-row")
+    batches, ychunk = B, nyr
+    while (blocks() < max(_MIN_BLOCKS, _MIN_THREADS // threads)
+           and ychunk > _MIN_YCHUNK):
+        ychunk = max(_MIN_YCHUNK, min(
+            ychunk - 1, _cdiv(nyr, _cdiv(nyr, ychunk) + 1)))
+    if blocks() < _MIN_BLOCKS:
+        rows = min(rows, 8)
+    while blocks() < _MIN_BLOCKS and batches > 1:
+        batches = _cdiv(batches, 2)
+    ytile = _pow2_at_most(min(_YTILE, _STEP_BINS // batches))
+    while layout(rows, batches, ychunk, ytile)[1] * 4 > _SMEM_LIMIT:
+        if batches * ytile > 8:
+            if ytile > 1:
+                ytile //= 2
+            else:
+                batches = _cdiv(batches, 2)
+        elif ychunk > 1:
+            ychunk = _cdiv(ychunk, 2)
+            ytile = _pow2_at_most(min(ytile, ychunk))
+        else:
+            raise ValueError(f"window_plan: no tiling of B={B} D={D} E={E} "
+                             f"nx={nx} nyr={nyr} fits the shared memory")
+    return plan_of(anchor, B, D, E, nx, nyr, hx, hy, same, rows, batches,
+                   ychunk, ytile)
+
+
+def plan_of(anchor: bool, B: int, D: int, E: int, nx: int, nyr: int, hx: int,
+            hy: int, same: bool, rows: int, batches: int, ychunk: int,
+            ytile: int) -> WindowPlan:
+    """The :class:`WindowPlan` of given tiles (threads, grid, shared memory
+    and scratch follow from them); raises where they cannot run."""
+    if rows & (rows - 1) or ytile & (ytile - 1):
+        raise ValueError(f"window_plan: rows={rows} and ytile={ytile} must "
+                         "be powers of two")
+    groups = _groups(anchor, D, E, hx, hy, same)
+    threads, floats, nxu = _layout(groups, anchor, D, E, same, hx, hy, rows,
+                                   batches, ychunk, ytile)
+    grid = (_cdiv(nx, rows), _cdiv(B, batches), _cdiv(nyr, ychunk))
+    if (threads > _MAX_THREADS or floats * 4 > _SMEM_LIMIT
+            or max(grid[1:]) > _GRID_YZ):
+        raise ValueError(f"window_plan: {rows} rows x {batches} batches x "
+                         f"{ychunk} bins (steps of {ytile}) cannot run: "
+                         f"{threads} threads, {floats * 4} bytes, grid "
+                         f"{grid}")
+    nblk = grid[0] * grid[1] * grid[2]
+    return WindowPlan(rows, batches, ychunk, ytile, threads, grid,
+                      floats * 4, 4 * nxu * nblk + nblk + grid[1] * D)
+
+
+def _ybasis(nx: int, ny: int, hy: int, cols: int) -> np.ndarray:
+    """``(w cos, w sin)`` of 2π ω_y v / ny for v = 0..hy, interleaved,
+    zero to ``cols`` floats a row: the right half of
+    :func:`dft.lag_basis`'s y bases."""
+    _, _, byc, bys = dft.lag_basis(nx, ny, 0, hy)
+    out = np.zeros((byc.shape[0], cols), np.float32)
+    out[:, 0:2 * (hy + 1):2] = byc[:, hy:]
+    out[:, 1:2 * (hy + 1):2] = bys[:, hy:]
+    return out
+
+
+def _xbasis(nx: int, ny: int, hx: int) -> np.ndarray:
+    """``(cos, sin)`` of 2π ω_x u / nx for u = 0..hx, interleaved, rows
+    padded to 16 bytes: the right half of :func:`dft.lag_basis`'s x
+    bases."""
+    bxc, bxs, _, _ = dft.lag_basis(nx, ny, hx, 0)
+    out = np.zeros((nx, _round4(2 * (hx + 1))), np.float32)
+    out[:, 0:2 * (hx + 1):2] = bxc[:, hx:]
+    out[:, 1:2 * (hx + 1):2] = bxs[:, hx:]
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _consts_on(kind: str, nx: int, ny: int, a: int, b: int,
                device: torch.device) -> torch.Tensor:
     """The packed float32 constants of a kernel's entry point (the layout
     its C signature states), kept on ``device``.  ``pair``: ``a, b`` are
-    the window half-extents; ``anchor``: the composed-tap extents."""
-    if kind == "pair":
-        parts = _window_basis(nx, ny, a, b)
-    else:
-        nk2, nl2 = a, b
-        cx, sx, cy, sy, w = dft._axis_bases(nk2, nl2, nx, ny)
-        parts = ((cx, sx, cy, sy, w)
-                 + _window_basis(nx, ny, nk2 - 1, nl2 - 1)
-                 + _window_basis(nx, ny, nk2 // 2, nl2 // 2))
+    the window half-extents; ``anchor``: the composed taps' half-extents
+    (one lag basis at ±2b serves both of K4's windows)."""
+    hx, hy = (a, b) if kind == "pair" else (2 * a, 2 * b)
+    groups = _groups(kind == "anchor", 1, 1, a, b, False)
+    nvs = max(_cdiv(g[2] + 1, _cols_per_thread(g[2])) * _cols_per_thread(
+        g[2]) for g in groups)
+    parts = [_ybasis(nx, ny, hy, _round4(2 * nvs)), _xbasis(nx, ny, hx)]
+    if kind == "anchor":
+        _, _, cy, sy, w = dft._axis_bases(2 * a + 1, 2 * b + 1, nx, ny)
+        yanc = np.zeros((ny // 2 + 1, _round4(2 * b + 1)), np.float32)
+        yanc[:, 0:2 * b:2] = cy[b + 1:].T
+        yanc[:, 1:2 * b:2] = sy[b + 1:].T
+        yanc[:, 2 * b] = w
+        parts.append(yanc)
     flat = np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
     with torch.inference_mode(False):
         return torch.as_tensor(flat, device=device)
-
-
-def _scratch(anchor: bool, B, D, E, nx, nyr, nk2=0, nl2=0, vy=0,
-             same=False, device=None) -> torch.Tensor:
-    n = _kernels.lib().corr_windows_scratch_floats(
-        int(anchor), B, D, E, nx, nyr, nk2, nl2, vy, int(same))
-    if n <= 0:
-        raise ValueError("corr_windows: the shape does not fit the kernel's "
-                         "shared memory")
-    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def corr_pair_windows(X: torch.Tensor, Z: torch.Tensor, nx: int, ny: int,
@@ -199,16 +377,18 @@ def corr_pair_windows(X: torch.Tensor, Z: torch.Tensor, nx: int, ny: int,
     Z = X if same else Z.resolve_conj().contiguous()
     B, D, _, nyr = X.shape
     E = Z.shape[1]
-    vx, vy = 2 * hx + 1, 2 * hy + 1
-    out = torch.empty((D, E, vx, vy), dtype=torch.float32, device=X.device)
+    plan = window_plan(False, B, D, E, nx, nyr, hx, hy, same)
+    out = torch.empty((D, E, 2 * hx + 1, 2 * hy + 1), dtype=torch.float32,
+                      device=X.device)
     with torch.cuda.device(X.device):
-        scratch = _scratch(False, B, D, E, nx, nyr, vy=vy, same=same,
-                           device=X.device)
+        scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                              device=X.device)
         err = _kernels.lib().corr_pair_windows_launch(
             X.data_ptr(), Z.data_ptr(),
             _consts_on("pair", nx, ny, hx, hy, X.device).data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), B, D, E, nx, nyr, hx, hy,
-            int(same), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, E, nx,
+            nyr, hx, hy, int(same), plan.rows, plan.batches, plan.ychunk,
+            plan.ytile, plan.smem, torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "corr_pair_windows")
     LAUNCHES["corr_pair_windows"] += 1
     return out
@@ -336,17 +516,20 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
         X, planes = X.resolve_conj().contiguous(), None
     ptrs = ((X.data_ptr(), None, None) if planes is None
             else (None, planes[0].data_ptr(), planes[1].data_ptr()))
+    plan = window_plan(True, B, D, D, nx, nyr, hx2, hy2)
     vx4, vy4, vx2, vy2 = 2 * nk2 - 1, 2 * nl2 - 1, nk2, nl2
     n_xx, n_eg = D * D * vx4 * vy4, D * D * vx2 * vy2
     out = torch.empty(n_xx + n_eg + 1 + D, dtype=torch.float32,
                       device=device)
     with torch.cuda.device(device):
-        scratch = _scratch(True, B, D, D, nx, nyr, nk2, nl2, device=device)
+        scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                              device=device)
         err = _kernels.lib().anchor_windows_launch(
             *ptrs, taps.data_ptr(),
-            _consts_on("anchor", nx, ny, nk2, nl2, device).data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), B, D, nx, nyr, nk2, nl2,
-            float(s1), int(planes is not None),
+            _consts_on("anchor", nx, ny, hx2, hy2, device).data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, nx, nyr,
+            nk2, nl2, float(s1), int(planes is not None), plan.rows,
+            plan.batches, plan.ychunk, plan.ytile, plan.smem,
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "anchor_windows")
     LAUNCHES["anchor_windows"] += 1

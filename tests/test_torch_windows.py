@@ -256,6 +256,18 @@ def test_anchor_windows_mixed_checks_its_input():
 CARD_TOL = 1e-5
 
 
+def _repeated(fn):
+    """One launch and two more, held bit for bit (the kernels' sums have a
+    fixed order); the first result."""
+    runs = [fn() for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for a, b in zip(runs[0] if isinstance(runs[0], tuple) else (runs[0],),
+                        again if isinstance(again, tuple) else (again,)):
+            assert torch.equal(a, b)
+    return runs[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,D,E,n,ny,h,same", [
     (8, 3, 3, 128, 128, 4, True), (2, 2, 3, 40, 40, 3, False),
@@ -269,9 +281,8 @@ def test_corr_pair_windows_kernel_matches_plain(cuda_device, B, D, E, n, ny,
     Z = X if same else torch.fft.rfft2(torch.randn(
         B, E, n, ny, device=cuda_device, generator=gen))
     before = wk.LAUNCHES["corr_pair_windows"]
-    got = wk.corr_pair_windows(X, Z, n, ny, h, h)
-    torch.cuda.synchronize()
-    assert wk.LAUNCHES["corr_pair_windows"] == before + 1
+    got = _repeated(lambda: wk.corr_pair_windows(X, Z, n, ny, h, h))
+    assert wk.LAUNCHES["corr_pair_windows"] == before + 3
     want = wk.corr_pair_windows_plain(X, Z, n, ny, h, h)
     assert rel(got.cpu(), want.cpu()) < CARD_TOL
 
@@ -290,10 +301,9 @@ def test_anchor_windows_kernel_matches_plain(cuda_device, B, D, n, ny, nk2,
     taps = torch.randn(D, D, nk2, nk2, device=cuda_device, generator=gen) * .2
     sd = torch.bfloat16 if bf16 else None
     before = wk.LAUNCHES["anchor_windows"]
-    got = wk.anchor_windows(X, taps, n, ny, nk2 // 2, nk2 // 2, 1 / (4 * D),
-                            signal_dtype=sd)
-    torch.cuda.synchronize()
-    assert wk.LAUNCHES["anchor_windows"] == before + 1
+    got = _repeated(lambda: wk.anchor_windows(
+        X, taps, n, ny, nk2 // 2, nk2 // 2, 1 / (4 * D), signal_dtype=sd))
+    assert wk.LAUNCHES["anchor_windows"] == before + 3
     want = wk.anchor_windows_plain(X, taps, n, ny, nk2 // 2, nk2 // 2,
                                    1 / (4 * D), signal_dtype=sd)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
@@ -313,10 +323,235 @@ def test_anchor_windows_mixed_kernel_matches_plain(cuda_device, B, n, bf16):
     planes = fk.rfft2_mixed(x, out_dtype=torch.bfloat16 if bf16 else None)
     taps = torch.randn(3, 3, 9, 9, device=cuda_device, generator=gen) * .2
     before = wk.LAUNCHES["anchor_windows"]
-    got = wk.anchor_windows(planes, taps, n, n, 4, 4, 1 / 30, mixed=True)
-    torch.cuda.synchronize()
-    assert wk.LAUNCHES["anchor_windows"] == before + 1
+    got = _repeated(lambda: wk.anchor_windows(planes, taps, n, n, 4, 4,
+                                              1 / 30, mixed=True))
+    assert wk.LAUNCHES["anchor_windows"] == before + 3
     want = wk.anchor_windows_plain(planes, taps, n, n, 4, 4, 1 / 30,
                                    mixed=True)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
         assert rel(g.cpu(), w.cpu()) < CARD_TOL, name
+
+
+# explicit tilings on the card: a partial row tile (nx not a multiple of
+# the rows), several batch groups, ω_y chunks whose steps do not divide
+# them (or pass them), one row a block, and the plan's own at a D = 10
+# inner pair
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,n,ny,nk2,tiles,bf16", [
+    (5, 3, 37, 40, 9, (16, 2, 7, 4), False),
+    (5, 3, 37, 40, 9, (4, 3, 21, 16), True),
+    (3, 2, 24, 30, 5, (1, 1, 16, 4), False),
+    (2, 2, 40, 26, 13, (16, 2, 6, 8), False),    # v-chunks of 8 (hy 12)
+    (1, 1, 16, 16, 3, (8, 1, 9, 16), False),
+    (4, 10, 32, 32, 9, None, False)])
+def test_anchor_windows_tilings_on_card(cuda_device, monkeypatch, B, D, n,
+                                        ny, nk2, tiles, bf16):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    X = torch.fft.rfft2(torch.randn(B, D, n, ny, device=cuda_device,
+                                    generator=gen))
+    taps = torch.randn(D, D, nk2, nk2, device=cuda_device, generator=gen) * .2
+    h2, s1 = nk2 // 2, 1 / (4 * D)
+    if tiles is not None:
+        plan = wk.plan_of(True, B, D, D, n, ny // 2 + 1, h2, h2, False,
+                          *tiles)
+        monkeypatch.setattr(wk, "window_plan", lambda *_: plan)
+    sd = torch.bfloat16 if bf16 else None
+    got = _repeated(lambda: wk.anchor_windows(X, taps, n, ny, h2, h2, s1,
+                                              signal_dtype=sd))
+    want = wk.anchor_windows_plain(X, taps, n, ny, h2, h2, s1,
+                                   signal_dtype=sd)
+    for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
+        assert rel(g.cpu(), w.cpu()) < CARD_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,E,n,ny,h,same,tiles", [
+    (5, 3, 3, 37, 40, 8, True, (16, 2, 7, 4)),
+    (5, 3, 6, 37, 40, 4, False, (4, 3, 21, 16)),
+    (2, 2, 3, 24, 30, 12, False, (8, 1, 16, 4)),  # v-chunks of 8
+    (3, 1, 1, 16, 18, 2, True, (32, 3, 10, 2)),
+    (2, 10, 20, 16, 16, 4, False, None)])         # 200 pairs, few rows
+def test_corr_pair_windows_tilings_on_card(cuda_device, monkeypatch, B, D, E,
+                                           n, ny, h, same, tiles):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    X = torch.fft.rfft2(torch.randn(B, D, n, ny, device=cuda_device,
+                                    generator=gen))
+    Z = X if same else torch.fft.rfft2(torch.randn(
+        B, E, n, ny, device=cuda_device, generator=gen))
+    if tiles is not None:
+        plan = wk.plan_of(False, B, D, E, n, ny // 2 + 1, h, h, same, *tiles)
+        monkeypatch.setattr(wk, "window_plan", lambda *_: plan)
+    got = _repeated(lambda: wk.corr_pair_windows(X, Z, n, ny, h, h))
+    want = wk.corr_pair_windows_plain(X, Z, n, ny, h, h)
+    assert rel(got.cpu(), want.cpu()) < CARD_TOL
+
+
+@pytest.mark.cuda
+def test_window_kernels_refuse_a_plan_of_other_shared_memory(cuda_device,
+                                                             monkeypatch):
+    """The C entry point recomputes the plan's layout and refuses a plan
+    whose shared memory differs from its own."""
+    X = torch.fft.rfft2(torch.randn(1, 2, 16, 16, device=cuda_device))
+    plan = wk.window_plan(False, 1, 2, 2, 16, 9, 2, 2, True)
+    monkeypatch.setattr(wk, "window_plan",
+                        lambda *_: plan._replace(smem=plan.smem + 16))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        wk.corr_pair_windows(X, X, 16, 16, 2, 2)
+
+
+# ------------------------------------------------------ the launch plan
+
+WINDOW_SHAPES = [  # (B, n): pair 0's input at 256^2, 1024^2, 2048^2 frames
+    (8, 128), (4, 512), (1, 1024)]
+
+
+def _plans(B, n):
+    """K3's two launches of one precompute and K4's, default net (D = 3,
+    composed 9x9 taps)."""
+    nyr = n // 2 + 1
+    return {"k3 xx": (False, B, 3, 3, n, nyr, 8, 8, True),
+            "k3 eg": (False, B, 3, 6, n, nyr, 4, 4, False),
+            "k4": (True, B, 3, 3, n, nyr, 4, 4, False)}
+
+
+def _covers(plan, B, nx, nyr):
+    """Every row, batch and ω_y bin in exactly one block, every bin of a
+    chunk in one step of its walk."""
+    tiles, groups, chunks = plan.grid
+    assert (tiles - 1) * plan.rows < nx <= tiles * plan.rows
+    assert (groups - 1) * plan.batches < B <= groups * plan.batches
+    assert (chunks - 1) * plan.ychunk < nyr <= chunks * plan.ychunk
+    steps = -(-plan.ychunk // plan.ytile)
+    assert (steps - 1) * plan.ytile < plan.ychunk <= steps * plan.ytile
+
+
+@pytest.mark.parametrize("B,n", WINDOW_SHAPES)
+@pytest.mark.parametrize("which", ["k3 xx", "k3 eg", "k4"])
+def test_window_plan_covers_every_bin_and_fills_the_card(B, n, which):
+    args = _plans(B, n)[which]
+    plan = wk.window_plan(*args)
+    _covers(plan, B, n, n // 2 + 1)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= wk.NUM_SMS
+    assert plan.smem <= 232448
+    assert plan.threads % 32 == 0 and plan.threads <= 512
+    assert plan == wk.plan_of(*args, plan.rows, plan.batches, plan.ychunk,
+                              plan.ytile)
+
+
+@pytest.mark.parametrize("which,n", [("k4", 4096), ("k4", 8192),
+                                     ("k3 xx", 8192)])
+def test_window_plan_chunks_a_row_past_shared_memory(which, n):
+    """8192^2 frames and up: pair 0's row of n/2 + 1 bins does not fit one
+    block's shared memory with its bases (K4: 128 bytes a bin, K3 at ±8:
+    80), so ω_y is chunked although the rows alone fill the card."""
+    args = _plans(1, n)[which]
+    plan = wk.window_plan(*args)
+    _covers(plan, 1, n, n // 2 + 1)
+    assert plan.grid[2] >= 2 and plan.smem <= 232448
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= wk.NUM_SMS
+    with pytest.raises(ValueError, match="cannot run"):
+        wk.plan_of(*args, plan.rows, plan.batches, n // 2 + 1, plan.ytile)
+
+
+@pytest.mark.parametrize("args", [
+    (True, 2, 10, 10, 32, 17, 4, 4, False),     # an inner pair, D = 10
+    (False, 1, 10, 20, 64, 33, 4, 4, False),    # 200 pairs
+    (True, 1, 3, 3, 40, 14, 6, 6, False),       # 13x13 taps: v-chunks
+    (False, 3, 1, 1, 5, 4, 0, 0, True)])        # a window of one lag
+def test_window_plan_other_shapes(args):
+    plan = wk.window_plan(*args)
+    _covers(plan, args[1], args[4], args[5])
+    assert plan.threads <= 512 and plan.smem <= 232448
+
+
+def test_window_plan_refuses_too_many_pairs_for_a_row():
+    with pytest.raises(ValueError, match="threads for one x-row"):
+        wk.window_plan(True, 1, 20, 20, 64, 33, 4, 4)
+
+
+@pytest.mark.parametrize("nx,ny,h", [(128, 128, 4), (512, 512, 4),
+                                     (1024, 1024, 4), (40, 26, 6),
+                                     (16, 19, 2)])
+def test_lag_basis_of_half_extent_is_the_centre_of_the_double(nx, ny, h):
+    """K4 stages one lag basis: the ±h bases are the centre 2h+1 columns of
+    the ±2h ones, bit for bit."""
+    from spectralae_torch.ops import dft
+    half = dft.lag_basis(nx, ny, h, h)
+    full = dft.lag_basis(nx, ny, 2 * h, 2 * h)
+    for a, b in zip(half, full):
+        assert np.array_equal(a, b[:, h:3 * h + 1])
+
+
+def _fold_windows(P, ybas, xbas, hx, hy):
+    """csrc/corr_windows.cu's transform, in float64 from its packed bases:
+    four sums per (pair, u >= 0, v >= 0), then the four quadrants."""
+    c, s = ybas[:, 0:2 * hy + 2:2], ybas[:, 1:2 * hy + 2:2]
+    cx, sx = xbas[:, 0:2 * hx + 2:2], xbas[:, 1:2 * hx + 2:2]
+    sums = [np.einsum("qxy,yv->qxv", a, b) for a, b in
+            ((P.real, c), (P.imag, s), (P.real, s), (P.imag, c))]
+    a1, a2 = (np.einsum("xu,qxv->quv", cx, t) for t in sums[:2])
+    a3, a4 = np.einsum("xu,qxv->quv", sx, sums[3]), \
+        np.einsum("xu,qxv->quv", sx, sums[2])
+    W = np.zeros((P.shape[0], 2 * hx + 1, 2 * hy + 1))
+    for u in range(hx + 1):
+        for v in range(hy + 1):
+            dm, dp = a1[:, u, v] - a2[:, u, v], a1[:, u, v] + a2[:, u, v]
+            sp, sm = a3[:, u, v] + a4[:, u, v], a3[:, u, v] - a4[:, u, v]
+            W[:, hx + u, hy + v], W[:, hx + u, hy - v] = dm - sp, dp - sm
+            W[:, hx - u, hy + v], W[:, hx - u, hy - v] = dm + sp, dp + sm
+    return W
+
+
+@pytest.mark.parametrize("B,D,E,nx,ny,hx,hy", [
+    (2, 3, 3, 32, 32, 4, 4), (1, 2, 3, 24, 16, 3, 2), (2, 2, 2, 16, 19, 2, 3),
+    (1, 2, 2, 16, 40, 3, 12)])
+def test_k3_fold_of_the_lags_from_the_packed_bases(B, D, E, nx, ny, hx, hy):
+    """The kernels' transform (the ±v, ±u fold) on K3's packed constants
+    equals the plain windows."""
+    rng = np.random.default_rng(nx + ny)
+    nyr = ny // 2 + 1
+    X, Z = rand_spec(rng, B, D, nx, nyr), rand_spec(rng, B, E, nx, nyr)
+    flat = wk._consts_on("pair", nx, ny, hx, hy, torch.device("cpu")).numpy()
+    nvt = wk._cols_per_thread(hy)
+    ys = wk._round4(2 * -(-(hy + 1) // nvt) * nvt)
+    ybas = flat[:nyr * ys].reshape(nyr, ys)
+    xbas = flat[nyr * ys:].reshape(nx, -1)
+    P = np.mean(np.conj(X)[:, :, None] * Z[:, None], axis=0).reshape(
+        D * E, nx, nyr)
+    got = _fold_windows(P, ybas.astype(np.float64), xbas.astype(np.float64),
+                        hx, hy)
+    want = wk.corr_pair_windows_plain(_t(X), _t(Z), nx, ny, hx, hy)
+    assert rel(got.reshape(want.shape), want) < TOL
+
+
+def test_window_bench_reads_registers_and_spills():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_windows_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_windows_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    k = "_ZN12_GLOBAL__N_118window_rows_kernelILi9ELi5ELb1ELb0EEEvNS_4ArgsE"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{k}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 8 registers"])
+    assert mod.ptxas_report(log) == {k: {"stack": 0, "spill": 0,
+                                         "regs": 90}}
+
+
+def test_window_bench_needs_a_card(monkeypatch, capsys):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_windows_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_windows_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main(["--check"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
