@@ -112,9 +112,33 @@ Phases (any failure raises and exits non-zero):
    the card must match the same stream on the CPU in weights, momentum and
    MSE trajectories at 10 iterations a frame (the default route and the
    "fft" route), and within the spread of the training map at 100.
+7. The interactive loop: ``run`` through the CLI on the default net at
+   256^2, one frame a step, with the key script RUN_KEYS (a fft burst, the
+   'g' views, coordinate training on the innermost pair, pair switches,
+   tied weights, a pair added and dropped, .conv files saved and loaded,
+   the structure) and PNG dumps: K1, K2 and K3 launch exactly as the keys
+   imply (``run_launches``) and no plain version runs on the card; each
+   launch shape the run gave K1, K2 and K3 is held against its plain
+   version on the launch's own inputs (TOL_K1, TOL_K2, TOL_WINDOWS); the
+   coord mse falls; the views are written; which host codec route ran
+   (numpy or the native library) is printed.  The same keys through the
+   Engine API on the card and on the CPU (``fft_iters`` 10, cuDNN's TF32
+   at PyTorch's default), each frame from the card's state: every
+   frame's reconstruction and every activation tape the frame computes
+   or its view dump recomputes (TOL_FFT, TOL_COORD), every train step
+   (coord steps at TOL_COORD / TOL_MOM; the burst's weights at
+   TOL_STREAM_W and its last mse, recomputed in float64 from each side's
+   returned weights, at TOL_STREAM_MSE), the weights 'n' draws bit for
+   bit.  The host and device ms of one ``run`` frame in each mode.
+   ``train --mode stream --domain coord`` at 256^2 batch 8 with a
+   checkpoint and a resume (the mse falls, K2 twice a frame), and 3
+   frames of ``coord_stream`` card against CPU.  ``eval`` of phase 5's
+   checkpoints and phase 4's forward artifacts, card against CPU within
+   1e-5.
 
 The line before the last is a JSON object with each kernel's launches on
-every path (serve, train, train_bf16, stream, stream_fft, burst, and
+every path (serve, train, train_bf16, stream, stream_fft, burst, run,
+stream_coord, and
 omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
 engine at the headline input; probe_mosaic and probe_dft, the probe
 scripts), its largest error, and its time, plain time, bound and library
@@ -195,6 +219,29 @@ TRAIN_STEPS, RESUME_STEPS = 20, 5
 K1_PER_FFT_STEP, K2_PER_COORD_STEP = 17, 2
 # the stream phase: frames of the first run and of the resumed one
 STREAM_STEPS, STREAM_RESUME = 32, 16
+# the interactive loop (phase 7): one key a frame after the frame (the
+# reference's per-frame waitKey): fft inference, a fft burst ('1', K3), the
+# tape views ('g'), the innermost pair ('x'; training an outer pair of a net
+# whose inner pairs are random raises the full-net mse, as in the
+# reference), coordinate mode ('f') and training ('1') over six frames,
+# pair switches ('z'), tied weights ('p'), a new pair and its removal
+# ('n', 'd'), the .conv files ('s', 'l'), the structure ('i'), disarm
+RUN_KEYS = "1ggxf1-----zzpndsli1"
+RUN_FRAMES, RUN_DUMP = 21, 2
+RUN_COORD_FALL = (6, 11)     # coord frames of one pair whose mse must fall
+ENGINE_FFT_ITERS = 10        # the engine card-vs-CPU run: pointwise bursts
+# the engine's fft burst is the correlation-space one on the card and the
+# omega-space one on the CPU (as in the JAX package off its accelerator).
+# The correlation burst sums its running MSE from correlation terms
+# anchored on mses[0], the error of the anchor the engine hands it (the
+# full net's reconstruction, far above the pair's own error), so float32
+# cancellation leaves its last MSE some epsilons of mses[0] off; the
+# omega-space burst recomputes each MSE afresh.  So the last MSE is held as
+# each side's returned weights give it (pair_mse64, float64 on the CPU), at
+# TOL_STREAM_MSE; each burst's own last MSE against that is printed
+# the coord stream phase: frames (batches of 8) of the first run and the
+# resumed one, and the frames held card against CPU
+COORD_STREAM_STEPS, COORD_STREAM_RESUME, COORD_CMP_FRAMES = 24, 8, 3
 # burst precompute shapes: (frame size, batch) -> pair 0's input at half
 WINDOW_SIZES = ((256, 8), (1024, 4), (2048, 1))
 # the four-step rfft2 (B5) against its plain versions: the same float32
@@ -479,6 +526,29 @@ def k2_key(xpad, w) -> tuple:
 
 
 @contextlib.contextmanager
+def guard_plains(plains, fallbacks: list):
+    """Inside the block, record every call of the plain versions
+    ``plains`` ((module, name) pairs) on a CUDA tensor in ``fallbacks``:
+    on the card each must launch its kernel."""
+    real = {(mod, name): getattr(mod, name) for mod, name in plains}
+
+    def guarded(name, fn):
+        def guard(x, *a, **kw):
+            t = x[0] if isinstance(x, (tuple, list)) else x
+            if t.is_cuda:
+                fallbacks.append((name, tuple(t.shape)))
+            return fn(x, *a, **kw)
+        return guard
+    for (mod, name), fn in real.items():
+        setattr(mod, name, guarded(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
 def launch_log():
     """Record the key of every kernel launch made inside the block, by
     kernel, calling through to the wrappers (which count the launches)."""
@@ -500,6 +570,91 @@ def launch_log():
         yield log
     finally:
         sk.cmul_contract, ck._valid_corr = k1, k2
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Inside the block, keep the inputs and the result of the first
+    launch of K1, K2 and K3 at each launch shape, calling through to the
+    wrappers (which count the launches); :func:`hold_kernel_inputs` holds
+    them against the plain versions."""
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    from spectralae_torch.train import fft_corr
+    kept = {}
+    k1, k2, k3 = sk.cmul_contract, ck._valid_corr, fft_corr.corr_pair_windows
+
+    def keep(key, args, kw, out):
+        if key not in kept:
+            kept[key] = ([a.clone() if torch.is_tensor(a) else a
+                          for a in args],
+                         {k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in kw.items()}, out.clone())
+
+    def k1_spy(p, q, **kw):
+        out = k1(p, q, **kw)
+        keep(("k1",) + k1_key(p, q, kw.get("conj_q", False), kw.get("bias")),
+             (p, q), kw, out)
+        return out
+
+    def k2_spy(xpad, w):
+        out = k2(xpad, w)
+        keep(("k2",) + k2_key(xpad, w), (xpad, w), {}, out)
+        return out
+
+    def k3_spy(X, Z, *dims):
+        out = k3(X, Z, *dims)
+        keep(("k3", tuple(X.shape), tuple(Z.shape), X is Z) + dims,
+             (X, Z) + dims, {}, out)
+        return out
+    sk.cmul_contract, ck._valid_corr = k1_spy, k2_spy
+    fft_corr.corr_pair_windows = k3_spy
+    try:
+        yield kept
+    finally:
+        sk.cmul_contract, ck._valid_corr = k1, k2
+        fft_corr.corr_pair_windows = k3
+
+
+def hold_kernel_inputs(label: str, kept: dict) -> None:
+    """Each kept launch (:func:`kernel_inputs`) against its plain version
+    on the same inputs: K1 at TOL_K1, K2 at TOL_K2, K3 at TOL_WINDOWS."""
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    from spectralae_torch.ops import window_kernels as wk
+    plains = {"k1": (sk.cmul_contract_plain, TOL_K1),
+              "k2": (ck.conv_valid_plain, TOL_K2),
+              "k3": (wk.corr_pair_windows_plain, TOL_WINDOWS)}
+    worst = {}
+    for key, (args, kw, out) in kept.items():
+        plain, tol = plains[key[0]]
+        err = rel_err(out, plain(*args, **kw))
+        check(err <= tol, f"{label}: {key[0].upper()} at {key[1:]} "
+              f"disagrees with its plain version: {err:.3e} > {tol:g}")
+        n, e = worst.get(key[0], (0, 0.0))
+        worst[key[0]] = (n + 1, max(e, err))
+    check(set(worst) == set(plains), f"{label}: no launch of "
+          f"{sorted(set(plains) - set(worst))} was kept")
+    print(f"{label}: each launch shape against its plain version on the "
+          "launch's own inputs: " + ", ".join(
+              f"{k.upper()} {n} shapes, worst {e:.3e} (tol "
+              f"{plains[k][1]:g})" for k, (n, e) in sorted(worst.items())),
+          flush=True)
+
+
+def pair_mse64(x, c, f, b, p) -> float:
+    """The stage pair's reconstruction MSE of ``x`` (the fft burst's own
+    measure: the pool-free two-stage spectral conv, Parseval-normalized),
+    recomputed in float64 on the CPU."""
+    from spectralae_torch.ops import spectral
+    x, c, f, b, p = (t.detach().cpu().double() for t in (x, c, f, b, p))
+    nx, ny = x.shape[-2:]
+    X = spectral.rfft2(x)
+    H = spectral.spectral_conv_einsum(
+        X[None], spectral.rfft2(spectral.kernel_pad(c, nx, ny)), b, nx, ny)
+    O = spectral.spectral_conv_einsum(
+        H, spectral.rfft2(spectral.kernel_pad(f, nx, ny)), p, nx, ny)[0]
+    return float(spectral.parseval_mse(X, O, c.shape[1], c.shape[0], nx, ny))
 
 
 def stage_shapes(nx: int, layers: int):
@@ -2100,19 +2255,10 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
     from spectralae_torch.train import fft_corr
     fallbacks = []
     # no plain version of a kernel may run on the card
-    plains = {(wk, "anchor_windows_plain"): wk.anchor_windows_plain,
-              (fft_corr, "anchor_windows_plain"): wk.anchor_windows_plain}
-    for name in ("rfft_y_mixed_plain", "fft_x_mixed_plain", "_fft_yc_plain",
-                 "_bfly_lanes_plain", "_bfly_rows_plain"):
-        plains[(fk, name)] = getattr(fk, name)
-
-    def guarded(name, real):
-        def guard(X, *a, **kw):
-            t = X[0] if isinstance(X, (tuple, list)) else X
-            if t.is_cuda:
-                fallbacks.append((name, tuple(t.shape)))
-            return real(X, *a, **kw)
-        return guard
+    plains = [(wk, "anchor_windows_plain"), (fft_corr, "anchor_windows_plain")]
+    plains += [(fk, name) for name in (
+        "rfft_y_mixed_plain", "fft_x_mixed_plain", "_fft_yc_plain",
+        "_bfly_lanes_plain", "_bfly_rows_plain")]
     common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
               "--seed", "0", "--log-every", "1"]
     stream = common + ["--mode", "stream", "--stream-k", "16"]
@@ -2187,9 +2333,7 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
                       f"below the first run's {loss0:.6g}")
         return counts()
 
-    for (mod, name), real in plains.items():
-        setattr(mod, name, guarded(name, real))
-    try:
+    with guard_plains(plains, fallbacks):
         stream_launches = drive(stream_runs)
         fft_launches = drive(fft_runs)
         check(not fallbacks, f"plain versions ran on the card: {fallbacks}")
@@ -2221,9 +2365,6 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
         print(f"train --mode burst --pallas-fft exits non-zero: {refused}",
               flush=True)
         return stream_launches, fft_launches, burst_launches
-    finally:
-        for (mod, name), real in plains.items():
-            setattr(mod, name, real)
 
 
 def phase_stream_vs_cpu() -> None:
@@ -2540,6 +2681,379 @@ def phase_train_vs_cpu(tmp: Path) -> None:
              three_steps(domain, "cpu", True, card_routes), TOL_BF16[domain])
 
 
+# ------------------------------------------ 7: the interactive loop
+
+def run_launches(keys: str, frames: int, dump_every: int,
+                 stages: int) -> dict:
+    """K1, K2 and K3 launches a ``run`` of ``frames`` frames with the key
+    script ``keys`` makes on the card: a fft frame runs one K1 per stage
+    (and as many again where a view dump recomputes the tape: no training
+    and no 'g'), a fft burst two K3, a coordinate frame two K2 (the 3->10
+    and 10->3 convs; the coord step's transposes run on cuDNN)."""
+    fft, sel, fft_l = True, False, False
+    want = dict(k1=0, k2=0, k3=0)
+    for i in range(frames):
+        if fft:
+            want["k1"] += stages
+            if dump_every and i % dump_every == 0 and not (sel or fft_l):
+                want["k1"] += stages
+            if sel:
+                want["k3"] += 2
+                sel = False
+        else:
+            want["k2"] += 2
+        key = keys[i] if i < len(keys) else ""
+        if key == "1":
+            sel = not sel
+        elif key == "f":
+            fft = not fft
+        elif key == "g":
+            fft_l = not fft_l
+        elif key == "n":
+            stages += 2
+        elif key == "d" and stages > 2:
+            stages -= 2
+    return want
+
+
+def _k123_plains() -> list:
+    from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral_kernels as sk
+    from spectralae_torch.ops import window_kernels as wk
+    return [(sk, "cmul_contract_plain"), (ck, "conv_valid_plain"),
+            (wk, "corr_pair_windows_plain")]
+
+
+def _run_cli(tmp: Path) -> dict:
+    """``run`` through the CLI at 256^2 on the default 3-pair net with
+    RUN_KEYS; returns the launches it made."""
+    from spectralae_torch.cli.main import main as cli
+    work, views = tmp / "run", tmp / "run" / "views"
+    work.mkdir()
+    fallbacks = []
+    reset_counts()
+    before = counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with kernel_inputs() as kept, guard_plains(_k123_plains(), fallbacks), \
+            contextlib.chdir(work), contextlib.redirect_stdout(buf):
+        cli(["run", "--nx", "256", "--layers", "3", "--seed", "0",
+             "--frames", str(RUN_FRAMES), "--keys", RUN_KEYS,
+             "--dump-every", str(RUN_DUMP), "--outdir", str(views)])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    got = grown(before)
+    want = dict.fromkeys(got, 0)
+    want.update(run_launches(RUN_KEYS, RUN_FRAMES, RUN_DUMP, 6))
+    check(got == want, f"run: launches {got}, expected {want}")
+    check(not fallbacks, f"run: plain versions ran on the card: {fallbacks}")
+    launched = counts()
+    hold_kernel_inputs("run", kept)
+    mses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^frame (\d+): [\d.]+ ms  mse: (\S+)$", out, re.M)}
+    check(all(math.isfinite(v) for v in mses.values()),
+          f"run: non-finite mse {mses}")
+    a, b = RUN_COORD_FALL
+    check(mses[b] < mses[a], f"run: the coord mse of the innermost pair did "
+          f"not fall over frames {a}-{b}: {mses[a]:.6g} -> {mses[b]:.6g}")
+    check("Network structure" in out and "key 's' -> (" in out
+          and "key 'l' -> None" in out, "run: 'i', 's' or 'l' failed:\n"
+          + "\n".join(line for line in out.splitlines()
+                      if line.startswith("key")))
+    check(len(list((work / "weights").glob("*.conv"))) == 2,
+          "run: 's' wrote no .conv pair")
+    dumps = sorted(pth.name for pth in views.iterdir())
+    for i in range(0, RUN_FRAMES, RUN_DUMP):
+        for view in ("input", "output", "feature_map", "kernel"):
+            check(f"{view}_{i:05d}.png" in dumps, f"run: no {view} view of "
+                  f"frame {i}")
+    check("spectrum_00002.png" in dumps and "layer_12_00002.png" in dumps,
+          "run: no 'g' views of frame 2")
+    print(f"run 256x256 3 pairs, {RUN_FRAMES} frames, keys {RUN_KEYS!r}: "
+          f"launches {({k: v for k, v in got.items() if v})} (as the keys "
+          f"imply); coord mse of the innermost pair frame {a} "
+          f"{mses[a]:.6g} -> frame {b} {mses[b]:.6g}; {len(dumps)} PNGs; "
+          f"{wall:.2f} s CLI wall; host codec route: {_codec_route()}",
+          flush=True)
+    return launched
+
+
+def _codec_route() -> str:
+    """Which route the pipeline's host stages take in this checkout."""
+    from spectralae_torch.data import native
+    if native.available():
+        return (f"the native library ({native._lib._name}) for the resize, "
+                "the batch stage, .y4m and PNG decoding; numpy for the "
+                "frame conversions")
+    return "numpy (the native library is not built)"
+
+
+def _engine_vs_cpu(tmp: Path, frames: list) -> None:
+    """RUN_KEYS through the Engine API on the card and on the CPU, with
+    Config(fft_iters=ENGINE_FFT_ITERS), one seed and cuDNN's TF32 at
+    PyTorch's default (the engine holds its library convs in IEEE float32
+    itself); each frame starts both from the card's state.  Every frame's
+    reconstruction and activation tape (computed by the step, or recomputed
+    by the view dump of a ``run --dump-every RUN_DUMP`` frame) at TOL_FFT
+    (fft) or TOL_COORD (coord); after every train step the selected pair,
+    the momentum (coord) and the last mse: coord steps at TOL_COORD
+    (momentum TOL_MOM); the fft burst (the correlation burst on the card,
+    the omega-space one on the CPU) in the weights at TOL_STREAM_W and in
+    the last mse as each side's returned weights give it (pair_mse64) at
+    TOL_STREAM_MSE.  The weights 'n' draws are held bit for bit."""
+    from spectralae_torch.core.config import Config
+    from spectralae_torch.model import engine as engine_mod
+    from spectralae_torch.model.engine import Engine
+    bursts = {}
+    burst = engine_mod.auto_burst
+
+    def recorded_burst(x, *a, **kw):
+        r = burst(x, *a, **kw)
+        bursts[x.device.type] = (float(r.mses[-1]),
+                                 pair_mse64(x, r.c, r.f, r.b, r.p))
+        return r
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(Config(nx=256, ny=256, fft_iters=ENGINE_FFT_ITERS),
+                     seed=0, device=dev)
+        eng.add_layer()
+        eng.add_layer()
+        eng.select_layer(0)
+        (tmp / f"engine_{dev}").mkdir()
+        engines[dev] = eng
+    worst, own = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    engine_mod.auto_burst = recorded_burst
+    try:
+        _engine_frames(tmp, frames, engines, bursts, worst, own)
+    finally:
+        engine_mod.auto_burst = burst
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"engine 256x256 3 pairs, {len(frames)} frames of {RUN_KEYS!r} "
+          f"(fft_iters={ENGINE_FFT_ITERS}, cuDNN TF32 on), card vs CPU port "
+          "from the same state each frame: " + ", ".join(
+              f"{mode} {name} {e:.3e}" for (mode, name), e in worst.items())
+          + f" (tol: fft {TOL_FFT:g}, coord {TOL_COORD:g}, momentum "
+          f"{TOL_MOM:g}; burst weights {TOL_STREAM_W:g}, last mse from the "
+          f"weights in float64 {TOL_STREAM_MSE:g}); each burst's own last "
+          "mse against that: " + ", ".join(
+              f"{dev} {e:.3e}" for dev, e in own.items())
+          + "; 'n' drew the same weights", flush=True)
+
+
+def _engine_frames(tmp: Path, frames: list, engines: dict, bursts: dict,
+                   worst: dict, own: dict) -> None:
+    from spectralae_torch.model.engine import dispatch_key
+    card, cpu = engines["cuda"], engines["cpu"]
+
+    def hold(i, mode, name, e, tol):
+        check(e <= tol, f"engine frame {i} {mode}: card and CPU disagree "
+              f"in {name}: {e:.3e} > {tol:g}")
+        worst[(mode, name)] = max(worst.get((mode, name), 0.0), e)
+    for i, x in enumerate(frames):
+        cpu.params = type(card.params).from_leaves(
+            [t.cpu() for t in card.params.leaves()])
+        cpu._mom = tuple(t.cpu() for t in card._mom)
+        cpu._prev_grad = tuple(t.cpu() for t in card._prev_grad)
+        trains, fft = card.flags.sel, card.flags.fft
+        mode, tol = ("fft", TOL_FFT) if fft else ("coord", TOL_COORD)
+        out = [torch.from_numpy(eng.step(x)) for eng in (card, cpu)]
+        hold(i, mode, "reconstruction", rel_err(*out), tol)
+        if card.layers is None and i % RUN_DUMP == 0:
+            for eng in (card, cpu):
+                eng.current_views()
+        if card.layers is not None:
+            hold(i, mode, "tape", max(rel_err(a.cpu(), b) for a, b in
+                                      zip(card.layers, cpu.layers)), tol)
+        if trains:
+            mode = "fft burst" if fft else "coord step"
+            n_l = card.flags.n_l
+            hold(i, mode, "weights",
+                 rel_err(_flat([t.cpu() for t in _pair(card, n_l)]),
+                         _flat(_pair(cpu, n_l))),
+                 TOL_STREAM_W if fft else TOL_COORD)
+            if fft:
+                (a_own, a), (b_own, b) = bursts["cuda"], bursts["cpu"]
+                hold(i, mode, "last mse", abs(a - b) / b, TOL_STREAM_MSE)
+                for dev, (m_own, m) in bursts.items():
+                    own[dev] = max(own.get(dev, 0.0), abs(m_own - m) / m)
+            else:
+                hold(i, mode, "momentum",
+                     rel_err(_flat([t.cpu() for t in card._mom]),
+                             _flat(cpu._mom)), TOL_MOM)
+                hold(i, mode, "last mse",
+                     abs(card.last_mse - cpu.last_mse) / abs(cpu.last_mse),
+                     TOL_COORD)
+        key = RUN_KEYS[i] if i < len(RUN_KEYS) else ""
+        for dev, eng in engines.items():
+            with contextlib.chdir(tmp / f"engine_{dev}"):
+                dispatch_key(eng, key)
+        if key in ("n", "e"):
+            n_l = card.flags.n_l
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(
+                _pair(card, n_l), _pair(cpu, n_l))),
+                  f"engine '{key}': the card and the CPU drew other weights")
+
+
+def _pair(eng, n_l: int) -> list:
+    enc, dec = eng.params.pair(n_l)
+    return [enc.c, enc.b, dec.c, dec.b]
+
+
+def _engine_times(frame: np.ndarray) -> None:
+    """Host ms per frame of the engine at 256^2 (3 pairs, pair 0: the
+    burst on its 128^2 input) in each of the run path's modes, with the
+    device ms and busy share."""
+    from spectralae_torch.core.config import Config
+    from spectralae_torch.model.engine import Engine
+    eng = Engine(Config(nx=256, ny=256), seed=0, device="cuda")
+    eng.add_layer()
+    eng.add_layer()
+    eng.select_layer(0)
+    for label, fft, sel, reps in (("fft inference", True, False, 10),
+                                  ("fft burst frame (100 iterations)", True,
+                                   True, 3),
+                                  ("coord inference", False, False, 10),
+                                  ("coord train frame", False, True, 10)):
+        eng.flags.fft = fft
+
+        def one_frame(sel=sel):
+            eng.flags.sel = sel
+            eng.step(frame)
+        _breakdown(f"run frame 256x256 3 pairs, {label}", one_frame,
+                   reps=reps)
+
+
+def _coord_stream(tmp: Path) -> dict:
+    """``train --mode stream --domain coord`` through the CLI at 256^2
+    batch 8 on the innermost pair, with a checkpoint and a resume; then 3
+    frames of ``coord_stream`` on the card against the CPU."""
+    from spectralae_torch.data import pipeline
+    from spectralae_torch.io import checkpoint as ckpt
+    from spectralae_torch.core.types import AEParams
+    from spectralae_torch.train.streaming import coord_stream
+    argv = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
+            "--seed", "0", "--log-every", "1", "--mode", "stream",
+            "--domain", "coord", "--stream-k", "8", "--train-pair", "2",
+            "--ckpt", str(tmp / "coord_stream")]
+    fallbacks = []
+    reset_counts()
+    loss0 = None
+    for first, frames in ((0, COORD_STREAM_STEPS),
+                          (COORD_STREAM_STEPS, COORD_STREAM_RESUME)):
+        extra = ["--resume", str(tmp / "coord_stream")] if first else []
+        before = counts()
+        t0 = time.perf_counter()
+        with guard_plains(_k123_plains(), fallbacks):
+            recs = _cli_records(argv + ["--steps", str(first + frames)]
+                                + extra)
+        wall = time.perf_counter() - t0
+        got = grown(before)
+        want = dict.fromkeys(got, 0)
+        want["k2"] = 2 * frames
+        check(got == want, f"coord stream: launches {got}, expected {want}")
+        check([r["step"] for r in recs] == list(range(first,
+                                                      first + frames)),
+              f"coord stream: logged steps {[r['step'] for r in recs]}")
+        mses = [r["mse"] for r in recs]
+        check(all(math.isfinite(v) for v in mses),
+              f"coord stream: non-finite mse {mses}")
+        check(ckpt.load(tmp / "coord_stream")[3]["step"] == first + frames,
+              "coord stream: checkpoint step")
+        if not first:
+            check(mses[-1] < mses[0], f"coord stream: the mse did not fall: "
+                  f"{mses[0]:.6g} -> {mses[-1]:.6g}")
+            loss0 = mses[0]
+        else:
+            check(mses[0] < loss0, f"coord stream resumed: first mse "
+                  f"{mses[0]:.6g} not below the first run's {loss0:.6g}")
+        print(f"train --mode stream --domain coord 256x256 b8 pair 2 steps "
+              f"{first}-{first + frames - 1}{' (resumed)' if first else ''}"
+              f": mse {mses[0]:.6g} -> {mses[-1]:.6g}; launches K2 "
+              f"+{got['k2']} (2 per frame); {wall:.2f} s CLI wall, "
+              f"{frames / wall:.2f} frames/s ({8 * frames / wall:.1f} "
+              "images/s)", flush=True)
+    check(not fallbacks, f"coord stream: plain versions ran on the card: "
+          f"{fallbacks}")
+    launched = counts()
+    params, spec = _net(256)
+    src = pipeline.synthetic_frames(256, 256, seed=3)
+    xs = torch.from_numpy(np.stack([pipeline.frame_to_tensor(f) for f in
+                                    itertools.islice(src, 8 *
+                                                     COORD_CMP_FRAMES)]))
+    xs = xs.reshape(COORD_CMP_FRAMES, 8, 3, 256, 256)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        prm = AEParams.from_leaves([t.to(dev) for t in params.leaves()])
+        r = coord_stream(xs.to(dev), prm, spec.scales, 2)
+        runs[dev] = (_flat([t.cpu() for t in r.params.leaves()]),
+                     _flat([t.cpu() for t in r.mom]), r.mses.cpu())
+    errs = {name: (rel_err(a, b), t) for name, a, b, t in zip(
+        ("weights", "momentum", "mses"), runs["cuda"], runs["cpu"],
+        (TOL_COORD, TOL_MOM, TOL_COORD))}
+    print(f"coord stream {COORD_CMP_FRAMES} frames 256x256 b8 pair 2, card "
+          "vs CPU port: " + ", ".join(f"{k} {e:.3e} (tol {t:g})"
+                                      for k, (e, t) in errs.items()),
+          flush=True)
+    for k, (e, t) in errs.items():
+        check(e <= t, f"coord stream card vs CPU: {k} {e:.3e} > {t:g}")
+    prm = AEParams.from_leaves([t.cuda() for t in params.leaves()])
+    xs8 = xs[:1].cuda().expand(8, -1, -1, -1, -1).contiguous()
+    ms = _host_ms(lambda: coord_stream(xs8, prm, spec.scales, 2).mses.cpu(),
+                  3)
+    print(f"coord stream flush of 8 frames 256x256 b8 (library call): host "
+          f"{ms:.4f} ms, {8 / ms * 1e3:.2f} frames/s ({64 / ms * 1e3:.1f} "
+          "images/s)", flush=True)
+    return launched
+
+
+def _eval(tmp: Path) -> None:
+    """``eval`` on the card and on the CPU of phase 5's checkpoints (each
+    in its domain) and phase 4's forward artifacts: mse_per_pixel within
+    1e-5 relative."""
+    for what, argv in (
+            ("checkpoint fft", ["--from-ckpt", str(tmp / "train_fft"),
+                                "--domain", "fft"]),
+            ("checkpoint coord", ["--from-ckpt", str(tmp / "train_coord"),
+                                  "--domain", "coord"]),
+            ("artifact fft", ["--model", str(tmp / "fft" / "forward")]),
+            ("artifact coord", ["--model", str(tmp / "coord" / "forward")])):
+        got = {}
+        before = counts()
+        for dev in ("cuda", "cpu"):
+            (rec,) = _cli_records(["eval", "--steps", "2", "--batch", "4",
+                                   "--seed", "5", "--device", dev] + argv)
+            got[dev] = rec
+        grew = grown(before)
+        a, b = got["cuda"]["mse_per_pixel"], got["cpu"]["mse_per_pixel"]
+        err = abs(a - b) / abs(b)
+        print(f"eval {what} 256x256 8 frames: mse_per_pixel card {a} CPU {b}"
+              f" (rel {err:.3e}, tol 1e-5); psnr {got['cuda']['psnr_db']} "
+              f"dB; launches K1 +{grew['k1']} K2 +{grew['k2']}", flush=True)
+        check(got["cuda"]["frames"] == got["cpu"]["frames"] == 8,
+              f"eval {what}: frames {got}")
+        check(err <= 1e-5, f"eval {what}: card {a} vs CPU {b}")
+        check(grew["k1" if "fft" in what else "k2"] > 0,
+              f"eval {what}: its kernel was not launched")
+
+
+def phase_engine(tmp: Path) -> tuple[dict, dict]:
+    """Phase 7 (see the module docstring).  Returns the launches of the
+    run path and of the coord stream path."""
+    from spectralae_torch.data import pipeline
+    frames = [pipeline.frame_to_tensor(f) for f in itertools.islice(
+        pipeline.synthetic_frames(256, 256, seed=0), RUN_FRAMES)]
+    t0 = time.perf_counter()
+    run = _run_cli(tmp)
+    _engine_vs_cpu(tmp, frames)
+    _engine_times(frames[0])
+    stream = _coord_stream(tmp)
+    _eval(tmp)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return run, stream
+
+
 # the kernels that must run on the tensor cores: the library's query of
 # their attributes and its arguments for each instantiation (the leaf:
 # real, complex, complex with bf16 out, each at three tiers)
@@ -2654,6 +3168,8 @@ def main() -> int:
         (by_path["stream"], by_path["stream_fft"],
          by_path["burst"]) = phase_stream_training(tmp)
         phase_stream_vs_cpu()
+        # 7. the interactive loop, the coord stream, eval
+        by_path["run"], by_path["stream_coord"] = phase_engine(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path.update(omega_paths)
@@ -2665,6 +3181,7 @@ def main() -> int:
             "probe_dft": ("p2",),
             "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
             "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
+            "run": ("k1", "k2", "k3"), "stream_coord": ("k2",),
             "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",)}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),

@@ -12,7 +12,11 @@ The ``torch.optim`` optimizers' state goes into a sidecar file of its own,
 ``optim.pt`` (:func:`save_optim_state`); the JAX package's ``optax.npz``
 sidecar holds optax state, which this package does not read.
 
-Not ported yet (ROADMAP A10): the reference ``.conv`` shim.
+``.conv`` shim: byte-compatible with the reference's per-stage raw-float32
+files (``SaveLoad_conv``/``SaveLoad_vec``, source/netlib.cpp:200-272) and
+with the JAX package's — filename
+``C_weights_{L}{_in|_out}_D=…_M=…_Lk=…_Ll=…_S=….conv``, payload all kernel
+weights in (m,d,k,l) row-major order followed by the M biases.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core.config import half_extent
 from ..core.types import AEParams, ConvStage, NetSpec, OptState, StageSpec
 
 FORMAT_VERSION = 1
@@ -186,3 +191,72 @@ def load_optim_state(path: str | Path) -> dict:
     (tensors and plain values only: ``weights_only`` loading).  The torch
     optimizer moves it to its parameters' device when it loads it."""
     return torch.load(Path(path), map_location="cpu", weights_only=True)
+
+
+# ------------------------------------------------------------------ .conv shim
+
+def conv_filename(level: int, io: int, d: int, m: int, nk: int, nl: int,
+                  scale: int) -> str:
+    """The reference's shape-in-the-filename scheme (netlib.cpp:230-234)."""
+    inout = "_in" if io == 0 else "_out"
+    return (f"C_weights_{level}{inout}_D={d}_M={m}"
+            f"_Lk={half_extent(nk)}_Ll={half_extent(nl)}_S={scale}.conv")
+
+
+def export_conv(stage: ConvStage, path: str | Path) -> None:
+    """Write one stage in reference binary layout (netlib.cpp:236-253)."""
+    with open(path, "wb") as fh:
+        for t in (stage.c, stage.b):   # (m,d,k,l) row-major, then biases
+            fh.write(t.detach().cpu().contiguous().numpy()
+                     .astype("<f4").tobytes())
+
+
+def import_conv(path: str | Path, m: int, d: int, nk: int, nl: int, *,
+                device: torch.device | str = "cpu") -> ConvStage:
+    """Read one reference-format stage file (netlib.cpp:254-271) onto
+    ``device``.  Shapes come from the caller (in the reference, from the
+    filename); a file of another float count is refused."""
+    raw = np.fromfile(path, dtype="<f4")
+    want = m * d * nk * nl + m
+    if raw.size != want:
+        raise ValueError(f"{path}: expected {want} floats, got {raw.size}")
+    raw = torch.from_numpy(raw.astype(np.float32)).to(device)
+    return ConvStage(c=raw[: m * d * nk * nl].reshape(m, d, nk, nl),
+                     b=raw[m * d * nk * nl:])
+
+
+def _pair_paths(params: AEParams, spec: NetSpec, n_l: int,
+                weights_dir: Path) -> tuple[Path, Path]:
+    n = len(params.stages)
+    enc, dec = params.pair(n_l)
+    enc_spec, dec_spec = spec.stages[n_l], spec.stages[n - 1 - n_l]
+    return (weights_dir / conv_filename(n_l, 0, enc.d, enc.m, enc.nk, enc.nl,
+                                        enc_spec.scale),
+            weights_dir / conv_filename(n_l, 1, dec.d, dec.m, dec.nk, dec.nl,
+                                        dec_spec.scale))
+
+
+def save_pair_conv(params: AEParams, spec: NetSpec, n_l: int,
+                   weights_dir: str | Path) -> tuple[Path, Path]:
+    """'s' key semantics: save the selected stage pair
+    (source/autoencoder.cpp:358-369)."""
+    weights_dir = Path(weights_dir)
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    p_enc, p_dec = _pair_paths(params, spec, n_l, weights_dir)
+    enc, dec = params.pair(n_l)
+    export_conv(enc, p_enc)
+    export_conv(dec, p_dec)
+    return p_enc, p_dec
+
+
+def load_pair_conv(params: AEParams, spec: NetSpec, n_l: int,
+                   weights_dir: str | Path) -> AEParams:
+    """'l' key semantics: load the selected stage pair
+    (source/autoencoder.cpp:370-383) onto the device its weights are on."""
+    p_enc, p_dec = _pair_paths(params, spec, n_l, Path(weights_dir))
+    enc, dec = params.pair(n_l)
+    return params.replace_pair(
+        n_l, import_conv(p_enc, enc.m, enc.d, enc.nk, enc.nl,
+                         device=enc.c.device),
+        import_conv(p_dec, dec.m, dec.d, dec.nk, dec.nl,
+                    device=dec.c.device))

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import TapMode, tap_anchor
+from .dft import ieee_f32
 
 
 def _conv_padding(nk: int, nl: int,
@@ -95,7 +96,8 @@ def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
         # the kernel computes in float32; the stage keeps x's dtype
         y = conv_valid(xpad.contiguous(), w.contiguous()).to(x.dtype)
     else:
-        y = F.conv2d(xpad, w)
+        with ieee_f32():   # cuDNN would run TF32 by default
+            y = F.conv2d(xpad, w)
     if b is not None:
         y = y + b[None, :, None, None]
     if act is not None:

@@ -17,7 +17,8 @@ two per-axis products against tiny [Nk, Nx] / [Nl, Nyr] bases.
 The products are ``torch.einsum`` in float32: plain tensor code, with no
 hand-written kernel (the JAX package leaves them to XLA too).  On the card
 they run at PyTorch's float32 matmul precision, which is IEEE float32
-unless ``torch.backends.cuda.matmul.allow_tf32`` is switched on.
+unless ``torch.backends.cuda.matmul.allow_tf32`` is switched on;
+:func:`ieee_f32` holds them there.
 """
 
 from __future__ import annotations
@@ -31,14 +32,18 @@ import torch
 
 @contextlib.contextmanager
 def ieee_f32():
-    """Run float32 matmuls in IEEE float32 (TF32 off) inside the block, and
-    restore the caller's setting after it."""
-    before = torch.backends.cuda.matmul.allow_tf32
+    """Run float32 matmuls and cuDNN convolutions in IEEE float32 (TF32
+    off; cuDNN's default is on) inside the block, and restore the caller's
+    settings after it."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
 
 
 @functools.lru_cache(maxsize=None)

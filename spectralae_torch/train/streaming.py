@@ -19,8 +19,10 @@ device and the MSE trajectories stacked at the end.  Equality:
 ``stream_bursts(xs)`` == the loop [forward → ``burst_corr`` → carry] over
 ``xs`` (:func:`stream_reference_loop`).
 
-Coordinate-domain streaming (``stream_coord_steps``/``coord_stream``) needs
-``train/coord.py``, which is ROADMAP A9; it raises.
+Coordinate-domain streaming (:func:`stream_coord_steps`) runs one
+reference coord step per frame, with the full coordinate forward recomputed
+from the current weights each frame (K2 twice a frame on the card, at the
+3→10 and 10→3 stages of the default net).
 """
 
 from __future__ import annotations
@@ -215,12 +217,64 @@ def stream_bursts_sweep(xs: torch.Tensor, params: AEParams, scales, *,
 fft_stream_sweep = stream_bursts_sweep
 
 
-def stream_coord_steps(*args, **kwargs):
-    """Coordinate-domain streaming needs ``train/coord.py``: ROADMAP A9."""
-    raise NotImplementedError("stream_coord_steps: coordinate-domain "
-                              "streaming needs train/coord.py (ROADMAP A9)")
+class CoordStreamResult(NamedTuple):
+    params: AEParams    # the selected pair trained
+    mom: tuple          # (Dc, Df, Db, Dp)
+    prev_grad: tuple    # adaptive-lr state
+    mses: torch.Tensor  # [K] the per-frame coord mse
 
 
+def stream_coord_steps(xs: torch.Tensor, params: AEParams, scales, n_l: int,
+                       *, q: int = 1, lr: float = 0.2, alpha: float = 0.9,
+                       tap_mode: str = "ref_gpu", sym: bool = False,
+                       active: bool = False, scale_by_dm: bool = True,
+                       mom: tuple | None = None,
+                       prev_grad: tuple | None = None,
+                       axis_name: str | None = None) -> CoordStreamResult:
+    """Coordinate-domain streaming: one reference coord step per frame.
+
+    The reference's coordinate training loop ('1' with fft off) is one
+    ``backprop_gpu`` step per camera frame on the ``Portion``-cropped
+    activations of the *current* full-net forward
+    (autoencoder.cpp:131-188).  Each frame recomputes the full coordinate
+    forward with the current weights (what ``Engine.step`` does before
+    ``_train``), crops the pair's (input, output, hidden) triple by ``q``,
+    and applies :func:`spectralae_torch.train.coord.coord_step_dp` —
+    batched frames ``[K, B, D, h, w]`` use the batch-averaged gradients.
+
+    Equality with the host loop [forward_coord → center_crop → coord_step
+    → replace_pair] is held by the tests.  ``axis_name`` is ROADMAP A12.
+    """
+    from ..model import autoencoder as model
+    from ..ops import coord as coord_ops
+    from .coord import coord_step_dp
+    enc, dec = params.pair(n_l)
+    if mom is None:
+        mom = zero_moms(enc.c, dec.c, enc.b, dec.b)
+    if prev_grad is None:
+        prev_grad = zero_moms(*mom)
+    n_acts = 2 * params.n_stages + 1
+    mses = []
+    for xk in _frames(xs):
+        acts = model.forward_coord(params, xk, scales, tap_mode=tap_mode,
+                                   scale_by_dm=scale_by_dm)
+        in_b = coord_ops.center_crop(acts[2 * n_l + 1], q)
+        hin_b = coord_ops.center_crop(acts[2 * n_l + 2], q)
+        out_b = coord_ops.center_crop(acts[n_acts - 2 - 2 * n_l], q)
+        enc, dec = params.pair(n_l)
+        r = coord_step_dp(in_b, out_b, hin_b, enc.c, dec.c, enc.b, dec.b,
+                          mom, prev_grad, lr=lr, alpha=alpha,
+                          tap_mode=tap_mode, sym=sym, active=active,
+                          axis_name=axis_name)
+        params = params.replace_pair(n_l, ConvStage(c=r.c, b=r.b),
+                                     ConvStage(c=r.f, b=r.p))
+        mom, prev_grad = r.mom, r.prev_grad
+        mses.append(r.mse)
+    return CoordStreamResult(params=params, mom=mom, prev_grad=prev_grad,
+                             mses=torch.stack(mses))
+
+
+#: the JAX package's jitted name for :func:`stream_coord_steps`
 coord_stream = stream_coord_steps
 
 

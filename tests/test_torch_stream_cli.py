@@ -9,7 +9,7 @@
   (1e-5 norm-relative: float32 FFT precomputes through two libraries).
 - A non-finite MSE rolls back to the last good weights, which the final
   checkpoint holds.
-- What is not ported exits, naming its ROADMAP entry.
+- What the stream and burst trainers do not do exits with its reason.
 """
 
 import json
@@ -211,7 +211,8 @@ def test_cli_burst_rolls_back_on_a_non_finite_mse(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "stream", "--domain", "coord"], "A9"),
+    (["--mode", "stream", "--domain", "coord", "--train-pair", "all",
+      "--pair-sweep", "frame"], "momentum-domain only"),
     (["--mode", "burst", "--pallas-fft"], "burst mode anchors"),
     (["--mode", "stream", "--pair-sweep", "frame"], "--train-pair all"),
     (["--mode", "burst", "--train-pair", "2"], "out of range")])

@@ -160,5 +160,12 @@ def test_stream_bursts_sweep_matches_jax():
 
 
 def test_coord_streaming_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tstream.coord_stream(None, None, None, 0)
+    """What of coordinate streaming is not ported yet: the data-parallel
+    stream (``axis_name``, ROADMAP A12)."""
+    from spectralae_torch.core.config import Config
+    from spectralae_torch.core.types import init_params, initial_spec
+    spec = initial_spec(Config(nx=16, ny=16))
+    params = init_params(torch.Generator().manual_seed(0), spec, 3.0)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tstream.coord_stream(torch.zeros(1, 3, 16, 16), params, spec.scales,
+                             0, axis_name="data")

@@ -390,9 +390,13 @@ def test_cli_train_torch_optimizer_sidecar(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "stream", "--domain", "coord"], "A9"),
-    (["--source", "camera"], "A13")])
+    (["--mode", "stream", "--domain", "coord", "--train-pair", "7"],
+     "out of range"),
+    (["--mode", "stream", "--domain", "coord", "--pair-sweep", "frame"],
+     "requires --train-pair all")])
 def test_cli_train_refuses_what_is_not_ported(argv, match):
+    """The coordinate stream's refusals (the fft trainers' are in
+    test_torch_stream_cli.py); nothing of ``train`` is left unported."""
     with pytest.raises(SystemExit, match=match):
         tcli(["train", "--device", "cpu", "--steps", "1"] + argv)
 
