@@ -135,10 +135,30 @@ Phases (any failure raises and exits non-zero):
    frames of ``coord_stream`` card against CPU.  ``eval`` of phase 5's
    checkpoints and phase 4's forward artifacts, card against CPU within
    1e-5.
+8. Distributed training: K4's ``row_slab`` mode (the tensor-parallel
+   precompute) at pair 0's inputs of WINDOW_SIZES, float32 and bf16
+   signal, the rows cut into 2 and 4 slabs and 3 slabs of which the last
+   is padded: each slab's XX, EGw and seg against its plain version
+   (TOL_WINDOWS), its e0 exactly 0 off row 0, three runs bit for bit, the
+   slabs' sum of each output against the full call's (TOL_SLAB_SUM), each
+   slab's device ms beside its plain version's, the full call's and the bound of
+   its live rows.  Then this process alone on NCCL (world size 1) with the
+   default net at 256^2 b8: ``distributed_burst`` (the corr body,
+   ``fused=True``, ``use_pallas=True``), ``distributed_coord_step``,
+   ``distributed_train_step`` and ``stream_bursts(axis_name=...)``, each
+   bit for bit with its single-device call.  Then two ranks on the one
+   card over gloo (``spawn_ranks``: the ``spawn`` method, a FileStore, a
+   timeout on the group and on the run; the ranks load the library phase
+   2 built): the DP corr burst on mesh (2, 1) (pair 0 at 128^2 b8, 4
+   frames a rank) and the fused TP burst on mesh (1, 2) (1024^2 b4
+   frames' pair-0 input, K4 on 256-row slabs), each against the single
+   process on the card within the JAX tests' tolerances; K3 twice a DP
+   precompute, K4 once a TP one on the rank's row slab; no plain version
+   on the card; each distributed call's host ms.
 
 The line before the last is a JSON object with each kernel's launches on
 every path (serve, train, train_bf16, stream, stream_fft, burst, run,
-stream_coord, and
+stream_coord, dist: phase 8's NCCL run and both gloo ranks, and
 omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
 engine at the headline input; probe_mosaic and probe_dft, the probe
 scripts), its largest error, and its time, plain time, bound and library
@@ -146,8 +166,8 @@ time: K1, K1 with bf16 operands and K2 per 256^2 batch-8 train step
 (forward and backward; the rows of phase 3 at the shapes of the launches
 one such step made, summed), K3 per precompute of a burst, K4, B5a and
 B5b per launch at 256^2 batch-8 frames (at the --pallas-fft route's
-"high" tier, every tier beside it), B5c-e per launch in the 4096^2
-transform (B5e by tier), K5-K7 per launch and K8 per 10-iteration launch
+"high" tier, every tier beside it; K4's row slabs beside it), B5c-e
+per launch in the 4096^2 transform (B5e by tier), K5-K7 per launch and K8 per 10-iteration launch
 at the headline input, P1 per launch on the probe's input, P2 per launch
 at [3, 2048, 2048] (at the probe's "default" tier, every tier beside it);
 beside them the engines' 100-iteration times.  The last line is
@@ -158,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import itertools
 import json
@@ -1192,21 +1213,25 @@ def k3_bound(b: int, d: int, e: int, n: int, h: int, same: bool):
                     8 * bins * (d if same else d + e) + 4 * d * e * v * v)
 
 
-def k4_bound(b: int, d: int, n: int, nk2: int, bf16: bool):
+def k4_bound(b: int, d: int, n: int, nk2: int, bf16: bool,
+             rows: int | None = None):
     """K4 on [B, D, n, nyr] (complex64, or bf16 re/im planes), square taps
     nk2 = 2h + 1: per bin and batch EG (8·D² + 8·D flops), the pair
     products (6 each) and the y-stage (4 + 8·hy a pair, as K3's); per bin
     the anchor spectra from the taps folded over +-ly (8·h flops an entry
     of D², plus its DC term); per x-row the taps contracted over kx (4
-    flops a tap and entry) and the x-stage of both windows."""
+    flops a tap and entry) and the x-stage of both windows.  ``rows``: a
+    row slab's live rows of the n-row grid (the work of those rows)."""
     nyr, h = n // 2 + 1, nk2 // 2
+    rows = n if rows is None else rows
     nxx, neg = d * (d + 1) // 2, d * d
-    bins = b * n * nyr
+    bins = b * rows * nyr
     per_bin = (8 * d * d + 8 * d + 6 * (nxx + neg)
                + nxx * (4 + 16 * h) + neg * (4 + 8 * h))
-    flops = (bins * per_bin + n * nyr * d * d * (8 * h + 2)
-             + n * (d * d * nk2 * nk2 * 4 + nxx * _xstage_flops(2 * h, 2 * h)
-                    + neg * _xstage_flops(h, h)))
+    flops = (bins * per_bin + rows * nyr * d * d * (8 * h + 2)
+             + rows * (d * d * nk2 * nk2 * 4
+                       + nxx * _xstage_flops(2 * h, 2 * h)
+                       + neg * _xstage_flops(h, h)))
     v4, v2 = 2 * nk2 - 1, nk2
     nbytes = ((4 if bf16 else 8) * bins * d + 4 * d * d * nk2 * nk2
               + 4 * (d * d * (v4 * v4 + v2 * v2) + 1 + d))
@@ -3054,6 +3079,458 @@ def phase_engine(tmp: Path) -> tuple[dict, dict]:
     return run, stream
 
 
+# ------------------------------------------ 8: distributed training
+
+# two ranks on the one card (gloo; NCCL refuses two ranks on one GPU): the
+# rendezvous, every collective and the whole run wait at most this long
+DIST_TIMEOUT = 240.0
+DIST_ITERS = 10          # inner iterations of each distributed burst
+# the distributed bursts on two ranks against the single process on the
+# card: the JAX tests' own tolerances, rtol / atol, for the fused TP burst
+# (test_tp_proof.py:81-102) and the DP burst (test_fft_dp.py:86-99)
+TOL_TP, TOL_DP = (3e-5, 1e-6), (1e-4, 1e-5)
+# K4's row slabs: 2 and 4 even slabs, and 3 slabs of cdiv(n, 3) rows whose
+# last one is padded
+SLAB_COVERS = ((2, False), (4, False), (3, True))
+# K4's outputs, and the tolerance of the slabs' sums against the full call
+# (a different float order from the full call's block sum, so not bit for
+# bit: the JAX package's row-slab test holds them at 1e-6)
+K4_OUTPUTS = ("XX", "EGw", "seg", "e0")
+TOL_SLAB_SUM = 1e-6
+# the TP burst's frames (pair 0's input is half their size) and slab rows
+TP_FRAMES, TP_SLAB = 1024, 256
+
+
+def _slabs(X: torch.Tensor, k: int, uneven: bool):
+    """A cover of X's rows by ``k`` slabs ([start row, contiguous slab]),
+    zero-padded to whole slabs: n // k rows each, or cdiv(n, k) (the last
+    slab padded) when ``uneven``."""
+    n = X.shape[-2]
+    chunk = -(-n // k) if uneven else n // k
+    nsl = -(-n // chunk)
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, nsl * chunk - n))
+    return [(i * chunk, Xp[:, :, i * chunk:(i + 1) * chunk].contiguous())
+            for i in range(nsl)]
+
+
+def _split_ms(fn, names) -> tuple[float, float]:
+    """One profile of ``fn()``: the device ms of the operations whose name
+    holds one of ``names``, and of the others."""
+    own = other = 0.0
+    for key, ms, k, _ in device_ops(fn):
+        if any(n in key for n in names):
+            own += ms * k
+        else:
+            other += ms * k
+    return own, other
+
+
+def _slab_errs(got, want, row0: int, label: str) -> float:
+    """Hold one slab's K4 outputs against its plain version's, each on its
+    own: XX, EGw and seg at TOL_WINDOWS norm-relative; e0 exactly 0 on a
+    slab that does not hold row 0, else at TOL_WINDOWS.  Returns the
+    largest relative error."""
+    errs = []
+    for name, g, w in zip(K4_OUTPUTS, got, want):
+        if name == "e0" and row0 > 0:
+            check(not bool(torch.any(g != 0)), f"{label}: e0 is not 0 on a "
+                  f"slab without row 0 (max |e0| {float(g.abs().max()):.3e})")
+            continue
+        errs.append(rel_err(g, w))
+        check(errs[-1] <= TOL_WINDOWS,
+              f"{label}: {name} rel {errs[-1]:.3e} (tol {TOL_WINDOWS:g})")
+    return max(errs)
+
+
+def phase_dist_slabs(gen: torch.Generator) -> tuple[dict, float]:
+    """K4's row_slab mode against its plain version at the precompute
+    shapes of pair 0 (WINDOW_SIZES), float32 and bf16 signal, over each of
+    SLAB_COVERS: each slab's outputs held one by one against its plain
+    version (:func:`_slab_errs`), three runs bit for bit, the slabs' sum of
+    each output against the full call's at TOL_SLAB_SUM, each
+    slab's device ms (kernel and plain version in one profile) beside the
+    full call's and the bound of the slab's live rows.  Returns the rows by
+    (frame size, variant) and the largest absolute error."""
+    from spectralae_torch.ops import window_kernels as wk
+    from spectralae_torch.train import fft_corr
+    m, d, nk = 10, 3, 5
+    c, f = ((torch.rand(*shape, device="cuda", generator=gen) - 0.5)
+            for shape in ((m, d, nk, nk), (d, m, nk, nk)))
+    taps = fft_corr._composed_taps(c, f, fft_corr._maps_on(nk, nk, c.device),
+                                   d, m, nk * nk)
+    nk2 = taps.shape[-1]
+    h2, s1 = nk2 // 2, 1.0 / (m * d)
+    rows, worst = {}, 0.0
+    for frames, batch in WINDOW_SIZES:
+        n = frames // 2
+        X = torch.fft.rfft2(torch.rand(batch, d, n, n, device="cuda",
+                                       generator=gen) * 255)
+        for variant, sd in (("f32", None), ("bf16", torch.bfloat16)):
+            tag = f"{variant} signal {n}x{n} b{batch} ({frames}^2 frames)"
+
+            def full(sd=sd):
+                return wk.anchor_windows(X, taps, n, n, h2, h2, s1,
+                                         signal_dtype=sd)
+            whole = full()
+            full_ms = device_ms(full, K4_GRIDS)
+            covers = {}
+            for k, uneven in SLAB_COVERS:
+                slabs, parts = [], []
+                for row0, Xl in _slabs(X, k, uneven):
+                    live = min(Xl.shape[-2], n - row0)
+
+                    def kern(Xl=Xl, row0=row0, sd=sd):
+                        return wk.anchor_windows(Xl, taps, n, n, h2, h2, s1,
+                                                 row_slab=row0,
+                                                 signal_dtype=sd)
+
+                    def plain(Xl=Xl, row0=row0, sd=sd):
+                        return wk.anchor_windows_plain(
+                            Xl, taps, n, n, h2, h2, s1, row_slab=row0,
+                            signal_dtype=sd)
+                    label = (f"K4 row_slab {tag} slab rows {row0}.."
+                             f"{row0 + Xl.shape[-2]} of {n}")
+                    runs = [kern() for _ in range(3)]
+                    check(all(torch.equal(_flat(runs[0]), _flat(r))
+                              for r in runs[1:]), f"{label} does not repeat")
+                    got, want = runs[0], plain()
+                    err = _slab_errs(got, want, row0, label)
+                    worst = max(worst, float(
+                        (_flat(got) - _flat(want)).abs().max()))
+                    ms, plain_ms = _split_ms(lambda: (kern(), plain()),
+                                             K4_GRIDS)
+                    bound = k4_bound(batch, d, n, nk2, sd is not None,
+                                     rows=live)
+                    plan = wk.window_plan(True, batch, d, d, Xl.shape[-2],
+                                          n // 2 + 1, h2, h2)
+                    print(f"{label} ({live} live): rel {err:.3e} (tol "
+                          f"{TOL_WINDOWS:g}); three runs bit for bit; "
+                          f"device: kernel {ms:.4f} ms plain {plain_ms:.4f} "
+                          f"ms bound {bound[0]:.4f} ms ({bound[1]}); grid "
+                          f"{plan.grid}", flush=True)
+                    parts.append(got)
+                    slabs.append({"row0": row0, "rows": Xl.shape[-2],
+                                  "live": live, "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound[0],
+                                  "bound_by": bound[1], "rel": err})
+                # the slabs' e0 is 0 but on the slab holding row 0, so the
+                # partials of every output sum to the full call's
+                sums = {}
+                for i, name in enumerate(K4_OUTPUTS):
+                    sums[name] = rel_err(sum(p[i] for p in parts), whole[i])
+                    check(sums[name] <= TOL_SLAB_SUM,
+                          f"K4 row_slab {tag}: {len(parts)} slabs' {name} "
+                          f"sums to the full call's within "
+                          f"{sums[name]:.3e} (tol {TOL_SLAB_SUM:g})")
+                err = max(sums.values())
+                cover = f"{len(parts)}{' uneven' if uneven else ''}"
+                print(f"K4 row_slab {tag}: the {cover} slabs' sum against "
+                      f"the full call: rel " + ", ".join(
+                          f"{k} {v:.3e}" for k, v in sums.items())
+                      + f" (tol {TOL_SLAB_SUM:g}); the full call "
+                      f"{full_ms:.4f} ms, the slabs "
+                      f"{sum(r['ms'] for r in slabs):.4f} ms", flush=True)
+                covers[cover] = {"slabs": slabs, "sum_rel": err}
+            rows[(frames, variant)] = {"full_ms": full_ms, "covers": covers}
+    return rows, worst
+
+
+def _dist_inputs() -> dict:
+    """The distributed phase's inputs, the same in every process: the
+    default net's pair-0 weights, pair 0's input of 256^2 batch-8 frames
+    (128^2) with an anchor output, and of TP_FRAMES^2 batch-4 frames."""
+    from spectralae_torch.train import fft_corr, streaming
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params, spec = _net(256)
+    frames = torch.rand(8, 3, 256, 256, device="cuda", generator=gen) * 255
+    x = streaming._pair_input(params, frames, spec.scales, 0)
+    enc, dec = params.pair(0)
+    w = (enc.c, dec.c, enc.b, dec.b)
+    big, spec_big = _net(TP_FRAMES)
+    x_tp = streaming._pair_input(
+        big, torch.rand(4, 3, TP_FRAMES, TP_FRAMES, device="cuda",
+                        generator=gen) * 255, spec_big.scales, 0)
+    return dict(params=params, spec=spec, frames=frames, x=x, w=w,
+                out0=fft_corr._true_forward(x, *w, True), x_tp=x_tp)
+
+
+def _result(r) -> dict:
+    """A burst's weights, MSEs and momentum, by name."""
+    return dict(c=r.c, f=r.f, b=r.b, p=r.p, mses=r.mses,
+                **{f"mom{i}": t for i, t in enumerate(r.mom)})
+
+
+def _dist_plains() -> list:
+    from spectralae_torch.ops import burst_kernels as bk
+    from spectralae_torch.ops import window_kernels as wk
+    return _k123_plains() + [(wk, "anchor_windows_plain"),
+                             (bk, "grad_project_plain"),
+                             (bk, "fused_step_plain")]
+
+
+@contextlib.contextmanager
+def _k4_slabs():
+    """Record the ``row_slab`` of every K4 call of the fused precompute."""
+    from spectralae_torch.train import fft_corr
+    seen, real = [], fft_corr.anchor_windows
+
+    def spy(*a, **kw):
+        seen.append(kw.get("row_slab"))
+        return real(*a, **kw)
+    fft_corr.anchor_windows = spy
+    try:
+        yield seen
+    finally:
+        fft_corr.anchor_windows = real
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _twice(fn):
+    """``fn()`` twice: the second call's result and host ms; the two
+    results must be equal bit for bit (the first call is the warm-up)."""
+    first = _flat_any(fn())
+    r, ms = _timed(fn)
+    check(torch.equal(_flat_any(r), first), "a call does not repeat")
+    return r, ms
+
+
+def _dist_rank(rank: int) -> dict:
+    """One of the two gloo ranks on the card: the DP corr burst on mesh
+    (2, 1) and the fused TP burst (K4 on this rank's row slab) on mesh
+    (1, 2), each called twice (the second timed); each with its launches
+    over both calls, its K4 row slabs and its host ms."""
+    from spectralae_torch import _kernels
+    from spectralae_torch.dist import mesh as dmesh
+    from spectralae_torch.train.fft_dp import distributed_burst
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = _kernels.build()
+    inp = _dist_inputs()
+    out = {"build_seconds": build.seconds, "backend": dist.get_backend()}
+    fallbacks = []
+    with guard_plains(_dist_plains(), fallbacks):
+        dp = dmesh.make_mesh(2, 1)
+        x_l = dmesh.shard_batch(inp["x"], dp)
+        o_l = dmesh.shard_batch(inp["out0"], dp)
+        reset_counts()
+        r, ms = _twice(lambda: distributed_burst(dp, iters=DIST_ITERS)(
+            x_l, x_l, o_l, *inp["w"]))
+        out["dp"] = dict(result={k: t.cpu() for k, t in _result(r).items()},
+                         ms=ms,
+                         launches=counts(), frames=tuple(x_l.shape))
+        tp = dmesh.make_mesh(1, 2)
+        reset_counts()
+        with _k4_slabs() as seen:
+            r, ms = _twice(lambda: distributed_burst(
+                tp, iters=DIST_ITERS, fused=True)(inp["x_tp"], *inp["w"]))
+        out["tp"] = dict(result={k: t.cpu() for k, t in _result(r).items()},
+                         ms=ms,
+                         launches=counts(), row_slabs=seen,
+                         frames=tuple(inp["x_tp"].shape))
+    out["fallbacks"] = fallbacks
+    return out
+
+
+def _held(label: str, got: dict, want: dict, tol) -> str:
+    """The weights and MSEs of ``got`` within rtol·|want| + atol of
+    ``want`` (the JAX tests' assert_allclose, which hold no momentum), the
+    momentum within TOL_MOM norm-relative (the last update step carries
+    the absolute error of the gradient entries under GRAD_CLIP); returns
+    what was measured."""
+    rtol, atol = tol
+    worst, name = 0.0, ""
+    for k in ("c", "f", "b", "p", "mses"):
+        g, w = got[k].double().cpu(), want[k].double().cpu()
+        r = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+        if r >= worst:
+            worst, name = r, k
+    mom = max(rel_err(got[k].cpu(), want[k].cpu())
+              for k in got if k.startswith("mom"))
+    check(worst <= 1.0 and mom <= TOL_MOM,
+          f"{label}: {name} at {worst:.3g} of the tolerance (rtol {rtol:g}, "
+          f"atol {atol:g}); momentum rel {mom:.3e} (tol {TOL_MOM:g})")
+    return (f"{worst:.3g} of the tolerance at {name} (rtol {rtol:g} atol "
+            f"{atol:g}), momentum rel {mom:.3e}")
+
+
+def phase_dist(gen: torch.Generator) -> tuple[dict, dict, float]:
+    """Phase 8 (see the module docstring).  Returns the K4 slab rows, the
+    dist path's launches (this process's NCCL run and both ranks' gloo
+    runs) and K4's largest absolute error on the slabs."""
+    import torch.distributed as dist
+    from spectralae_torch.core.types import init_opt_state
+    from spectralae_torch.dist import collectives, multihost
+    from spectralae_torch.dist import mesh as dmesh
+    from spectralae_torch.model import autoencoder as model
+    from spectralae_torch.ops import coord as coord_ops
+    from spectralae_torch.train import coord, fft_corr, fft_pallas, modern
+    from spectralae_torch.train import streaming
+    from spectralae_torch.train.fft import zero_moms
+    from spectralae_torch.train.fft_dp import distributed_burst
+    t0 = time.perf_counter()
+    slabs, worst = phase_dist_slabs(gen)
+    print(f"phase 8: K4 row slabs took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # one process on NCCL at world size 1: each distributed call against
+    # its single-device call, bit for bit
+    inp = _dist_inputs()
+    x, w, out0, params = inp["x"], inp["w"], inp["out0"], inp["params"]
+    scales = inp["spec"].scales
+    acts = model.forward_coord(params, inp["frames"], scales,
+                               tap_mode="ref_gpu")
+    n_acts = len(acts)
+    crop = [coord_ops.center_crop(a, 1) for a in
+            (acts[1], acts[n_acts - 2], acts[2])]
+    opt = init_opt_state(params)
+    xs = torch.stack([x, x.flip(-1)])              # two frames of batch 8
+    single = {
+        "burst corr": lambda: fft_corr.burst_corr(
+            x, x, out0, *w, iters=DIST_ITERS),
+        "burst fused": lambda: fft_corr.burst_corr(
+            x, None, None, *w, iters=DIST_ITERS),
+        "burst use_pallas": lambda: fft_pallas.burst_pallas_fused(
+            x, x, out0, *w, iters=DIST_ITERS),
+        "coord step": lambda: coord.coord_step_dp(
+            *crop, *w, zero_moms(*w), zero_moms(*w)),
+        "train step": lambda: modern.train_step(params, opt,
+                                                inp["frames"], scales),
+        "stream_bursts": lambda: streaming.stream_bursts(
+            xs, *w, iters=DIST_ITERS)}
+    # the coord step's transposed convs run cuDNN's backward, whose
+    # default algorithms sum with atomics: deterministic ones for both calls
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # each call twice: the second run is timed (warm) and must repeat the
+    # first bit for bit
+    want, single_ms = {}, {}
+    for k, fn in single.items():
+        r, single_ms[k] = _twice(fn)
+        want[k] = _flat_any(r)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_"))
+    backend = multihost.init_multihost(f"file://{tmp}/store", 1, 0,
+                                       device="cuda:0", timeout=120)
+    check(backend == "nccl", f"world size 1 on the card took {backend}")
+    fallbacks = []
+    try:
+        mesh = dmesh.make_mesh(1, 1)
+        data = mesh.axis("data")
+        # NCCL makes its communicator at the first collective: not timed
+        collectives.check_shards(1, data)
+        dist_calls = {
+            "burst corr": lambda: distributed_burst(mesh, iters=DIST_ITERS)(
+                x, x, out0, *w),
+            "burst fused": lambda: distributed_burst(
+                mesh, iters=DIST_ITERS, fused=True)(x, *w),
+            "burst use_pallas": lambda: distributed_burst(
+                mesh, iters=DIST_ITERS, use_pallas=True)(x, x, out0, *w),
+            "coord step": lambda: coord.distributed_coord_step(mesh)(
+                *crop, *w),
+            "train step": lambda: dmesh.distributed_train_step(mesh)(
+                params, opt, inp["frames"], scales),
+            "stream_bursts": lambda: streaming.stream_bursts(
+                xs, *w, iters=DIST_ITERS, axis_name=data)}
+        collectives.reset()
+        with guard_plains(_dist_plains(), fallbacks):
+            reset_counts()
+            got, ms = {}, {}
+            for k, fn in dist_calls.items():
+                r, ms[k] = _twice(fn)
+                got[k] = _flat_any(r)
+            nccl = counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in dist_calls:
+        check(torch.equal(got[k], want[k]),
+              f"NCCL world size 1: {k} differs from its single-device call")
+        print(f"dist NCCL world size 1: {k}: bit for bit with the "
+              f"single-device call, twice; host {ms[k]:.2f} ms (the "
+              f"single-device call {single_ms[k]:.2f} ms; the second of "
+              "two calls each)", flush=True)
+    # twice each: the corr burst's precompute (K3 twice), the fused burst
+    # and the stream's two frames (K4 once a precompute), the use_pallas
+    # body (K5 once, K7 an iteration), the train step (K1 17 times)
+    want_launches = dict.fromkeys(nccl, 0)
+    want_launches.update(k1=2 * K1_PER_FFT_STEP, k3=2 * 2, k4=2 * 3,
+                         k5=2, k7=2 * DIST_ITERS)
+    check(nccl == want_launches, f"NCCL world size 1: launches {nccl}")
+    print(f"dist NCCL world size 1: {sum(collectives.CALLS.values())} "
+          f"collectives, {sum(collectives.ELEMENTS.values())} floats; "
+          f"launches {nccl}", flush=True)
+
+    # two processes on the one card over gloo: DP on mesh (2, 1), TP on
+    # mesh (1, 2), against the single process
+    t1 = time.perf_counter()
+    ranks = multihost.spawn_ranks(_dist_rank, 2, device="cuda:0",
+                                  timeout=DIST_TIMEOUT)
+    spawn_s = time.perf_counter() - t1
+    want_dp = _result(fft_corr.burst_corr(x, x, out0, *w, iters=DIST_ITERS))
+    want_tp = _result(fft_corr.burst_corr(inp["x_tp"], None, None, *w,
+                                          iters=DIST_ITERS))
+    launched = dict(nccl)
+    for rank, r in enumerate(ranks):
+        check(r["build_seconds"] == 0.0 and r["backend"] == "gloo",
+              f"rank {rank}: built in {r['build_seconds']} s on "
+              f"{r['backend']}")
+        check(not r["fallbacks"], f"rank {rank}: plain versions ran on the "
+              f"card: {r['fallbacks']}")
+        dp, tp = r["dp"], r["tp"]
+        ok_dp = _held(f"rank {rank} DP burst", dp["result"], want_dp, TOL_DP)
+        ok_tp = _held(f"rank {rank} TP burst", tp["result"], want_tp, TOL_TP)
+        # two calls each: K3 twice a DP precompute, K4 once a TP one
+        check(dp["launches"]["k3"] == 4 and tp["launches"]["k4"] == 2,
+              f"rank {rank}: K3 {dp['launches']['k3']} in two DP bursts, "
+              f"K4 {tp['launches']['k4']} in two TP bursts")
+        check(tp["row_slabs"] == [rank * TP_SLAB] * 2,
+              f"rank {rank}: K4 row slabs {tp['row_slabs']}")
+        for part in (dp, tp):
+            for k, v in part["launches"].items():
+                launched[k] += v
+        print(f"dist gloo rank {rank}: DP corr burst {dp['frames']} "
+              f"{DIST_ITERS} iterations host {dp['ms']:.2f} ms, {ok_dp}; "
+              f"TP fused burst {tp['frames']} K4 on rows "
+              f"{tp['row_slabs'][0]}..{tp['row_slabs'][0] + TP_SLAB} host "
+              f"{tp['ms']:.2f} ms, {ok_tp}; the library reused, no plain "
+              "version on the card", flush=True)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s (the two ranks "
+          f"{spawn_s:.1f} s)", flush=True)
+    return slabs, launched, worst
+
+
+def _flat_any(r) -> torch.Tensor:
+    """Every tensor of a result (NamedTuples, tuples, parameter trees),
+    flattened into one float64 vector."""
+    out = []
+
+    def walk(v):
+        if torch.is_tensor(v):
+            out.append(v.detach().reshape(-1).double())
+        elif hasattr(v, "leaves"):
+            for t in v.leaves():
+                walk(t)
+        elif hasattr(v, "_asdict"):
+            for t in v._asdict().values():
+                walk(t)
+        elif dataclasses.is_dataclass(v):
+            for fld in dataclasses.fields(v):
+                walk(getattr(v, fld.name))
+        elif isinstance(v, (tuple, list)):
+            for t in v:
+                walk(t)
+    walk(r)
+    return torch.cat(out)
+
+
 # the kernels that must run on the tensor cores: the library's query of
 # their attributes and its arguments for each instantiation (the leaf:
 # real, complex, complex with bf16 out, each at three tiers)
@@ -3172,6 +3649,10 @@ def main() -> int:
         by_path["run"], by_path["stream_coord"] = phase_engine(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 8. distributed training: K4's row slabs, NCCL at world size 1, two
+    # gloo ranks on the card
+    slab_rows, by_path["dist"], slab_err = phase_dist(gen)
+    errs["k4"] = max(errs["k4"], slab_err)
     by_path.update(omega_paths)
     by_path.update(probe_paths)
     # every kernel that a path runs was launched in that path's run
@@ -3182,7 +3663,8 @@ def main() -> int:
             "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
             "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
             "run": ("k1", "k2", "k3"), "stream_coord": ("k2",),
-            "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",)}
+            "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",),
+            "dist": ("k1", "k3", "k4", "k5", "k7")}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
               f"launches on the {path} path: {by_path[path]}")
@@ -3245,6 +3727,15 @@ def main() -> int:
                                       else ("f32", "bf16"))}
                 for size, _ in WINDOW_SIZES}
             if key == "k4":
+                # the row_slab mode (the TP precompute): each cover's
+                # slabs, device ms beside the full call's
+                row["row_slab"] = {
+                    f"{size} {v}": {"full_ms": r["full_ms"], **{
+                        cover: [{k: sl[k] for k in (
+                            "row0", "live", "ms", "plain_ms", "bound_ms",
+                            "bound_by")} for sl in c["slabs"]]
+                        for cover, c in r["covers"].items()}}
+                    for (size, v), r in slab_rows.items()}
                 # on the four-step FFT's mixed planes (the stream_fft path)
                 for size, _ in WINDOW_SIZES:
                     row["by_frame_size"][str(size)].update({

@@ -67,9 +67,10 @@ _SIGNATURES = {
     # X, Z, consts, out, scratch, scratch_floats, B, D, E, nx, nyr, hx, hy,
     # same, rows, batches, ychunk, ytile, smem, stream
     "corr_pair_windows_launch": (_P,) * 5 + (_L,) + (_I,) * 13 + (_P,),
-    # X, xre, xim, taps, consts, out, scratch, scratch_floats, B, D, nx, nyr,
-    # nk2, nl2, s1, bf16, rows, batches, ychunk, ytile, smem, stream
-    "anchor_windows_launch": (_P,) * 7 + (_L,) + (_I,) * 6 + (_F,)
+    # X, xre, xim, taps, consts, out, scratch, scratch_floats, B, D, nx,
+    # nx_l, row0, nyr, nk2, nl2, s1, bf16, rows, batches, ychunk, ytile,
+    # smem, stream
+    "anchor_windows_launch": (_P,) * 7 + (_L,) + (_I,) * 8 + (_F,)
     + (_I,) * 6 + (_P,),
     # xr, xi, consts, tiles, outr, outi, BD, R, n, k1p, tier, tf, jc,
     # stream

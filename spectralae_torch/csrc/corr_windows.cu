@@ -36,6 +36,13 @@
 //      (ops/dft.lag_basis computes both from the same angles), so K4
 //      stages one basis and the EG pairs read its first columns.
 //      The signal may be read as bf16 re/im planes; all arithmetic is f32.
+//      Row slabs (the tensor-parallel precompute, pallas_windows.py:324-333):
+//      X may hold rows [row0, row0 + nx_l) of the grid only; a block then
+//      reads each row's x basis (and so its anchor phases) at its grid
+//      row, takes no row at or past the grid's nx, never reads past the
+//      slab's own rows, and the outputs are the slab's partial sums (every
+//      one is linear or additive over the rows; e0 is 0 unless the slab
+//      holds grid row 0).
 //
 // What bounds it on Hopper: float32 operations.  K4 at D = 3, 5x5 kernels
 // does about 0.9 kFLOP per bin and batch (0.8 k of them the y-stage
@@ -121,7 +128,10 @@ struct Args {
   float4* part;        // [nxu][nblk]: the x-stage's four sums per block
   float* seg_part;     // K4: [nblk]
   float* e0_part;      // K4: [nbg][D]
-  int B, D, E, nx, nyr;
+  // nx: the rows of X (and Z) as stored; nxg: the rows of the frequency
+  // grid, which the x basis covers; row0: the grid row of X's row 0 (K4's
+  // row slabs; K3 and a whole K4 call: nx = nxg, row0 = 0)
+  int B, D, E, nx, nyr, nxg, row0;
   int rows, batches, ychunk, ytile, nsub;
   int lrows, lytile;   // log2 of rows and ytile (both powers of two)
   int ystride, xstride, astride;
@@ -476,8 +486,10 @@ window_rows_kernel(const __grid_constant__ Args a) {
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int rt = a.rows, yt = a.ytile;
-  const int x0 = blockIdx.x * rt;
-  const int rows = min(rt, a.nx - x0);
+  const int x0 = blockIdx.x * rt;      // the block's first row of X
+  const int gx0 = a.row0 + x0;          // ... and of the grid
+  // rows of X the block takes: none at or past the grid's nx
+  const int rows = max(0, min(rt, min(a.nx - x0, a.nxg - gx0)));
   const int b0 = blockIdx.y * a.batches;
   const int nbv = min(a.batches, a.B - b0);
   const int y0 = blockIdx.z * a.ychunk;
@@ -504,7 +516,7 @@ window_rows_kernel(const __grid_constant__ Args a) {
   // and the first step's signal
   const int ypad = a.nsub * yt;
   stage_rows(s_ybas, a.ybas, y0, ypad, ylen, a.ystride, tid, nthr);
-  stage_rows(s_xbas, a.xbas, x0, rt, rows, a.xstride, tid, nthr);
+  stage_rows(s_xbas, a.xbas, gx0, rt, rows, a.xstride, tid, nthr);
   if (ANCHOR) {
     stage_rows(s_yanc, a.yanc, y0, ypad, ylen, a.astride, tid, nthr);
     for (int i = tid; i < dd * nk2 * nl2; i += nthr)
@@ -600,7 +612,7 @@ window_rows_kernel(const __grid_constant__ Args a) {
       }
       const float wy =
           ANCHOR ? s_yanc[(ys + yl) * a.astride + 2 * a.hy2] : 0.f;
-      const bool dc = ANCHOR && x0 + r == 0 && yg + yl == 0;
+      const bool dc = ANCHOR && gx0 + r == 0 && yg + yl == 0;
       const float2* kh = s_khat + r * yt + yl;
       // up to 4 channels of X (8 of K3's Z) are read once, into registers
       if (a.D <= 4 && (ANCHOR || a.same || a.E <= 8))
@@ -661,6 +673,8 @@ window_rows_kernel(const __grid_constant__ Args a) {
       for (int w = 0; w < nthr / 32; ++w) t += s_red[w];
       a.seg_part[blk] = t;
     }
+    // the first block of each batch group writes its DC error: 0 where
+    // the slab does not hold grid row 0
     if (x0 == 0 && y0 == 0 && tid < a.D) {
       float t = 0.f;
       for (int b = 0; b < nbv; ++b) t += s_e0[b * a.D + tid];
@@ -812,6 +826,7 @@ extern "C" int corr_pair_windows_launch(
   a.X = static_cast<const float2*>(X);
   a.Z = static_cast<const float2*>(Z);
   a.B = B, a.D = D, a.E = E, a.nx = nx, a.nyr = nyr, a.same = same;
+  a.nxg = nx, a.row0 = 0;
   a.rows = rows, a.batches = batches, a.ychunk = ychunk, a.ytile = ytile;
   a.g[0].npairs = same ? D * (D + 1) / 2 : D * E;
   a.g[0].hx = hx, a.g[0].hy = hy, a.g[0].upper_of = same ? D : 0;
@@ -834,27 +849,32 @@ extern "C" int corr_pair_windows_launch(
   }
 }
 
-// K4.  X: [B, D, nx, nyr] complex64, or (bf16 != 0) the re/im planes
-// xre, xim [B, D, nx, nyr] bf16; taps: [D*D, nk2, nl2] (composed anchor taps,
-// [e, d] order; nk2 = 2 hx2 + 1, nl2 = 2 hy2 + 1); consts: ybas
+// K4.  X: [B, D, nx_l, nyr] complex64, or (bf16 != 0) the re/im planes
+// xre, xim [B, D, nx_l, nyr] bf16: rows [row0, row0 + nx_l) of the nx-row
+// grid (nx_l = nx, row0 = 0: the whole call); taps: [D*D, nk2, nl2]
+// (composed anchor taps, [e, d] order; nk2 = 2 hx2 + 1, nl2 = 2 hy2 + 1);
+// consts: ybas
 // [nyr][ystride] (the +-4h lag basis, v = 0..2 hy2: the +-2h one is its
 // first hy2 + 1 columns), xbas [nx][xstride] (u = 0..2 hx2), yanc
 // [nyr][astride] ((cos, sin) of 2pi wy m / ny for m = 1..hy2, then w(wy));
-// out: XX [D, D, 2nk2 - 1, 2nl2 - 1], EGw [D, D, nk2, nl2], seg [1], e0 [D].
+// out: XX [D, D, 2nk2 - 1, 2nl2 - 1], EGw [D, D, nk2, nl2], seg [1], e0 [D]
+// (the slab's partial sums).
 extern "C" int anchor_windows_launch(
     const void* X, const void* xre, const void* xim, const void* taps,
     const void* consts, void* out, void* scratch, long long scratch_floats,
-    int B, int D, int nx, int nyr, int nk2, int nl2, float s1, int bf16,
-    int rows, int batches, int ychunk, int ytile, int smem_bytes,
-    void* stream) {
-  if (nk2 < 1 || nl2 < 1 || !(nk2 & 1) || !(nl2 & 1))
+    int B, int D, int nx, int nx_l, int row0, int nyr, int nk2, int nl2,
+    float s1, int bf16, int rows, int batches, int ychunk, int ytile,
+    int smem_bytes, void* stream) {
+  if (nk2 < 1 || nl2 < 1 || !(nk2 & 1) || !(nl2 & 1) || nx < 1 ||
+      nx_l < 1 || row0 < 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.X = static_cast<const float2*>(X);
   a.xre = static_cast<const __nv_bfloat16*>(xre);
   a.xim = static_cast<const __nv_bfloat16*>(xim);
   a.taps = static_cast<const float*>(taps);
-  a.B = B, a.D = D, a.E = D, a.nx = nx, a.nyr = nyr, a.s1 = s1;
+  a.B = B, a.D = D, a.E = D, a.nx = nx_l, a.nyr = nyr, a.s1 = s1;
+  a.nxg = nx, a.row0 = row0;
   a.hx2 = nk2 / 2, a.hy2 = nl2 / 2;
   a.rows = rows, a.batches = batches, a.ychunk = ychunk, a.ytile = ytile;
   float* o = static_cast<float*>(out);

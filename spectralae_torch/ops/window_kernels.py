@@ -16,7 +16,9 @@ burst only ever reads a (2h+1)² window).
 - K4 :func:`anchor_windows` is the whole fused-anchor precompute in one read
   of the signal spectra: the anchor spectra from the composed taps, the
   continuum error ``EG = s1·K̂₀X − X``, the XX and EG windows, ``Σw|EG|²``
-  and the DC scalars.  Neither K̂₀ nor EG reaches device memory.
+  and the DC scalars.  Neither K̂₀ nor EG reaches device memory.  Its
+  ``row_slab`` mode takes an x-row slab of the spectra and returns the
+  slab's partial sums (the tensor-parallel precompute).
 
 Both live in ``csrc/corr_windows.cu``, whose header note says what bounds
 them and how they are laid out; :func:`window_plan` chooses their tiles
@@ -73,27 +75,31 @@ def _lag_bases_on(nx: int, ny: int, hx: int, hy: int, device: torch.device):
 
 @dft.ieee_f32()
 def _corr_windows(prods: torch.Tensor, nx: int, ny: int, hx: int,
-                  hy: int) -> torch.Tensor:
+                  hy: int, row0: int = 0) -> torch.Tensor:
     """Centred lag windows ``[planes, 2hx+1, 2hy+1]`` of the circular
     cross-correlations whose half-spectra are ``prods [planes, nx, nyr]``
-    (complex).
+    (complex).  ``prods`` may hold grid rows ``row0 .. row0 + rows`` only
+    (``[planes, rows, nyr]``): the windows are then those rows' partial
+    sums.
 
     The y-stage runs as ONE stacked real product
     ``[p·nx, 2·nyr] @ [2·nyr, 2·vy]`` computing [sr si] together; the
     x-stage output is window-sized.
     """
     bxc, bxs, ybasis = _lag_bases_on(nx, ny, hx, hy, prods.device)
-    p = prods.shape[0]
+    p, rows = prods.shape[0], prods.shape[1]
     vy = 2 * hy + 1
-    ops = torch.cat([prods.real, prods.imag], dim=-1)       # [p, nx, 2nyr]
-    s = (ops.reshape(p * nx, -1) @ ybasis).reshape(p, nx, 2 * vy)
-    return _combine_windows(s[..., :vy], s[..., vy:], bxc, bxs)
+    ops = torch.cat([prods.real, prods.imag], dim=-1)       # [p, rows, 2nyr]
+    s = (ops.reshape(p * rows, ops.shape[-1]) @ ybasis).reshape(
+        p, rows, 2 * vy)
+    return _combine_windows(s[..., :vy], s[..., vy:],
+                            bxc[row0:row0 + rows], bxs[row0:row0 + rows])
 
 
 def _mean_products(X: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """``mean_b conj(X[b,d])·Z[b,e]`` as ``[D·E, nx, nyr]`` planes."""
     prods = torch.mean(X.conj()[:, :, None] * Z[:, None], dim=0)
-    return prods.reshape(-1, X.shape[-2], X.shape[-1])
+    return prods.reshape(X.shape[1] * Z.shape[1], X.shape[-2], X.shape[-1])
 
 
 # ------------------------------------------------------------------- K3
@@ -126,11 +132,15 @@ def _check_mixed(name: str, X, nx: int, ny: int) -> None:
                          "pass the rfft2_mixed output unsliced)")
 
 
-def _check_spectra(name: str, X: torch.Tensor, nx: int, ny: int) -> None:
+def _check_spectra(name: str, X: torch.Tensor, nx: int, ny: int,
+                   slab: bool = False) -> None:
+    """``X`` must be complex64 ``[B, C, nx, nyr]`` spectra, or with
+    ``slab`` a ``[B, C, rows, nyr]`` row slab of them."""
     if X.dtype != torch.complex64 or X.dim() != 4:
         raise TypeError(f"{name}: spectra must be complex64 [B, C, nx, nyr], "
                         f"got {X.dtype} {tuple(X.shape)}")
-    if X.shape[-2:] != (nx, ny // 2 + 1):
+    if X.shape[-1] != ny // 2 + 1 or X.shape[-2] < 1 or (
+            not slab and X.shape[-2] != nx):
         raise ValueError(f"{name}: spectra {tuple(X.shape)} do not match "
                          f"nx={nx}, ny={ny} (nyr={ny // 2 + 1})")
 
@@ -406,32 +416,41 @@ def _round_signal(X: torch.Tensor, signal_dtype) -> torch.Tensor:
 @dft.ieee_f32()
 def anchor_windows_plain(X: torch.Tensor, K0taps: torch.Tensor, nx: int,
                          ny: int, hx2: int, hy2: int, s1: float, *,
-                         signal_dtype=None, mixed: bool = False):
+                         row_slab: int | None = None, signal_dtype=None,
+                         mixed: bool = False):
     """Plain version of :func:`anchor_windows`: the XLA branch of the JAX
     package's fused precompute (fft_corr.py:504-527) with
     :func:`anchor_windows`'s outputs.  The anchor spectra and the EG planes
     are materialised at full resolution.
 
-    ``signal_dtype``: round the signal's real and imaginary planes to it
-    first (the bf16 signal route of the kernel).  ``mixed``: ``X`` is the
-    ``(Xre, Xim)`` pair of ``rfft2_mixed``, gathered to natural order first.
+    ``row_slab``: ``X`` holds grid rows ``row_slab ..`` only; the rows at
+    or past ``nx`` are left out, and the outputs are the slab's partial
+    sums (``e0`` is 0 unless the slab holds row 0).  ``signal_dtype``:
+    round the signal's real and imaginary planes to it first (the bf16
+    signal route of the kernel).  ``mixed``: ``X`` is the ``(Xre, Xim)``
+    pair of ``rfft2_mixed``, gathered to natural order first.
     """
     if mixed:
         X = fft_kernels.to_natural(X, nx, ny)
+    row0 = 0 if row_slab is None else int(row_slab)
+    rows = max(0, min(X.shape[-2], nx - row0))
+    X = X[:, :, :rows]
     if signal_dtype is not None:
         X = _round_signal(X, signal_dtype)
     D = X.shape[1]
     hx4, hy4 = 2 * hx2, 2 * hy2
-    K0f = dft.kernel_spectrum(K0taps, nx, ny, precision="high")
+    K0f = dft.kernel_spectrum(K0taps, nx, ny, precision="high")[
+        ..., row0:row0 + rows, :]
     wv = torch.as_tensor(_hermitian_weights(nx, ny), device=X.device)
     # the continuum error, bin by bin (the anchoring precision invariant):
     # an elementwise multiply-reduce over d, no matmul
     EG = torch.sum(K0f[None] * X[:, None], dim=2) * s1 - X
-    XX = _corr_windows(_mean_products(X, X), nx, ny, hx4, hy4)
-    EGw = _corr_windows(_mean_products(X, EG), nx, ny, hx2, hy2)
+    XX = _corr_windows(_mean_products(X, X), nx, ny, hx4, hy4, row0)
+    EGw = _corr_windows(_mean_products(X, EG), nx, ny, hx2, hy2, row0)
     seg = torch.mean(torch.sum((EG.real ** 2 + EG.imag ** 2) * wv,
                                dim=(-3, -2, -1)))
-    e0 = torch.mean(EG[:, :, 0, 0].real, dim=0)
+    e0 = (torch.mean(EG[:, :, 0, 0].real, dim=0) if row0 == 0 and rows
+          else X.real.new_zeros(D))
     return (XX.reshape(D, D, 2 * hx4 + 1, 2 * hy4 + 1),
             EGw.reshape(D, D, 2 * hx2 + 1, 2 * hy2 + 1), seg, e0)
 
@@ -466,21 +485,32 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
     brings them to natural order: float32 planes become complex64, bf16
     planes stay bf16 planes and take the bf16 signal route.
 
+    ``row_slab``: a global start row (the tensor-parallel precompute,
+    :func:`~spectralae_torch.train.fft_corr.corr_precompute_fused` under
+    ``model_axis``).  ``X`` is then an x-row *slab* ``[B, D, nx_l, nyr]``
+    of the full spectra, rows ``row_slab .. row_slab + nx_l`` (rows at or
+    past ``nx``, the zero padding of an end slab, are not read), and the
+    outputs are the slab's **partial sums**: every one is linear (the
+    windows) or additive (``seg``) over the x-rows, so the partials of a
+    disjoint cover of ``[0, nx)`` sum to the full call up to float32
+    rounding.  ``e0`` is the slab's DC error: 0 unless it holds row 0.
+    The kernel reads each row's phases and bases at its global row.
+
     CPU tensors take :func:`anchor_windows_plain`; CUDA tensors launch the
-    kernel.  ``row_slab`` (the tensor-parallel partials) is ROADMAP A12 and
-    raises.
+    kernel.
     """
     if mixed and row_slab is not None:
         raise ValueError("mixed-order X has no row-slab (TP) variant")
-    if row_slab is not None:
-        raise NotImplementedError("anchor_windows(row_slab=...): the "
-                                  "tensor-parallel partials are ROADMAP A12")
+    row0 = 0 if row_slab is None else int(row_slab)
+    if row0 < 0:
+        raise ValueError(f"row_slab must be >= 0, got {row_slab}")
     if mixed:
         _check_mixed("anchor_windows", X, nx, ny)
         B, D = X[0].shape[:2]
         device = X[0].device
     else:
-        _check_spectra("anchor_windows", X, nx, ny)
+        _check_spectra("anchor_windows", X, nx, ny,
+                       slab=row_slab is not None)
         B, D = X.shape[:2]
         device = X.device
     nk2, nl2 = K0taps.shape[-2], K0taps.shape[-1]
@@ -495,6 +525,7 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
         signal_dtype = None
     if device.type == "cpu":
         return anchor_windows_plain(X, K0taps, nx, ny, hx2, hy2, s1,
+                                    row_slab=row_slab,
                                     signal_dtype=signal_dtype, mixed=mixed)
     if device.type != "cuda":
         raise ValueError(f"anchor_windows runs on cpu or cuda, not {device}")
@@ -516,7 +547,8 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
         X, planes = X.resolve_conj().contiguous(), None
     ptrs = ((X.data_ptr(), None, None) if planes is None
             else (None, planes[0].data_ptr(), planes[1].data_ptr()))
-    plan = window_plan(True, B, D, D, nx, nyr, hx2, hy2)
+    nx_l = X.shape[-2] if planes is None else planes[0].shape[-2]
+    plan = window_plan(True, B, D, D, nx_l, nyr, hx2, hy2)
     vx4, vy4, vx2, vy2 = 2 * nk2 - 1, 2 * nl2 - 1, nk2, nl2
     n_xx, n_eg = D * D * vx4 * vy4, D * D * vx2 * vy2
     out = torch.empty(n_xx + n_eg + 1 + D, dtype=torch.float32,
@@ -527,8 +559,9 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
         err = _kernels.lib().anchor_windows_launch(
             *ptrs, taps.data_ptr(),
             _consts_on("anchor", nx, ny, hx2, hy2, device).data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, nx, nyr,
-            nk2, nl2, float(s1), int(planes is not None), plan.rows,
+            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, nx, nx_l,
+            row0, nyr, nk2, nl2, float(s1), int(planes is not None),
+            plan.rows,
             plan.batches, plan.ychunk, plan.ytile, plan.smem,
             torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "anchor_windows")

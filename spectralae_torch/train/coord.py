@@ -27,8 +27,9 @@ Deliberate bug-fixes vs the reference (documented per SURVEY.md §7):
   variant at line 457 uses ``+=``, showing the intent);
 - the ``(i-ik)*Nx``/``j-ik`` indexing bugs (lines 226, 283) are not copied.
 
-The multi-device step (``distributed_coord_step``) is ROADMAP A12;
-:func:`coord_step_dp` refuses ``axis_name``.
+:func:`distributed_coord_step` is the data-parallel step over a mesh
+(:mod:`spectralae_torch.dist.mesh`): each rank's batch-averaged gradients
+pmean-ed over the data axis.
 """
 
 from __future__ import annotations
@@ -39,10 +40,12 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import TapMode, tap_anchor
+from ..dist import collectives
 from ..losses.losses import mse_coord
 from ..ops import coord
 from ..ops.dft import ieee_f32
 from ..optim.update import normalized_momentum_update
+from .fft import zero_moms
 
 
 class CoordGrads(NamedTuple):
@@ -215,24 +218,54 @@ def coord_step_dp(in_b: torch.Tensor, out_b: torch.Tensor,
                   b: torch.Tensor, p: torch.Tensor, mom: tuple,
                   prev_grad: tuple, *, lr: float = 0.2, alpha: float = 0.9,
                   tap_mode: TapMode = "ref_gpu", sym: bool = False,
-                  active: bool = False,
-                  axis_name: str | None = None) -> CoordStepResult:
+                  active: bool = False, axis_name=None) -> CoordStepResult:
     """Batched coordinate-space step: reference-exact gradients averaged
     over a batch of ``[B, ·, h, w]`` frames (the coord analog of
     ``fft_burst_dp``).  Each frame's ``Norm`` counts one frame, so the
     batched transposes sum over B and divide by B.  At B=1 it equals
     :func:`coord_step`.
 
-    ``axis_name`` (the data-parallel step) is ROADMAP A12.
+    ``axis_name`` (the data axis's process group): the frames are this
+    rank's batch shard, and the (tiny) averaged gradients and the mse are
+    pmean-ed over the axis in one all_reduce before the update — the same
+    collective pattern as the distributed burst.  The gradients stay the
+    transposed convolutions: the JAX package takes its ``"patches"`` form
+    under an axis only because ``jax.linear_transpose`` with respect to a
+    replicated argument inserts a hidden psum there (coord.py:219-224);
+    ``torch.autograd.grad`` of the rank's own tensors has none.
     """
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: the data-parallel coord step "
-                                  "is ROADMAP A12")
     dM, dD, nk, nl = c.shape
     g = _batch_gradients(in_b, out_b, hin_b, f, nk, nl, tap_mode,
                          "transpose")
     diff = (in_b - out_b).detach()
     mse = torch.mean(torch.sum(diff * diff, dim=(-3, -2, -1))) / (
         dD * dM * nk * nl * in_b.shape[-2] * in_b.shape[-1])
+    if axis_name is not None:
+        *parts, mse = collectives.pmean([*g, mse], axis_name)
+        g = CoordGrads(*parts)
     return _apply_update(g, mse, c, f, b, p, mom, prev_grad,
                          lr=lr, alpha=alpha, sym=sym, active=active)
+
+
+def distributed_coord_step(mesh, *, lr: float = 0.2, alpha: float = 0.9,
+                           tap_mode: TapMode = "ref_gpu", sym: bool = False,
+                           active: bool = False):
+    """A multi-rank coord step over ``mesh``: the frame batch sharded over
+    ``data``, the weights replicated, the gradients pmean-ed — the coord
+    analog of :func:`spectralae_torch.train.fft_dp.distributed_burst`.  The
+    returned ``run(in_b, out_b, hin_b, c, f, b, p, mom=None,
+    prev_grad=None)`` takes this rank's shard of the batch; each step's
+    collective moves ``M·D·Nk·Nl·2 + M + D + 1`` floats (the averaged
+    gradients and the mse), nothing resolution-sized."""
+    data = mesh.axis("data")
+
+    def run(in_b, out_b, hin_b, c, f, b, p, mom=None, prev_grad=None):
+        collectives.check_shards(in_b.shape[0], data)
+        return coord_step_dp(
+            in_b, out_b, hin_b, c, f, b, p,
+            mom if mom is not None else zero_moms(c, f, b, p),
+            prev_grad if prev_grad is not None else zero_moms(c, f, b, p),
+            lr=lr, alpha=alpha, tap_mode=tap_mode, sym=sym, active=active,
+            axis_name=data)
+
+    return run

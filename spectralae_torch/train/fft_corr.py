@@ -1,6 +1,6 @@
 """Correlation-space momentum burst: O(1)-per-iteration in resolution.
 
-Port of :mod:`spectralae.train.fft_corr` (single device).  The reference
+Port of :mod:`spectralae.train.fft_corr`.  The reference
 burst (source/fft_backproplib.cu:1381-1511) freezes the input spectrum for
 all 100 inner iterations.  Every per-iteration ω-space sum — the analytic
 gradients (gradient_k_io, 395-475), their compact-support projection
@@ -38,11 +38,16 @@ bias injections (conv_k, cu:183-184) are exact scalar corrections.
 The fused precompute's ``"fft"``/``"fft-bf16"`` routes take the signal
 spectra from the hand-written four-step rfft2
 (:mod:`spectralae_torch.ops.fft_kernels`) in its mixed bin order, which K4
-gathers to natural order.
+gathers to natural order; its ``"pixel"`` route computes every quantity in
+pixel space (:mod:`spectralae_torch.ops.pixel_corr`, no FFT).
 
-Not ported here: the data- and model-parallel forms (``axis_name``,
-``model_axis``; ROADMAP A12) and the FFT-free ``"pixel"`` precompute
-(ROADMAP A6).
+**Data and model parallelism** (:func:`spectralae_torch.train.fft_dp.
+distributed_burst`): ``axis_name`` (the data axis's process group, see
+:mod:`spectralae_torch.dist.mesh`) pmeans the precompute's lag tensors
+and scalars over the batch shards in one all_reduce, after which the
+iterations run replicated and collective-free; ``model_axis`` splits the
+precompute's resolution-sized work over the model ranks, with one
+resolution-sized collective, the all_gather of the signal spectra.
 """
 
 from __future__ import annotations
@@ -52,9 +57,11 @@ import functools
 import numpy as np
 import torch
 
+from ..dist import collectives
 from ..losses.losses import diversity_gradients
 from ..ops import dft, spectral
 from ..ops.fft_kernels import rfft2_mixed
+from ..ops.pixel_corr import pixel_anchor_windows
 from ..ops.window_kernels import (anchor_windows, anchor_windows_plain,
                                   corr_pair_windows)
 from ..optim.update import burst_inertia
@@ -124,11 +131,34 @@ def _herm_w(nx: int, ny: int):
     return spectral._hermitian_weights(nx, ny)
 
 
-def _no_parallel_axes(axis_name, model_axis) -> None:
-    if axis_name is not None or model_axis is not None:
-        raise NotImplementedError(
-            "axis_name/model_axis: the data- and model-parallel corr burst "
-            "is ROADMAP A12 (torch.distributed)")
+def _shard(planes: torch.Tensor, model_axis):
+    """Zero-pad a stack to whole chunks over the model ranks and take this
+    rank's chunk (along dim 0); returns ``(chunk, rows a chunk)``."""
+    nm = collectives.axis_size(model_axis)
+    n = planes.shape[0]
+    chunk = -(-n // nm)
+    pad = planes.new_zeros((chunk * nm - n,) + tuple(planes.shape[1:]))
+    mi = collectives.axis_index(model_axis)
+    return torch.cat([planes, pad])[mi * chunk:(mi + 1) * chunk], chunk
+
+
+def _gather(local: torch.Tensor, n: int, model_axis) -> torch.Tensor:
+    """The model ranks' chunks in rank order, cut to the first ``n``."""
+    return collectives.all_gather(local.contiguous(), model_axis)[:n]
+
+
+def _pair_windows(X, Z, nx, ny, hx, hy, model_axis):
+    """K3's windows ``[D, E, 2hx+1, 2hy+1]`` of ``conj(X)·Z``; under
+    ``model_axis`` each rank takes a chunk of Z's channels and the
+    window-sized results are gathered (the JAX package splits the same
+    plane stack, fft_corr.py:252-269)."""
+    if model_axis is None:
+        return corr_pair_windows(X, Z, nx, ny, hx, hy)
+    E = Z.shape[1]
+    mine, _ = _shard(Z.transpose(0, 1), model_axis)
+    win = corr_pair_windows(X, mine.transpose(0, 1).contiguous(), nx, ny,
+                            hx, hy)                       # [D, chunk, ., .]
+    return _gather(win.transpose(0, 1), E, model_axis).transpose(0, 1)
 
 
 def _composed_taps(c0, f0, maps, dD, dM, P):
@@ -153,8 +183,12 @@ def corr_precompute(x, expout, out0, c0, f0, *, scale_by_dm=True,
     kernels the burst starts from (they define the anchor K₀).  The windows
     run through :func:`~spectralae_torch.ops.window_kernels.
     corr_pair_windows` (K3 for CUDA tensors): two launches per precompute.
+
+    ``axis_name`` (the data axis's process group) pmeans the tensors over
+    the batch shards; ``model_axis`` splits the window transforms' planes
+    over the model ranks (each holds the whole shard) and gathers the
+    windows.
     """
-    _no_parallel_axes(axis_name, model_axis)
     nx, ny = x.shape[-2], x.shape[-1]
     dD = x.shape[-3]
     dM = c0.shape[0]
@@ -178,9 +212,10 @@ def corr_precompute(x, expout, out0, c0, f0, *, scale_by_dm=True,
     # batch-averaged lag windows of conj(X)·X (±4h) and conj(X)·[E₀ G₀]
     # (±2h) through K3 (its plain version, the JAX package's XLA
     # formulation, for CPU tensors)
-    XX = corr_pair_windows(X, X, nx, ny, hx4, hy4).reshape(dD, dD, -1)
-    win_eg = corr_pair_windows(X, torch.cat([E0, G0], dim=1), nx, ny,
-                               hx2, hy2).reshape(dD, 2 * dD, -1)
+    XX = _pair_windows(X, X, nx, ny, hx4, hy4, model_axis).reshape(
+        dD, dD, -1)
+    win_eg = _pair_windows(X, torch.cat([E0, G0], dim=1), nx, ny, hx2, hy2,
+                           model_axis).reshape(dD, 2 * dD, -1)
     XE0, XG0 = win_eg[:, :dD], win_eg[:, dD:]
     wv = torch.as_tensor(_herm_w(nx, ny), device=x.device)
 
@@ -188,11 +223,14 @@ def corr_precompute(x, expout, out0, c0, f0, *, scale_by_dm=True,
         return torch.mean(torch.sum((a.real * b.real + a.imag * b.imag) * wv,
                                     dim=(-3, -2, -1)))
     # DC scalars (bin 0 of real-signal spectra is real); batch-averaged
-    return dict(XX=XX, XE0=XE0, XG0=XG0, E0E0=energy(E0, E0),
-                GG0=energy(G0, G0), EG0=energy(E0, G0),
-                X0=torch.mean(X[:, :, 0, 0].real, dim=0),
-                E00=torch.mean(E0[:, :, 0, 0].real, dim=0),
-                G00=torch.mean(G0[:, :, 0, 0].real, dim=0))
+    out = dict(XX=XX, XE0=XE0, XG0=XG0, E0E0=energy(E0, E0),
+               GG0=energy(G0, G0), EG0=energy(E0, G0),
+               X0=torch.mean(X[:, :, 0, 0].real, dim=0),
+               E00=torch.mean(E0[:, :, 0, 0].real, dim=0),
+               G00=torch.mean(G0[:, :, 0, 0].real, dim=0))
+    if axis_name is not None:
+        out = collectives.pmean(out, axis_name)
+    return out
 
 
 @dft.ieee_f32()
@@ -224,19 +262,36 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
       tier (bf16×3 products on the card), into
       ``anchor_windows(mixed=True)``;
     - ``"fft-bf16"``: the same with the planes stored bf16, at the
-      "default" tier (bf16 operands).
+      "default" tier (bf16 operands);
+    - ``"pixel"``: every quantity in pixel space, no FFT
+      (:func:`spectralae_torch.ops.pixel_corr.pixel_anchor_windows`, plain
+      PyTorch on any device).
 
-    ``"pixel"`` is ROADMAP A6 and ``axis_name``/``model_axis`` ROADMAP A12:
-    they raise.
+    ``axis_name`` (the data axis's process group) pmeans the returned
+    tensors over the batch shards in one all_reduce.  ``model_axis``
+    (tensor parallelism) shards the whole resolution-sized pipeline over
+    the model ranks: each transforms its share of the ``B·D`` signal
+    planes, one all_gather of the half-spectra gives every rank the whole
+    ``X``, and then
+
+    K4 runs on this rank's x-row slab (``anchor_windows(row_slab=...)``;
+    its plain version for ``False``), the slabs' partial windows and
+    ``Σw|EG|²`` are psum-ed, and the DC scalars are computed directly.
+
+    ``"pixel"``, ``"fft"`` and ``"fft-bf16"`` have no model-sharded form:
+    they raise under ``model_axis``, as in the JAX package.
     """
-    _no_parallel_axes(axis_name, model_axis)
-    if pallas_windows == "pixel":
-        raise NotImplementedError(
-            "pallas_windows='pixel': the FFT-free pixel-space precompute "
-            "(ops/pixel_corr) is ROADMAP A6")
-    if pallas_windows not in (None, True, False, "bf16", "fft", "fft-bf16"):
+    if pallas_windows not in (None, True, False, "bf16", "fft", "fft-bf16",
+                              "pixel"):
         raise ValueError(f"pallas_windows={pallas_windows!r} is not one of "
-                         "None, True, False, 'bf16', 'fft', 'fft-bf16'")
+                         "None, True, False, 'bf16', 'fft', 'fft-bf16', "
+                         "'pixel'")
+    if pallas_windows in ("pixel", "fft", "fft-bf16") \
+            and model_axis is not None:
+        raise ValueError(
+            f"pallas_windows={pallas_windows!r} has no model-sharded "
+            "variant — use the spectral kernel (True) under tensor "
+            "parallelism")
     nx, ny = x.shape[-2], x.shape[-1]
     dD = x.shape[-3]
     dM = c0.shape[0]
@@ -251,7 +306,15 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     # norm·(s2·Σ_m f̂(0)·b + p)  (the only place out0 differed)
     fs0 = torch.sum(f0.reshape(dD, dM, P), dim=-1)      # [D, M]
     dE0 = norm * (s2 * (fs0 @ b0) + p0)                 # [D]
-    if pallas_windows in ("fft", "fft-bf16"):
+    if pallas_windows == "pixel":
+        # FFT-free: every precompute quantity directly in pixel space (the
+        # same anchoring-precision contract as the spectral routes)
+        XXw, EGw, SEG, E_cont0, X0 = pixel_anchor_windows(x, K0taps, hx2,
+                                                         hy2, s1)
+    elif model_axis is not None:
+        XXw, EGw, SEG, X0, E_cont0 = _tp_fused_windows(
+            x, K0taps, nx, ny, hx2, hy2, s1, model_axis, pallas_windows)
+    elif pallas_windows in ("fft", "fft-bf16"):
         # the spectra in the four-step FFT's mixed bin order; K4 gathers
         # them to natural order.  "fft" keeps float32 planes at the "high"
         # tier (bf16x3, ~3e-6 transform); "fft-bf16" stores bf16 planes at
@@ -280,12 +343,52 @@ def corr_precompute_fused(x, c0, f0, b0, p0, *, scale_by_dm=True,
     # lag windows are the constant −X0[d]·dE0[e] (w(DC)=1) and its
     # energies are pure scalar corrections
     dc_lag = X0[:, None, None] * dE0[None, :, None]     # [d, e, 1]
-    return dict(XX=XX, XE0=EGwin + dc_lag,
-                XG0=(-dc_lag).expand(EGwin.shape),
-                E0E0=SEG + torch.sum(2.0 * E_cont0 * dE0 + dE0 * dE0),
-                GG0=torch.sum(dE0 * dE0),
-                EG0=-torch.sum((E_cont0 + dE0) * dE0),
-                X0=X0, E00=E_cont0 + dE0, G00=-dE0)
+    out = dict(XX=XX, XE0=EGwin + dc_lag,
+               XG0=(-dc_lag).expand(EGwin.shape),
+               E0E0=SEG + torch.sum(2.0 * E_cont0 * dE0 + dE0 * dE0),
+               GG0=torch.sum(dE0 * dE0),
+               EG0=-torch.sum((E_cont0 + dE0) * dE0),
+               X0=X0, E00=E_cont0 + dE0, G00=-dE0)
+    if axis_name is not None:
+        out = collectives.pmean(out, axis_name)
+    return out
+
+
+def _tp_fused_windows(x, K0taps, nx, ny, hx2, hy2, s1, model_axis,
+                      pallas_windows):
+    """The model-sharded fused precompute (fft_corr.py:528-582): the
+    signal planes transformed a share a rank, one all_gather of the
+    half-spectra, then K4 (its plain version for ``pallas_windows=False``)
+    on this rank's x-row slab with the partials psum-ed; returns
+    ``(XXw, EGw, SEG, X0, E_cont0)``."""
+    B, dD = x.shape[0], x.shape[-3]
+    nyr = ny // 2 + 1
+    planes, _ = _shard(x.reshape(B * dD, nx, ny), model_axis)
+    X = _gather(spectral.rfft2(planes), B * dD, model_axis).reshape(
+        B, dD, nx, nyr)
+    # every rank holds the whole X and runs K4 on its slab of x-rows
+    # (zero-padded past nx); the DC scalars are computed directly (K̂₀ at
+    # ω = 0 is the plain tap sum): the kernel's e0 is the slab's own
+    nm = collectives.axis_size(model_axis)
+    chunk_x = -(-nx // nm)
+    row0 = collectives.axis_index(model_axis) * chunk_x
+    Xl = X[:, :, row0:row0 + chunk_x]
+    if Xl.shape[-2] < chunk_x:
+        Xl = torch.cat([Xl, Xl.new_zeros((B, dD, chunk_x - Xl.shape[-2],
+                                          nyr))], dim=2)
+    windows = anchor_windows_plain if pallas_windows is False \
+        else anchor_windows
+    XXw, EGw, SEGl, _ = windows(
+        Xl.contiguous(), K0taps, nx, ny, hx2, hy2, s1, row_slab=row0,
+        signal_dtype=(torch.bfloat16 if pallas_windows == "bf16" else None))
+    XXw, EGw, SEG = collectives.psum([XXw, EGw, SEGl], model_axis)
+    Xdc = X[:, :, 0, 0].real                             # [B, D]
+    ksum = torch.sum(K0taps, dim=(-2, -1))               # [e, d]
+    # near-total cancellation once trained: the same anchoring-precision
+    # invariant as the EG contraction (float32 products)
+    E_cont0 = torch.mean(s1 * torch.einsum("ed,bd->be", ksum, Xdc) - Xdc,
+                         dim=0)
+    return XXw, EGw, SEG, torch.mean(Xdc, dim=0), E_cont0
 
 
 @functools.lru_cache(maxsize=None)
@@ -316,12 +419,12 @@ def corr_iterate(T, c, f, b, p, mom=None, *, nx, ny,
     """Run the burst's inner loop on precomputed correlation tensors.
 
     ``c/f/b/p`` must be the same initial weights given to
-    :func:`corr_precompute` (they are the anchor).  ``vary_axes`` (the
-    model-sharded precompute's carry marks) is ROADMAP A12 and raises.
+    :func:`corr_precompute` (they are the anchor).  The iterations need no
+    collective: a distributed burst's precompute has already reduced ``T``
+    over the ranks.  ``vary_axes`` is the JAX package's carry-type mark for
+    a model-sharded precompute under ``shard_map``; PyTorch tensors carry
+    no such mark, so it changes nothing here.
     """
-    if vary_axes:
-        raise NotImplementedError("vary_axes: the model-sharded corr burst "
-                                  "is ROADMAP A12")
     dM, dD, nk, nl = c.shape
     P = nk * nl
     dd = dD * dD
@@ -530,9 +633,13 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
     whose windows run through K4 on the card; ``pallas_windows`` routes
     them).  Requires ``expout`` None/x.
 
-    ``axis_name``/``model_axis`` (data/model parallel) are ROADMAP A12.
+    ``axis_name`` (the data axis's process group) pmeans the correlation
+    tensors over the batch shards, and ``model_axis`` shards the
+    precompute's transform planes over the model ranks (one precompute
+    per segment, each with its collectives); the iterations then run
+    replicated and collective-free.  ``x/expout/out0`` are then this
+    rank's batch shard.
     """
-    _no_parallel_axes(axis_name, model_axis)
     fused = out0 is None
     if fused and not (expout is None or expout is x):
         raise ValueError("out0=None (fused anchor forward) trains against "
@@ -553,9 +660,12 @@ def burst_corr(x, expout, out0, c, f, b, p, mom=None, *,
         if out_cur is None:
             return corr_precompute_fused(x, c, f, b, p,
                                          scale_by_dm=scale_by_dm,
+                                         axis_name=axis_name,
+                                         model_axis=model_axis,
                                          pallas_windows=pallas_windows)
         return corr_precompute(x, expout, out_cur, c, f,
-                               scale_by_dm=scale_by_dm)
+                               scale_by_dm=scale_by_dm, axis_name=axis_name,
+                               model_axis=model_axis)
 
     if iters == 0:
         # zero updates: report mses[0] only (the ω-space paths' semantics)

@@ -1,28 +1,30 @@
 """Batched momentum-space bursts: one kernel pair, many frames.
 
-Port of :mod:`spectralae.train.fft_dp` (single device).  A capability
-beyond the reference (whose burst trains on a single frozen frame): the
-analytic frequency-domain gradients are averaged over a batch of frozen
-patches each inner iteration.  Semantics reduce exactly to the reference
-burst at B=1.
+Port of :mod:`spectralae.train.fft_dp`.  A capability beyond the
+reference (whose burst trains on a single frozen frame): the analytic
+frequency-domain gradients are averaged over a batch of frozen patches
+each inner iteration.  Semantics reduce exactly to the reference burst at
+B=1.
 
-The multi-device form, ``distributed_burst``, is ROADMAP A12.
+:func:`distributed_burst` shards the batch over the mesh's ``data`` axis
+(every rank runs the body on its shard, :mod:`spectralae_torch.dist.mesh`)
+and, with a ``model`` axis, the correlation-space precompute over it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..dist import collectives
 from ..ops import dft, spectral
 from ..optim.update import burst_inertia
 from .fft import FFTBurstResult, zero_moms
 
 
 def _gradient_k_io_batch(X, Y, O, Cf, Ff, b, nx, ny, axis_name=None):
-    """Batch-averaged analytic gradients (see train.fft.gradient_k_io)."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: the data-parallel burst is "
-                                  "ROADMAP A12")
+    """Batch-averaged analytic gradients (see train.fft.gradient_k_io);
+    ``axis_name`` (the data axis's process group) pmeans them over the
+    batch shards, in one all_reduce."""
     dM, dD = Cf.shape[0], Cf.shape[1]
     norm = nx * ny
     Norm = norm * 2.0 * dM * dD * nx * ny
@@ -35,6 +37,8 @@ def _gradient_k_io_batch(X, Y, O, Cf, Ff, b, nx, ny, axis_name=None):
     df = torch.einsum("bdxy,bmxy->dmxy", E, H.conj()) / (Norm * nb)
     db = torch.mean(S[:, :, 0, 0].real, dim=0) * norm / Norm
     dp = torch.mean(E[:, :, 0, 0].real, dim=0) * norm / Norm
+    if axis_name is not None:
+        dc, df, db, dp = collectives.pmean([dc, df, db, dp], axis_name)
     return dc, df, db, dp
 
 
@@ -80,6 +84,9 @@ def _burst_dp_body(x, expout, out0, c, f, b, p, mom, *, lr, alpha, iters,
         H = spectral.spectral_conv(X, Cf, b, nx, ny, scale_by_dm=scale_by_dm)
         O = spectral.spectral_conv(H, Ff, p, nx, ny, scale_by_dm=scale_by_dm)
         mses[i + 1] = batch_mse(Y, O)
+    if axis_name is not None:
+        # the pmean of each iteration's batch MSE, all in one all_reduce
+        mses = collectives.pmean(mses, axis_name)
     return FFTBurstResult(c=c, f=f, b=b, p=p, mom=(Dc, Df, Db, Dp),
                           mses=mses)
 
@@ -131,3 +138,82 @@ def fft_burst_dp(x: torch.Tensor, expout: torch.Tensor | None,
     return _burst_dp_body(x, expout, out0, c, f, b, p, mom, lr=lr,
                           alpha=alpha, iters=iters, scale_by_dm=scale_by_dm,
                           axis_name=None, maxdiff=maxdiff, w0=w0, w1=w1)
+
+
+def distributed_burst(mesh, *, lr: float = 0.2, alpha: float = 0.9,
+                      iters: int = 100, scale_by_dm: bool = True,
+                      use_pallas: bool | None = None,
+                      maxdiff: bool = False, w0: float = 1.0,
+                      w1: float = 10.0,
+                      reanchor_every: int | None = None,
+                      fused: bool = False,
+                      pallas_windows=None):
+    """A multi-rank burst over ``mesh``
+    (:func:`spectralae_torch.dist.mesh.make_mesh`): the batch sharded over
+    ``data``, the weights replicated.  The returned callable takes this
+    rank's batch shard and returns the replicated result.
+
+    The default body is the correlation-space burst
+    (:mod:`spectralae_torch.train.fft_corr`): ONE pmean of the lag tensors
+    over ``data`` replaces the per-iteration gradient collectives, and a
+    ``model`` axis of more than one rank shards the resolution-dependent
+    precompute; the iterations run replicated and collective-free.
+    ``use_pallas`` selects the per-iteration ω-space bodies for
+    cross-validation (True: :func:`~spectralae_torch.train.fft_pallas.
+    burst_pallas_fused`, K5 then K7 on the card; False: the einsum body),
+    their gradients pmean-ed over ``data`` every iteration.
+
+    ``fused=True``: the fused-anchor contract (train against the input,
+    anchor = the model's own forward, computed inside the precompute); the
+    callable is ``run(x, c, f, b, p, mom=None)``, with ``pallas_windows``
+    routing the precompute (under a model axis: K4 on row slabs unless
+    False).  Otherwise ``run(x, expout, out0, c, f, b, p, mom=None)``.
+    """
+    if reanchor_every is not None and use_pallas is not None:
+        # re-anchoring only exists on the corr body (use_pallas=None);
+        # the ω-space cross-validation bodies would silently ignore it
+        raise ValueError("reanchor_every requires the default "
+                         "(correlation-space) body — drop use_pallas")
+    if fused and use_pallas is not None:
+        raise ValueError("fused anchoring only exists on the default "
+                         "(correlation-space) body — drop use_pallas")
+    if pallas_windows is not None and not fused:
+        raise ValueError("pallas_windows selects the fused-anchor "
+                         "precompute kernel — requires fused=True")
+    from .fft_corr import burst_corr
+    data = mesh.axis("data")
+    model_axis = mesh.axis("model") if mesh.shape["model"] > 1 else None
+
+    @dft.ieee_f32()
+    def run_fused(x, c, f, b, p, mom=None):
+        collectives.check_shards(x.shape[0], data)
+        return burst_corr(x, None, None, c, f, b, p,
+                          mom if mom is not None else zero_moms(c, f, b, p),
+                          lr=lr, alpha=alpha, iters=iters,
+                          scale_by_dm=scale_by_dm, maxdiff=maxdiff, w0=w0,
+                          w1=w1, axis_name=data, model_axis=model_axis,
+                          reanchor_every=reanchor_every,
+                          pallas_windows=pallas_windows)
+
+    if fused:
+        return run_fused
+
+    @dft.ieee_f32()
+    def run(x, expout, out0, c, f, b, p, mom=None):
+        collectives.check_shards(x.shape[0], data)
+        if expout is None:
+            expout = x
+        mom = mom if mom is not None else zero_moms(c, f, b, p)
+        kw = dict(lr=lr, alpha=alpha, iters=iters, scale_by_dm=scale_by_dm,
+                  axis_name=data)
+        if use_pallas is None:
+            return burst_corr(x, expout, out0, c, f, b, p, mom,
+                              maxdiff=maxdiff, w0=w0, w1=w1,
+                              model_axis=model_axis,
+                              reanchor_every=reanchor_every, **kw)
+        if use_pallas:
+            from .fft_pallas import burst_pallas_fused
+            return burst_pallas_fused(x, expout, out0, c, f, b, p, mom, **kw)
+        return _burst_dp_body(x, expout, out0, c, f, b, p, mom, **kw)
+
+    return run

@@ -16,6 +16,11 @@ chip (:mod:`spectralae_torch.ops.burst_kernels`):
   plain ω-space burst for CPU ones.
 
 CUDA tensors launch the kernels; CPU tensors run their plain versions.
+``axis_name`` (the data axis's process group,
+:mod:`spectralae_torch.dist.mesh`) makes either engine a data-parallel
+burst over the batch shards: each iteration's gradients are pmean-ed
+between the K5 (or K7) launch that made them and the update, in one
+all_reduce, and the MSE trajectory once at the end.
 ``mxu_dtype=torch.bfloat16`` rounds the operands of the basis products to
 bf16 with float32 sums.  The JAX ``interpret`` flag and its VMEM tile width
 (``SPECTRALAE_PALLAS_TW``) have no counterpart: the CUDA kernels pick their
@@ -30,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..dist import collectives
 from ..losses.losses import diversity_gradients
 from ..ops import burst_kernels as bk
 from ..ops import dft, spectral
@@ -86,10 +92,16 @@ def _check_mxu(mxu_dtype) -> bool:
     return mxu_dtype == torch.bfloat16
 
 
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: the data-parallel burst is "
-                                  "ROADMAP A12")
+def _pmean_grads(g, gb, gp, axis_name):
+    """The kernel's gradients, pmean-ed over the data axis when there is
+    one (JAX: fft_pallas.py:286-287, :550-551)."""
+    if axis_name is None:
+        return g, gb, gp
+    return tuple(collectives.pmean([g, gb, gp], axis_name))
+
+
+def _pmean_mses(mses, axis_name):
+    return mses if axis_name is None else collectives.pmean(mses, axis_name)
 
 
 def _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype) -> _Burst:
@@ -155,7 +167,7 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
                       mom: tuple | None = None, *, lr: float = 0.2,
                       alpha: float = 0.9, iters: int = 100,
                       maxdiff: bool = False, w0: float = 1.0, w1: float = 10.0,
-                      scale_by_dm: bool = True, axis_name: str | None = None,
+                      scale_by_dm: bool = True, axis_name=None,
                       mxu_dtype=torch.float32) -> FFTBurstResult:
     """Drop-in for :func:`spectralae_torch.train.fft.fft_burst`, two kernels
     an iteration (K5, then K6).
@@ -166,7 +178,6 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
     kernels, between the two launches.  The MSE trajectory stays on the
     device until the loop ends.
     """
-    _no_axis(axis_name)
     s = _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype)
     P = c.shape[-2] * c.shape[-1]
     k = s.consts
@@ -174,9 +185,9 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
     mses = _mses(s, c, iters, x.dtype)
     planes = s.planes
     for i in range(iters):
-        g, gb, gp = bk.grad_project(planes, s.basis, s.wv,
-                                    _stack(c, f, s.md, P), b, norm=k["norm"],
-                                    scale=k["scale"], mxu_bf16=s.bf16)
+        g, gb, gp = _pmean_grads(*bk.grad_project(
+            planes, s.basis, s.wv, _stack(c, f, s.md, P), b, norm=k["norm"],
+            scale=k["scale"], mxu_bf16=s.bf16), axis_name)
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
@@ -187,7 +198,8 @@ def burst_pallas_body(x: torch.Tensor, expout: torch.Tensor,
                                     inv_d=k["inv_d"], mxu_bf16=s.bf16,
                                     out=planes[4:])
         mses[i + 1] = _mse_of(msep, c, s.nx, s.ny)
-    return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms, mses=mses)
+    return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms,
+                          mses=_pmean_mses(mses, axis_name))
 
 
 # the JAX package jits the body under this name; PyTorch runs it eagerly
@@ -202,7 +214,6 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
     """Iteration-fused burst: one K5 on O₀, then one K7 per iteration (the
     forward of the updated weights and the next gradients in one sweep).
     Semantics identical to :func:`burst_pallas_body`."""
-    _no_axis(axis_name)
     s = _prepare(x, expout, out0, c, scale_by_dm, mxu_dtype)
     P = c.shape[-2] * c.shape[-1]
     k = s.consts
@@ -212,6 +223,7 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
                                 _stack(c, f, s.md, P), b, norm=k["norm"],
                                 scale=k["scale"], mxu_bf16=s.bf16)
     for i in range(iters):
+        g, gb, gp = _pmean_grads(g, gb, gp, axis_name)
         (c, f, b, p), moms = _update(
             c, f, b, p, g[:s.md].reshape(c.shape), g[s.md:].reshape(f.shape),
             gb, gp, moms, 0.1 * lr, alpha, maxdiff, w0, w1)
@@ -219,7 +231,8 @@ def burst_pallas_fused(x, expout, out0, c, f, b, p, mom=None, *, lr=0.2,
             s.planes, s.basis, s.wv, _stack(c, f, s.md, P), b, p,
             mxu_bf16=s.bf16, out=s.planes[4:], **k)
         mses[i + 1] = _mse_of(msep, c, s.nx, s.ny)
-    return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms, mses=mses)
+    return FFTBurstResult(c=c, f=f, b=b, p=p, mom=moms,
+                          mses=_pmean_mses(mses, axis_name))
 
 
 fft_burst_pallas_fused = burst_pallas_fused

@@ -133,7 +133,7 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
                scale_by_dm: bool = True, train_pair: int = -1,
                active: bool = False, act=None,
                compute_dtype=None, remat: bool = False,
-               accum_steps: int = 1) -> TrainStepResult:
+               accum_steps: int = 1, axis_name=None) -> TrainStepResult:
     """One batched train step with the reference's inertia optimizer.
 
     Args:
@@ -143,6 +143,10 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
       remat: per-stage rematerialization (memory for recompute).
       accum_steps: gradient accumulation over ``accum_steps`` microbatches
         (batch must divide evenly); one optimizer update per call.
+      axis_name: the data axis's process group
+        (:func:`spectralae_torch.dist.mesh.distributed_train_step`): ``x``
+        is this rank's batch shard, and the loss and gradients are
+        pmean-ed over the axis before the update.
 
     The loss returned is that of the parameters going *into* the step.
     """
@@ -150,6 +154,10 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
                    scale_by_dm=scale_by_dm, act=act,
                    compute_dtype=compute_dtype, remat=remat)
     loss, grads = _grads(params, x, scales, accum_steps, train_pair, loss_kw)
+    if axis_name is not None:
+        from ..dist import collectives
+        loss, *leaves = collectives.pmean([loss, *grads.leaves()], axis_name)
+        grads = AEParams.from_leaves(leaves)
     with torch.no_grad():
         new_params, new_mom, new_pg = tree_update(
             params, grads, opt.mom, opt.prev_grad, lr, alpha, active=active)

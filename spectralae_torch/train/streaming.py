@@ -65,7 +65,7 @@ def stream_bursts(xs: torch.Tensor, c: torch.Tensor, f: torch.Tensor,
                   maxdiff: bool = False, w0: float = 1.0, w1: float = 10.0,
                   scale_by_dm: bool = True, carry_momentum: bool = True,
                   reanchor_every: int | None = None,
-                  axis_name: str | None = None,
+                  axis_name=None,
                   pallas_windows=None) -> StreamResult:
     """Train through a stream of frames, one fused burst per frame.
 
@@ -75,7 +75,10 @@ def stream_bursts(xs: torch.Tensor, c: torch.Tensor, f: torch.Tensor,
       carry_momentum: carry inertia state across frames (the reference
         carries dc/df across bursts while the layer selection is stable,
         autoencoder.cpp:279-310); ``False`` re-zeroes per frame.
-      axis_name: data-parallel streaming, ROADMAP A12 (raises).
+      axis_name: the data axis's process group
+        (:mod:`spectralae_torch.dist.mesh`): ``xs`` holds this rank's
+        shard of every frame's batch, and each burst's correlation tensors
+        are pmean-ed over the axis (one all_reduce a frame).
       pallas_windows: precompute routing for the per-frame fused burst
         (``burst_corr``) — ``"bf16"`` streams the signal spectra bf16
         through K4 (CLI ``--bf16``).
@@ -132,7 +135,7 @@ def stream_bursts_pair(xs: torch.Tensor, params: AEParams, scales, n_l: int,
                        scale_by_dm: bool = True,
                        carry_momentum: bool = True,
                        reanchor_every: int | None = None,
-                       axis_name: str | None = None,
+                       axis_name=None,
                        pallas_windows=None) -> StreamResult:
     """:func:`stream_bursts` for an *inner* stage pair of a deeper net.
 
@@ -180,7 +183,7 @@ def stream_bursts_sweep(xs: torch.Tensor, params: AEParams, scales, *,
                         scale_by_dm: bool = True,
                         carry_momentum: bool = True,
                         reanchor_every: int | None = None,
-                        axis_name: str | None = None,
+                        axis_name=None,
                         pallas_windows=None) -> SweepResult:
     """Per-frame all-pairs sweep: each frame trains EVERY stage pair.
 
@@ -230,7 +233,7 @@ def stream_coord_steps(xs: torch.Tensor, params: AEParams, scales, n_l: int,
                        active: bool = False, scale_by_dm: bool = True,
                        mom: tuple | None = None,
                        prev_grad: tuple | None = None,
-                       axis_name: str | None = None) -> CoordStreamResult:
+                       axis_name=None) -> CoordStreamResult:
     """Coordinate-domain streaming: one reference coord step per frame.
 
     The reference's coordinate training loop ('1' with fft off) is one
@@ -243,7 +246,9 @@ def stream_coord_steps(xs: torch.Tensor, params: AEParams, scales, n_l: int,
     batched frames ``[K, B, D, h, w]`` use the batch-averaged gradients.
 
     Equality with the host loop [forward_coord → center_crop → coord_step
-    → replace_pair] is held by the tests.  ``axis_name`` is ROADMAP A12.
+    → replace_pair] is held by the tests.  ``axis_name`` (the data axis's
+    process group): ``xs`` holds this rank's shard of every frame's batch,
+    and each step's gradients are pmean-ed over the axis.
     """
     from ..model import autoencoder as model
     from ..ops import coord as coord_ops

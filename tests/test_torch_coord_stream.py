@@ -28,6 +28,7 @@ from spectralae_torch.model import autoencoder as tmodel
 from spectralae_torch.ops import coord as tcoord_ops
 from spectralae_torch.train.coord import coord_step
 from spectralae_torch.train.streaming import coord_stream
+from torch_dist_worker import world  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -145,11 +146,18 @@ def test_coord_stream_descends_on_a_static_scene():
     assert mses[-1] < 0.5 * mses[0]
 
 
-def test_coord_stream_refuses_axis_name():
+def test_coord_stream_with_axis_name_matches_jax(world):
+    """The data-parallel stream (``axis_name``, here an axis of one rank)
+    against JAX's stream; the gloo meshes of two and four ranks are in
+    tests/test_torch_dist.py."""
     params, spec = _net()
-    with pytest.raises(NotImplementedError, match="A12"):
-        coord_stream(torch.from_numpy(_frames(1)), params, spec.scales, 0,
-                     axis_name="data")
+    xs = _frames(1, (3, 2, 3, 16, 16))
+    got = coord_stream(torch.from_numpy(xs), params, spec.scales, 0,
+                       lr=0.3, axis_name=world)
+    want = _jax_stream(params, spec, xs, 0, lr=0.3)
+    for g, w in zip(got.params.stages, want.params.stages):
+        assert rel(g.c, w.c) < TOL and rel(g.b, w.b) < TOL
+    assert rel(got.mses, want.mses) < TOL
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import oracle
 from spectralae.train import coord as jcoord
 from spectralae_torch.train import coord as tcoord
+from torch_dist_worker import world  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -189,9 +190,16 @@ def test_coord_step_dp_matches_jax(sym):
             assert rel(g, w) < TOL
 
 
-def test_coord_step_dp_refuses_axis_name():
+def test_coord_step_dp_with_axis_name_matches_jax(world):
+    """The data-parallel step (``axis_name``: its gradients and mse
+    pmean-ed over the axis, here of one rank) against JAX's step; the
+    gloo meshes of two and four ranks are in tests/test_torch_dist.py."""
     acts, ws = step_problem(6, b=2)
     t = [torch.from_numpy(x) for x in acts + ws]
     z = tuple(torch.zeros_like(x) for x in t[3:])
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcoord.coord_step_dp(*t, z, z, axis_name="data")
+    got = tcoord.coord_step_dp(*t, z, z, axis_name=world)
+    jz = tuple(jnp.zeros_like(jnp.asarray(x)) for x in ws)
+    want = jcoord.coord_step_dp(*(jnp.asarray(x) for x in acts + ws), jz,
+                                jz)
+    for name in ("c", "f", "b", "p", "mse"):
+        assert rel(getattr(got, name), getattr(want, name)) < TOL, name

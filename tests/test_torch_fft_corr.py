@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from spectralae.train import fft_corr as jcorr
 from spectralae_torch.train import fft_corr as tcorr
 from spectralae_torch.train.fft import fft_burst
+from torch_dist_worker import world  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -125,15 +126,75 @@ def test_fused_precompute_equals_unfused_on_the_true_forward():
         assert rel(fused[k], unfused[k]) < 1e-4, k
 
 
-@pytest.mark.parametrize("route,what", [("pixel", "A6")])
-def test_unported_window_routes_raise(route, what):
+@pytest.mark.parametrize("what", ["precompute", "burst"])
+def test_pixel_route_matches_jax(what):
+    """``pallas_windows="pixel"`` (ops/pixel_corr.py, no FFT) against the
+    JAX package's pixel route: the T dict, and a burst through it."""
+    x, c, f, bb, p, _ = problem(seed=21, b=2)
+    j, t = both(x, c, f, bb, p)
+    if what == "precompute":
+        want = jcorr.corr_precompute_fused(*j, pallas_windows="pixel")
+        got = tcorr.corr_precompute_fused(*t, pallas_windows="pixel")
+        assert set(got) == set(want)
+        for k in want:
+            assert rel(got[k], want[k]) < T_TOL, k
+    else:
+        kw = dict(lr=0.2, iters=6, pallas_windows="pixel")
+        assert_result(tcorr.burst_corr(t[0], None, None, *t[1:], **kw),
+                      jcorr.burst_corr(j[0], None, None, *j[1:], **kw))
+
+
+@pytest.mark.parametrize("n,nk,d,m,b", [
+    (8, 5, 2, 3, 1),        # lag window wider than the grid (aliasing)
+    (32, 3, 3, 4, 2),       # batched
+    (16, 3, 2, 4, None),
+])
+def test_pixel_precompute_matches_spectral(n, nk, d, m, b):
+    """The pixel route's T dict equals the spectral route's — windows,
+    energies, DC scalars, the mod-N lag aliasing of a window wider than
+    the grid (the JAX package's test_pixel_precompute_matches_spectral and
+    its tolerances)."""
+    x, c, f, bb, p, _ = problem(seed=n + nk, b=b, d=d, m=m, n=n, nk=nk)
+    t = both(x if b else x[None], c, f, bb, p)[1]
+    Ts = tcorr.corr_precompute_fused(*t, pallas_windows=False)
+    Tp = tcorr.corr_precompute_fused(*t, pallas_windows="pixel")
+    assert set(Ts) == set(Tp)
+    lag_scale = max(float(Ts[k].abs().max()) for k in ("XX", "XE0", "XG0"))
+    for k in Ts:
+        want = Ts[k].numpy()
+        atol = (1e-5 * lag_scale if k in ("XX", "XE0", "XG0")
+                else 1e-5 * float(np.max(np.abs(want))) + 1e-6)
+        np.testing.assert_allclose(Tp[k].numpy(), want, rtol=2e-3,
+                                   atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("batch,maxdiff,reanchor", [
+    (None, False, None), (2, False, None), (None, True, None),
+    (None, False, 4)])
+def test_pixel_burst_matches_spectral(batch, maxdiff, reanchor):
+    """Whole fused bursts through the pixel route equal the spectral ones
+    (the JAX package's test_pixel_burst_matches_spectral, rtol/atol 2e-4)."""
+    x, c, f, bb, p, _ = problem(seed=30, b=batch)
+    t = both(x, c, f, bb, p)[1]
+    kw = dict(lr=0.2, iters=9, maxdiff=maxdiff, reanchor_every=reanchor)
+    ref = tcorr.burst_corr(t[0], None, None, *t[1:], pallas_windows=False,
+                           **kw)
+    got = tcorr.burst_corr(t[0], None, None, *t[1:], pallas_windows="pixel",
+                           **kw)
+    for name in ("c", "f", "b", "p", "mses"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   getattr(ref, name).numpy(), rtol=2e-4,
+                                   atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("route", ["pixel", "fft", "fft-bf16"])
+def test_routes_without_a_model_sharded_form_refuse_model_axis(route):
+    """As in the JAX package (fft_corr.py:414-418), before any collective."""
     x, c, f, bb, p, _ = problem(b=1)
     t = both(x, c, f, bb, p)[1]
-    with pytest.raises(NotImplementedError, match=what):
-        tcorr.corr_precompute_fused(*t, pallas_windows=route)
-    with pytest.raises(NotImplementedError, match=what):
-        tcorr.burst_corr(t[0], None, None, *t[1:], iters=2,
-                         pallas_windows=route)
+    with pytest.raises(ValueError, match="model-sharded"):
+        tcorr.corr_precompute_fused(*t, model_axis=object(),
+                                    pallas_windows=route)
 
 
 # ------------------------------------------------ the four-step FFT route
@@ -222,12 +283,30 @@ def test_fft_bf16_route_burst_converges_at_pixel_scale():
                                atol=5e-3 * float(ref.c.abs().max()))
 
 
-def test_parallel_axes_raise():
-    x, c, f, bb, p, _ = problem(b=1)
-    t = both(x, c, f, bb, p)[1]
-    for kw in (dict(axis_name="data"), dict(model_axis="model")):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tcorr.burst_corr(t[0], None, None, *t[1:], iters=2, **kw)
+@pytest.mark.parametrize("axes,fused,route", [
+    ("data", True, None), ("model", True, None), ("model", True, False),
+    ("both", False, None)])
+def test_parallel_axes_of_one_rank_match_jax(world, axes, fused, route):
+    """``burst_corr`` with ``axis_name`` (the tensors pmean-ed over it)
+    and ``model_axis`` (the precompute sharded over it: K4's row slab, or
+    the plain TP pipeline for ``pallas_windows=False``), each an axis of
+    one rank, against the JAX package's burst; the gloo meshes of two and
+    four ranks are in tests/test_torch_dist.py."""
+    x, c, f, bb, p, _ = problem(seed=23, b=2)
+    out0 = None if fused else jax_forward(x, c * 1.1, f, bb, p)
+    kw = dict(lr=0.2, iters=6)
+    axes_kw = dict(axis_name=world if axes in ("data", "both") else None,
+                   model_axis=world if axes in ("model", "both") else None)
+    if fused:
+        j, t = both(x, c, f, bb, p)
+        want = jcorr.burst_corr(j[0], None, None, *j[1:], **kw)
+        got = tcorr.burst_corr(t[0], None, None, *t[1:], **kw, **axes_kw,
+                               pallas_windows=route)
+    else:
+        j, t = both(x, out0, c, f, bb, p)
+        want = jcorr.burst_corr(j[0], j[0], *j[1:], **kw)
+        got = tcorr.burst_corr(t[0], t[0], *t[1:], **kw, **axes_kw)
+    assert_result(got, want)
 
 
 # ----------------------------------------------------------------- burst

@@ -38,6 +38,7 @@ from spectralae_torch.train import fft as tfft
 from spectralae_torch.train import fft_dp as tdp
 from spectralae_torch.train import fft_iter as titer
 from spectralae_torch.train import fft_pallas as tpal
+from torch_dist_worker import world  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -262,9 +263,24 @@ def test_scale_by_dm_false_matches_jax():
     assert_result(got, want)
 
 
+@pytest.mark.parametrize("engine", ["fft_burst_pallas",
+                                    "fft_burst_pallas_fused"])
+def test_engines_with_axis_name_match_jax(world, engine):
+    """The data-parallel engines (``axis_name``: each iteration's
+    gradients pmean-ed between the launches, here over one rank) against
+    the JAX engines; the gloo meshes of two and four ranks are in
+    tests/test_torch_dist.py."""
+    j, t = both(problem(seed=16, b=2))
+    want = getattr(jpal, engine)(j[0], j[0], j[1], *j[2:], lr=0.2, iters=4,
+                                 interpret=True)
+    got = getattr(tpal, engine)(t[0], t[0], t[1], *t[2:], lr=0.2, iters=4,
+                                axis_name=world)
+    assert_result(got, want)
+
+
 def test_engine_options_are_checked():
     t = both(problem(seed=14))[1]
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         tpal.fft_burst_pallas(t[0], t[0], t[1], *t[2:], iters=1,
                               axis_name="data")
     with pytest.raises(TypeError, match="mxu_dtype"):

@@ -30,6 +30,7 @@ from spectralae.train import streaming as jstream
 from spectralae_torch.core import types as ttypes
 from spectralae_torch.model import autoencoder as tmodel
 from spectralae_torch.train import streaming as tstream
+from torch_dist_worker import world  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -159,13 +160,13 @@ def test_stream_bursts_sweep_matches_jax():
             assert rel(g, w) < W_TOL
 
 
-def test_coord_streaming_is_not_ported():
-    """What of coordinate streaming is not ported yet: the data-parallel
-    stream (``axis_name``, ROADMAP A12)."""
-    from spectralae_torch.core.config import Config
-    from spectralae_torch.core.types import init_params, initial_spec
-    spec = initial_spec(Config(nx=16, ny=16))
-    params = init_params(torch.Generator().manual_seed(0), spec, 3.0)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tstream.coord_stream(torch.zeros(1, 3, 16, 16), params, spec.scales,
-                             0, axis_name="data")
+def test_stream_bursts_with_axis_name_matches_jax(world):
+    """The data-parallel stream (``axis_name``: each frame's lag tensors
+    pmean-ed over the axis, here of one rank) against JAX's batched
+    stream; the gloo meshes of two and four ranks are in
+    tests/test_torch_dist.py."""
+    xs, c, f, bb, p = stream_problem(b=2, seed=9)
+    j, t = both((xs, c, f, bb, p))
+    want = jstream.fft_stream(*j, iters=6)
+    got = tstream.stream_bursts(*t, iters=6, axis_name=world)
+    assert_stream(got, want)

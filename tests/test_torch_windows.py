@@ -179,11 +179,72 @@ def test_anchor_windows_bf16_is_exact_on_rounded_signal():
         assert rel(g, f) < BF16_BAND
 
 
-@pytest.mark.parametrize("kw,what", [(dict(row_slab=0), "A12")])
-def test_anchor_windows_unported_options_raise(kw, what):
-    X, taps, h2, s1 = _anchor_problem(1, 1, 2, 16, 16, 5)
-    with pytest.raises(NotImplementedError, match=what):
-        wk.anchor_windows(_t(X), _t(taps), 16, 16, h2, h2, s1, **kw)
+# -------------------------------------- K4's row slabs (tensor parallel)
+
+def _slabs(X, chunk):
+    """``X`` zero-padded to whole slabs of ``chunk`` rows, and the slabs
+    with their start rows (24 rows in slabs of 10: 10/10/4, the last one
+    padded by 6 rows, as tests/test_pallas_windows.py cuts them)."""
+    n = -(-X.shape[-2] // chunk)
+    Xp = np.pad(X, ((0, 0), (0, 0), (0, n * chunk - X.shape[-2]), (0, 0)))
+    return [(i * chunk, Xp[:, :, i * chunk:(i + 1) * chunk])
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_anchor_windows_row_slab_matches_jax(bf16):
+    """Each slab's partials, the padded end slab included, against the
+    JAX kernel's ``row_slab`` mode in interpret mode (float32 and bf16
+    signal); ``e0`` against JAX's on the slab that holds row 0, and 0 on
+    the others (JAX leaves theirs undefined)."""
+    import jax.numpy as jnp
+    from spectralae.ops.pallas_windows import anchor_windows
+    B, D, nx, ny, nk2 = 2, 2, 24, 16, 5
+    X, taps, h2, s1 = _anchor_problem(17, B, D, nx, ny, nk2)
+    sd = torch.bfloat16 if bf16 else None
+    for row0, Xl in _slabs(X, 10):
+        got = wk.anchor_windows(_t(Xl), _t(taps), nx, ny, h2, h2, s1,
+                                row_slab=row0, signal_dtype=sd)
+        want = anchor_windows(jnp.asarray(Xl), jnp.asarray(taps), nx, ny,
+                              h2, h2, s1, row_slab=row0, interpret=True,
+                              signal_dtype=jnp.bfloat16 if bf16 else None)
+        for name, g, w in zip(("XX", "EGw", "seg"), got, want):
+            assert rel(g, w) < TOL, (row0, name)
+        if row0 == 0:
+            assert rel(got[3], want[3]) < TOL
+        else:
+            assert not got[3].any()
+
+
+@pytest.mark.parametrize("chunk", [12, 10, 7])
+def test_anchor_windows_row_slab_partials_sum_to_the_full_call(chunk):
+    """The partials of a disjoint cover of the rows sum to the full call
+    (2 slabs, 3 with a padded end, 4 with a padded end): the windows and
+    seg are linear or additive over the rows, e0 comes from row 0."""
+    B, D, nx, ny, nk2 = 2, 3, 24, 16, 5
+    X, taps, h2, s1 = _anchor_problem(18, B, D, nx, ny, nk2)
+    full = wk.anchor_windows(_t(X), _t(taps), nx, ny, h2, h2, s1)
+    parts = [wk.anchor_windows(_t(Xl), _t(taps), nx, ny, h2, h2, s1,
+                               row_slab=row0)
+             for row0, Xl in _slabs(X, chunk)]
+    for i, name in enumerate(("XX", "EGw", "seg", "e0")):
+        assert rel(sum(p[i] for p in parts), full[i]) < TOL, name
+
+
+def test_anchor_windows_row_slab_checks_its_input():
+    X, taps, h2, s1 = _anchor_problem(19, 1, 2, 16, 16, 5)
+    with pytest.raises(ValueError, match="row-slab"):
+        wk.anchor_windows((_t(X.real.copy()), _t(X.imag.copy())), _t(taps),
+                          16, 16, h2, h2, s1, row_slab=0, mixed=True)
+    with pytest.raises(ValueError, match="row_slab"):
+        wk.anchor_windows(_t(X), _t(taps), 16, 16, h2, h2, s1, row_slab=-1)
+    with pytest.raises(ValueError, match="do not match"):
+        wk.anchor_windows(_t(X[..., :-1]), _t(taps), 16, 16, h2, h2, s1,
+                          row_slab=0)
+    # a slab wholly past the grid's rows holds nothing
+    zero = wk.anchor_windows(_t(X), _t(taps), 16, 16, h2, h2, s1,
+                             row_slab=16)
+    assert not any(t.any() for t in zero)
 
 
 # ------------------------------------------------- K4 in mixed bin order
@@ -285,6 +346,43 @@ def test_corr_pair_windows_kernel_matches_plain(cuda_device, B, D, E, n, ny,
     assert wk.LAUNCHES["corr_pair_windows"] == before + 3
     want = wk.corr_pair_windows_plain(X, Z, n, ny, h, h)
     assert rel(got.cpu(), want.cpu()) < CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,chunk,bf16", [
+    (8, 128, 64, False), (8, 128, 32, True), (4, 100, 48, False),
+    (2, 48, 20, True)])
+def test_anchor_windows_row_slab_kernel_matches_plain(cuda_device, B, n,
+                                                      chunk, bf16):
+    """Each slab on the card (padded end slabs where ``chunk`` does not
+    divide ``n``) against its plain version, three runs bit for bit, and
+    the slabs' sum against the full kernel call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    D, nk2 = 3, 9
+    X = torch.fft.rfft2(torch.randn(B, D, n, n, device=cuda_device,
+                                    generator=gen))
+    taps = torch.randn(D, D, nk2, nk2, device=cuda_device, generator=gen) * .2
+    sd = torch.bfloat16 if bf16 else None
+    h2, s1 = nk2 // 2, 1 / (4 * D)
+    nsl = -(-n // chunk)
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, nsl * chunk - n))
+    before = wk.LAUNCHES["anchor_windows"]
+    parts = []
+    for i in range(nsl):
+        Xl = Xp[:, :, i * chunk:(i + 1) * chunk]
+        got = _repeated(lambda: wk.anchor_windows(
+            Xl, taps, n, n, h2, h2, s1, row_slab=i * chunk, signal_dtype=sd))
+        want = wk.anchor_windows_plain(Xl, taps, n, n, h2, h2, s1,
+                                       row_slab=i * chunk, signal_dtype=sd)
+        for name, g, w in zip(("XX", "EGw", "seg"), got, want):
+            assert rel(g.cpu(), w.cpu()) < CARD_TOL, (i, name)
+        assert i == 0 or not got[3].any()
+        parts.append(got)
+    assert wk.LAUNCHES["anchor_windows"] == before + 3 * nsl
+    full = wk.anchor_windows(X, taps, n, n, h2, h2, s1, signal_dtype=sd)
+    for k, name in enumerate(("XX", "EGw", "seg", "e0")):
+        assert rel(sum(p[k] for p in parts).cpu(), full[k].cpu()) < CARD_TOL
 
 
 @pytest.mark.cuda
