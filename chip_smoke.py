@@ -86,11 +86,23 @@ Phases (any failure raises and exits non-zero):
    100-iteration burst beside ``fft_burst`` and ``burst_corr`` (device:
    the profiler over REPS calls, two of ``fft_burst``; the profile must
    hold every launch the counters saw).
-4. Serving: ``export`` and ``serve`` through the CLI in both domains, then
-   an ``InferenceServer`` over HTTP for ``forward`` and ``encode`` in both
-   domains, each response held against the same model run on the CPU
-   (where the plain versions run); the kernels' launch counters are reset
-   before this phase and must have grown in it.
+4. Serving (ahead-of-time ``.pt2`` artifacts): ``torch.library.opcheck``
+   of K1's and K2's operators on CUDA tensors at the 256^2 b8 stage-0
+   shapes (K1 with complex64 and bf16 operands); ``doctor`` through the
+   CLI (the card, the kernel build, its K1 check); the host and device ms
+   of one ``.pt2`` forward call beside the eager forward at 256^2 b8 and
+   1024^2 b4 in both domains.  Then, counters reset and the plain
+   versions guarded: ``export`` (the default net at 256^2, ``--what
+   both``, ``--platforms cuda,cpu``) with ``--batch 8`` and with a
+   symbolic batch, and ``serve``, through the CLI in both domains; each
+   artifact behind an ``InferenceServer`` over HTTP, three 8-frame
+   requests, and the symbolic one called at SERVE_BATCHES: each response
+   held against the same artifact loaded on the CPU (where the operators
+   run their plain versions), each call launching K1 and K2 exactly once
+   per operator node of its graph.  A forward traced on the CPU
+   (``--platforms cpu,cuda``) runs on the card, launches the kernels and
+   agrees with the card-traced one (TOL_TRACE); a cpu-only artifact is
+   refused on the card.  The phase's wall time is printed.
 5. Training: ``train`` through the CLI on the card at 256^2 batch 8 in both
    domains, with a checkpoint and a resume; the loss must fall, the resume
    must go on from the saved weights, the launch counters must grow by
@@ -201,6 +213,10 @@ TOL_K2 = 1e-6      # the same, over D*nk*nl taps
 TOL_K2_DW = 1e-5   # the weight grad sums B*H*W (up to 2^20) float32 products
 TOL_FFT = 1e-4     # 6 stages of float32 FFTs (cuFFT vs pocketfft) + K1
 TOL_COORD = 1e-5   # 6 float32 convs (K2 / cuDNN vs the CPU's), pooling
+# a CPU-traced .pt2 against a card-traced one, both on the card: one graph
+# of the same operations on the same device (the same kernels, cuFFT and
+# cuDNN), so only a difference of the traces could part them
+TOL_TRACE = 1e-6
 # the momentum after 3 steps is the last update step: clipped entries are
 # +-lr(1-alpha) whatever the gradient's size, entries under GRAD_CLIP are
 # g/GRAD_CLIP, so the step carries the absolute error of the small gradient
@@ -249,6 +265,8 @@ STREAM_STEPS, STREAM_RESUME = 32, 16
 # ('n', 'd'), the .conv files ('s', 'l'), the structure ('i'), disarm
 RUN_KEYS = "1ggxf1-----zzpndsli1"
 RUN_FRAMES, RUN_DUMP = 21, 2
+# the batches a symbolic-batch .pt2 serves on the card (phase 4)
+SERVE_BATCHES = (1, 3, 8)
 RUN_COORD_FALL = (6, 11)     # coord frames of one pair whose mse must fall
 ENGINE_FFT_ITERS = 10        # the engine card-vs-CPU run: pointwise bursts
 # the engine's fft burst is the correlation-space one on the card and the
@@ -2463,25 +2481,180 @@ def _npy(arr: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def phase_serving(tmp: Path) -> dict:
-    from spectralae_torch.cli.main import main as cli
+def op_nodes(path: Path) -> dict:
+    """The kernels' operator nodes in a ``.pt2`` artifact's graph, by
+    kernel key: each call of the program launches each kernel that many
+    times."""
+    manifest = json.loads((path / "manifest.json").read_text())
+    program = torch.export.load(path / f"{manifest['what']}.pt2")
+    names = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    return {"k1": names.count("spectralae_torch.cmul_contract.default"),
+            "k2": names.count("spectralae_torch.conv_valid.default")}
+
+
+def _frames256(seed: int, batch: int) -> np.ndarray:
     from spectralae_torch.data import pipeline
-    from spectralae_torch.io.export import ServingModel
-    from spectralae_torch.io.server import InferenceServer
+    return np.stack([pipeline.frame_to_tensor(f) for f in itertools.islice(
+        pipeline.synthetic_frames(256, 256, seed=seed), batch)])
+
+
+def _launched_as_graph(label: str, before: dict, nodes: dict) -> None:
+    """The launches since ``before`` are exactly one per operator node."""
+    g = grown(before)
+    check(g["k1"] == nodes["k1"] and g["k2"] == nodes["k2"],
+          f"{label}: launched K1 {g['k1']}x and K2 {g['k2']}x, its graph "
+          f"holds {nodes['k1']} and {nodes['k2']} operator nodes")
+
+
+def _opchecks(gen: torch.Generator) -> None:
+    """``torch.library.opcheck`` of both operators on CUDA tensors at the
+    256^2 b8 stage-0 shapes: K1 with complex64 and bf16 operands (the
+    transposed kernel spectra, the bias), K2 at its 5x5 taps."""
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import spectral_kernels as sk
+    n, d, m = stage_shapes(256, 3)[0]
+    w = n * (n // 2 + 1)
 
-    reset_counts()
-    for domain in ("fft", "coord"):
-        art = tmp / domain
+    def cplx(*shape):
+        return torch.complex(
+            torch.randn(shape, device="cuda", generator=gen),
+            torch.randn(shape, device="cuda", generator=gen))
+    p, C = cplx(8, d, w), cplx(m, d, w)
+    bias = torch.randn(m, device="cuda", generator=gen)
+    cases = {
+        "K1 complex64": (sk.cmul_contract_op, (
+            p, C.transpose(0, 1), 1.0 / m, False, bias, float(n * n))),
+        "K1 complex64 conj_q": (sk.cmul_contract_op, (
+            p, C.transpose(0, 1), 1.0 / m, True, None, 0.0)),
+        "K1 bf16": (sk.cmul_contract_op, (
+            sk.bf16_planes(p, 1.0 / m), sk.bf16_planes(C).transpose(0, 1),
+            1.0, False, bias, float(n * n))),
+        "K2 float32": (ck.conv_valid_op, (
+            torch.randn(8, d, n + 4, n + 4, device="cuda", generator=gen),
+            torch.randn(m, d, 5, 5, device="cuda", generator=gen)))}
+    for label, (op, args) in cases.items():
+        res = torch.library.opcheck(op, args)
+        check(set(res.values()) == {"SUCCESS"}, f"opcheck {label}: {res}")
+    print(f"opcheck on the card at 256x256 b8 stage 0 ({n}^2, D={d}, "
+          f"M={m}): " + ", ".join(cases) + " — schema, autograd "
+          "registration, fake tensor, aot dispatch: all pass", flush=True)
+
+
+def _doctor() -> None:
+    """``doctor`` through the CLI: the card's name, the kernel build and
+    one launch of K1 held against its plain version."""
+    from spectralae_torch.cli.main import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(["doctor"])
+    info = json.loads(buf.getvalue())
+    name = torch.cuda.get_device_name(0)
+    check(info.get("device") == name and info.get("nvidia_smi")
+          and info["nvidia_smi"][0]["name"] == name,
+          f"doctor: card {info.get('device')}, nvidia-smi "
+          f"{info.get('nvidia_smi')}, expected {name}")
+    check("path" in info["kernel_build"],
+          f"doctor: kernel build {info['kernel_build']}")
+    check(info.get("device_check", {}).get("ok") is True,
+          f"doctor: device check {info.get('device_check')}")
+    print(f"doctor: {info['device']} ({info['nvidia_smi'][0]['power_limit']}"
+          f"), torch {info['torch']} cuda {info['cuda_runtime']}, build "
+          f"{Path(info['kernel_build']['path']).name}, device check "
+          f"{info['device_check']}", flush=True)
+
+
+def _pt2_vs_eager(tmp: Path) -> None:
+    """Host and device ms of one call of the ``.pt2`` forward (a
+    symbolic-batch artifact traced on the card, through ServingModel)
+    beside the eager forward (what format 1 served: the model's Python
+    under inference mode, float32 matmuls), at 256^2 b8 and 1024^2 b4 in
+    both domains, the two taken in turns (eager, pt2, pt2, eager)."""
+    from spectralae_torch.io.export import ServingModel, export_model
+    from spectralae_torch.model import autoencoder as model
+    from spectralae_torch.ops.dft import ieee_f32
+    for nx, batch in ((256, 8), (1024, 4)):
+        params, spec = _net(nx)
+        x = torch.rand(batch, 3, nx, nx, device="cuda") * 255
+        for domain in ("fft", "coord"):
+            art = export_model(params, spec, tmp / f"pt2_{domain}_{nx}",
+                               domain=domain)
+            served = ServingModel.load(art, device="cuda")
+            if domain == "fft":
+                def fwd():
+                    return model.forward_fft(params, x, spec.scales)
+            else:
+                def fwd():
+                    return model.forward_coord(params, x, spec.scales,
+                                               tap_mode="ref_gpu")[-1]
+
+            def eager():
+                with torch.inference_mode(), ieee_f32():
+                    return fwd()
+
+            def pt2():
+                return served(x)
+            err = rel_err(pt2(), eager())
+            check(err <= TOL_TRACE, f"pt2 {domain} {nx}: rel {err:.3e} "
+                  "against the eager forward on the card")
+            host = {"eager": [], "pt2": []}
+            for name in ("eager", "pt2", "pt2", "eager"):
+                host[name].append(_host_ms(pt2 if name == "pt2" else eager,
+                                           REPS))
+            # retaken where a profile held no record of the call
+            dev = {name: _checked_ms(device_ms(fn), fn, cuda_ms(fn))
+                   for name, fn in (("eager", eager), ("pt2", pt2))}
+            h = {k: sum(v) / len(v) for k, v in host.items()}
+            print(f"pt2 vs eager forward {domain} {nx}x{nx} b{batch}: host "
+                  f"pt2 {h['pt2']:.4f} ms eager {h['eager']:.4f} ms "
+                  f"(pt2/eager {h['pt2'] / h['eager']:.3f}; readings "
+                  f"pt2 {[round(v, 4) for v in host['pt2']]} eager "
+                  f"{[round(v, 4) for v in host['eager']]}), device pt2 "
+                  f"{dev['pt2'][0]:.4f} ms ({dev['pt2'][1]}) eager "
+                  f"{dev['eager'][0]:.4f} ms ({dev['eager'][1]}); rel "
+                  f"{err:.3e} (tol {TOL_TRACE:g})", flush=True)
+
+
+def _serve_domain(tmp: Path, domain: str) -> None:
+    """Export through the CLI (the default 3-pair net at 256^2, --what both,
+    loadable on cuda and cpu) with --batch 8 and with a symbolic batch;
+    ``serve`` each; then each artifact behind an InferenceServer, three
+    8-frame requests, and the symbolic one called at SERVE_BATCHES: every
+    response held against the same artifact on the CPU, every call
+    launching each kernel once per operator node."""
+    from spectralae_torch.cli.main import main as cli
+    from spectralae_torch.io.export import ServingModel
+    from spectralae_torch.io.server import InferenceServer
+    tol = TOL_FFT if domain == "fft" else TOL_COORD
+    kernel = "k1" if domain == "fft" else "k2"
+    arts = {"symbolic": tmp / domain, "batch 8": tmp / f"{domain}_b8"}
+    for kind, art in arts.items():
         cli(["export", "--nx", "256", "--layers", "3", "--seed", "0",
-             "--out", str(art), "--what", "both", "--domain", domain])
+             "--out", str(art), "--what", "both", "--domain", domain,
+             "--platforms", "cuda,cpu"]
+            + (["--batch", "8"] if kind == "batch 8" else []))
         cli(["serve", "--model", str(art / "forward"), "--steps", "3",
              "--batch", "8", "--outdir", str(tmp / "views")])
-        tol = TOL_FFT if domain == "fft" else TOL_COORD
         for what in ("forward", "encode"):
+            nodes = op_nodes(art / what)
+            label = f"{domain}/{what} ({kind})"
+            check(nodes[kernel] >= 1, f"{label}: no {kernel.upper()} "
+                  f"operator in the graph: {nodes}")
             model = ServingModel.load(art / what, device="cuda")
             on_cpu = ServingModel.load(art / what, device="cpu")
+            worst = 0.0
+
+            def held(got, frames):
+                want = on_cpu(frames)
+                check(got.shape == want.shape and got.dtype == np.float32,
+                      f"{label}: response {got.shape} {got.dtype}, expected "
+                      f"{want.shape} float32")
+                check(bool(np.isfinite(got).all()),
+                      f"{label}: non-finite response")
+                err = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+                check(err <= tol, f"{label} at batch {len(frames)}: rel "
+                      f"{err:.3e} > {tol:g} against the artifact on the CPU")
+                return err
             srv = InferenceServer(model, port=0)
             srv.start()
             try:
@@ -2491,39 +2664,96 @@ def phase_serving(tmp: Path) -> dict:
                     health = json.loads(r.read())
                 check(health["status"] == "ok" and health["what"] == what
                       and health["domain"] == domain, f"healthz: {health}")
-                before = (sk.LAUNCHES, ck.LAUNCHES)
-                worst = 0.0
                 for req in range(3):
-                    frames = np.stack([
-                        pipeline.frame_to_tensor(f) for f in itertools.islice(
-                            pipeline.synthetic_frames(256, 256,
-                                                      seed=100 + req), 8)])
+                    frames = _frames256(100 + req, 8)
                     post = urllib.request.Request(
                         base + "/infer", data=_npy(frames), method="POST",
                         headers={"Content-Type":
                                  "application/octet-stream"})
+                    before = counts()
                     with urllib.request.urlopen(post, timeout=120) as r:
                         got = np.load(io.BytesIO(r.read()))
-                    want = on_cpu(frames)
-                    check(got.shape == want.shape and got.dtype == np.float32,
-                          f"{domain}/{what}: response {got.shape} "
-                          f"{got.dtype}, expected {want.shape} float32")
-                    check(bool(np.isfinite(got).all()),
-                          f"{domain}/{what}: non-finite response")
-                    err = rel_err(torch.from_numpy(got),
-                                  torch.from_numpy(want))
-                    worst = max(worst, err)
-                    check(err <= tol, f"{domain}/{what} request {req}: "
-                          f"rel {err:.3e} > {tol:g} against the CPU port")
-                grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1])
+                    _launched_as_graph(f"{label} request {req}", before,
+                                       nodes)
+                    worst = max(worst, held(got, frames))
             finally:
                 srv.shutdown()
-            print(f"served {domain}/{what} {tuple(got.shape)} x3 requests: "
-                  f"rel vs CPU port {worst:.3e} (tol {tol:g}); launches "
-                  f"during requests K1 +{grew[0]} K2 +{grew[1]}", flush=True)
-            check(grew[0 if domain == "fft" else 1] > 0,
-                  f"{domain}/{what}: its kernel was not launched")
-    return counts()
+            batches = SERVE_BATCHES if kind == "symbolic" else ()
+            for b in batches:
+                frames = _frames256(200 + b, b)
+                before = counts()
+                got = model(frames)
+                _launched_as_graph(f"{label} batch {b}", before, nodes)
+                worst = max(worst, held(got, frames))
+            print(f"served {label} {tuple(got.shape[1:])}: 3 HTTP requests "
+                  f"of 8 frames" + (f", direct calls at batches {batches}"
+                                    if batches else "")
+                  + f"; rel vs the artifact on the CPU {worst:.3e} (tol "
+                  f"{tol:g}); each call launched K1 {nodes['k1']}x, K2 "
+                  f"{nodes['k2']}x (its operator nodes)", flush=True)
+
+
+def _cpu_traced(tmp: Path, domain: str) -> None:
+    """A forward traced on the CPU for cpu and cuda, loaded and run on the
+    card: it launches the kernels once per operator node and agrees with
+    the card-traced artifact (TOL_TRACE); a cpu-only artifact is refused
+    on the card."""
+    from spectralae_torch.cli.main import main as cli
+    from spectralae_torch.io.export import ServingModel
+    common = ["export", "--nx", "256", "--layers", "3", "--seed", "0",
+              "--what", "forward", "--domain", domain, "--device", "cpu"]
+    art = tmp / f"{domain}_cpu_traced"
+    cli(common + ["--out", str(art), "--platforms", "cpu,cuda"])
+    nodes = op_nodes(art)
+    check(nodes["k1" if domain == "fft" else "k2"] >= 1,
+          f"CPU-traced {domain}: no kernel operator in the graph: {nodes}")
+    model = ServingModel.load(art, device="cuda")
+    card = ServingModel.load(tmp / domain / "forward", device="cuda")
+    x = torch.from_numpy(_frames256(300, 8)).cuda()
+    before = counts()
+    got = model(x)
+    _launched_as_graph(f"CPU-traced {domain} on the card", before, nodes)
+    err = rel_err(got, card(x))
+    check(err <= TOL_TRACE, f"CPU-traced {domain} on the card: rel "
+          f"{err:.3e} > {TOL_TRACE:g} against the card-traced artifact")
+    only = tmp / f"{domain}_cpu_only"
+    cli(common + ["--out", str(only), "--platforms", "cpu"])
+    try:
+        ServingModel.load(only, device="cuda")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError(f"a cpu-only {domain} artifact loaded on cuda")
+    print(f"CPU-traced {domain} forward on the card: K1 {nodes['k1']}x K2 "
+          f"{nodes['k2']}x a call, rel vs the card-traced artifact "
+          f"{err:.3e} (tol {TOL_TRACE:g}); a cpu-only artifact on cuda: "
+          f"refused ({refused[:60]}...)", flush=True)
+
+
+def phase_serving(tmp: Path, gen: torch.Generator) -> dict:
+    """Phase 4: opcheck, doctor and the .pt2-vs-eager times first (their
+    launches compare or time the kernels and are not counted); then, with
+    the counters reset and the plain versions guarded, the serving path in
+    both domains (:func:`_serve_domain`) and the CPU-traced artifacts on
+    the card (:func:`_cpu_traced`).  Returns the serving path's launches."""
+    t0 = time.perf_counter()
+    _opchecks(gen)
+    _doctor()
+    _pt2_vs_eager(tmp)
+    t1 = time.perf_counter()
+    reset_counts()
+    fallbacks = []
+    with guard_plains(_k123_plains(), fallbacks):
+        for domain in ("fft", "coord"):
+            _serve_domain(tmp, domain)
+        for domain in ("fft", "coord"):
+            _cpu_traced(tmp, domain)
+    check(not fallbacks, f"plain versions ran on the card: {fallbacks}")
+    launched = counts()
+    print(f"phase 4 (serving): {time.perf_counter() - t0:.1f} s, of which "
+          f"opcheck, doctor and the pt2-vs-eager times {t1 - t0:.1f} s; "
+          f"launches K1 {launched['k1']} K2 {launched['k2']}", flush=True)
+    return launched
 
 
 def _cli_records(argv) -> list[dict]:
@@ -3635,7 +3865,7 @@ def main() -> int:
     # 4. the serving path; 5. the training path; 6. stream and burst
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        by_path = {"serve": phase_serving(tmp)}
+        by_path = {"serve": phase_serving(tmp, gen)}
         by_path["train"], per_step_seen = phase_training(tmp)
         by_path["train_bf16"], seen_bf16 = phase_training_bf16(tmp)
         per_step_seen["k1bf"] = seen_bf16["k1bf"]

@@ -1,8 +1,8 @@
 """Command-line interface of the port: run / train / info / eval / export /
-serve.
+serve / doctor.
 
-Port of :mod:`spectralae.cli.main`, with the same flags (``doctor`` and
-``bench`` are not ported yet: ROADMAP A16):
+Port of :mod:`spectralae.cli.main`, with the same flags (``bench``, which
+runs the JAX package's benchmark harness, is not ported yet: ROADMAP A16):
 
   - ``spectralae-torch run``    — the reference's live loop on a frame
     source and a device (``--device``, default ``cuda``), with its 24
@@ -17,11 +17,16 @@ Port of :mod:`spectralae.cli.main`, with the same flags (``doctor`` and
   - ``spectralae-torch info``   — print the network structure ('i' key).
   - ``spectralae-torch eval``   — reconstruction MSE/PSNR of a checkpoint
     or an artifact over a frame source, on a device.
-  - ``spectralae-torch export`` — write a serving artifact (manifest +
-    weights) from a checkpoint or a freshly initialised net.
+  - ``spectralae-torch export`` — trace a serving artifact (manifest + a
+    ``torch.export`` ``.pt2`` program) from a checkpoint or a freshly
+    initialised net on a device (``--device``, default ``cuda``), loadable
+    on the devices ``--platforms`` lists.
   - ``spectralae-torch serve``  — run inference from an artifact on a
     device (``--device``, default ``cuda``), over a frame source or as an
     HTTP endpoint (``--http PORT``).
+  - ``spectralae-torch doctor`` — environment report: versions, the
+    native library, the card, the kernel build, and (unless
+    ``--no-device``) one launch of K1 held against its plain version.
 
 ``--source`` takes what the JAX CLI takes: ``synthetic``, ``camera``, a
 ``.y4m`` video, a ``.npy``/``.npz`` frame stack, a directory of PNGs, or
@@ -38,7 +43,9 @@ import argparse
 import contextlib
 import json
 import math
+import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -772,17 +779,25 @@ def cmd_eval(args):
 
 
 def cmd_export(args):
-    """Export a serving artifact from a checkpoint (or a fresh net)."""
+    """AOT-export a serving artifact (``torch.export``) from a checkpoint
+    (or a fresh net), traced on ``--device``."""
+    from ..core.types import AEParams
     from ..io import checkpoint as ckpt
-    from ..io.export import export_model
-    if args.platforms not in ("", "cuda"):
-        raise SystemExit("--platforms: the port's artifacts hold weights, "
-                         "not lowered programs; only 'cuda' is accepted "
-                         "(the serving device is chosen by serve --device)")
+    from ..io.export import export_model, resolve_platforms
+    platforms = None
+    if args.platforms:
+        platforms = tuple(p.strip() for p in args.platforms.split(","))
+        try:    # before the device is touched
+            resolve_platforms(platforms, None)
+        except ValueError as e:
+            raise SystemExit(f"--platforms {args.platforms}: {e}") from None
+    device = _device(args)
     if args.from_ckpt:
-        params, spec, _, _ = ckpt.load(args.from_ckpt)
+        params, spec, _, _ = ckpt.load(args.from_ckpt, device=device)
     else:
         params, spec = _make_net(args)
+        params = AEParams.from_leaves([t.to(device)
+                                       for t in params.leaves()])
     whats = (("forward", "encode") if args.what == "both"
              else (args.what,))
     for what in whats:
@@ -791,7 +806,7 @@ def cmd_export(args):
         dest = (Path(args.out) / what) if len(whats) > 1 else args.out
         out = export_model(params, spec, dest, what=what,
                            domain=args.domain, batch=args.batch,
-                           tap_mode=args.tap_mode)
+                           platforms=platforms, tap_mode=args.tap_mode)
         print(f"exported {what} ({args.domain}) -> {out}", flush=True)
 
 
@@ -841,6 +856,118 @@ def cmd_serve(args):
                       "what": m.manifest["what"],
                       "device": str(m.device),
                       "platforms": m.manifest["platforms"]}), flush=True)
+
+
+def _probe_cuda(timeout_s: float) -> dict:
+    """CUDA initialisation (the device count, the first card's name, a
+    context on it) in a daemon thread with a deadline: a wedged GPU can
+    hang it, and a diagnostic tool must report that, not become the second
+    hung process.  The thread is a daemon so a timed-out probe cannot block
+    the interpreter's exit."""
+    out = {}
+
+    def probe():
+        try:
+            out["cuda"] = torch.cuda.is_available()
+            if out["cuda"]:
+                out["device_count"] = torch.cuda.device_count()
+                out["device"] = torch.cuda.get_device_name(0)
+                torch.zeros(1, device="cuda")
+        except Exception as e:          # report, never raise — diagnostic
+            out["cuda_error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=probe, daemon=True)
+    th.start()
+    th.join(timeout_s)
+    if th.is_alive():
+        return {"cuda": False,
+                "cuda_error": f"CUDA initialisation still hung after "
+                              f"{timeout_s:g}s"}
+    return dict(out)
+
+
+def _nvidia_smi(timeout_s: float) -> list[dict] | None:
+    """Each card's name and power limit as ``nvidia-smi`` reads them, or
+    None where it is absent or fails."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=timeout_s)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if r.returncode != 0:
+        return None
+    return [dict(zip(("name", "power_limit"),
+                     (f.strip() for f in line.split(",", 1))))
+            for line in r.stdout.splitlines() if line.strip()]
+
+
+def _k1_check() -> dict:
+    """One launch of K1 through its operator on the card, held against its
+    plain version on the CPU (norm-relative, the same float32 products
+    summed in another order), timed from host to host."""
+    from ..ops import spectral_kernels as sk
+    gen = torch.Generator().manual_seed(0)
+    p, q = (torch.complex(torch.randn(shape, generator=gen),
+                          torch.randn(shape, generator=gen))
+            for shape in ((8, 3, 4096), (3, 10, 4096)))
+    before = sk.LAUNCHES
+    t0 = time.perf_counter()
+    # the operator itself, as a loaded .pt2 calls it (the eager wrapper
+    # would skip the dispatcher)
+    got = sk.cmul_contract_op(p.cuda(), q.cuda(), 1.0, False, None,
+                              0.0).cpu()
+    seconds = time.perf_counter() - t0
+    want = sk.cmul_contract_plain(p, q)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    launched = sk.LAUNCHES - before
+    return {"ok": rel <= 1e-6 and launched == 1, "rel": rel,
+            "launches": launched, "round_trip_s": round(seconds, 3)}
+
+
+def cmd_doctor(args):
+    """Environment diagnostic: versions, the native library, the card, the
+    kernel build — and (unless --no-device) one launch of K1 through its
+    operator to prove the device path end to end.  CUDA initialisation is
+    time-bounded, so a wedged GPU yields a report, not a hang.  Prints
+    one JSON document and exits 0 whatever it finds; without a card the
+    device check is left out, never run on the CPU instead."""
+    from .. import _kernels
+    from ..data import native
+    info = {
+        "torch": torch.__version__,
+        "numpy": np.__version__,
+        "cuda_runtime": torch.version.cuda,
+        "native_lib": {
+            "available": native.available(),
+            "batch_stage": native.has_batch(),
+            "yuv_decode": native.has_yuv(),
+            "png_unfilter": native.has_png_unfilter(),
+        },
+    }
+    try:
+        import cv2
+        info["opencv"] = cv2.__version__
+    except ImportError:
+        info["opencv"] = None
+    info.update(_probe_cuda(args.device_timeout))
+    info["nvidia_smi"] = _nvidia_smi(args.device_timeout)
+    try:
+        build = _kernels.build()
+        info["kernel_build"] = {"path": str(build.path),
+                                "seconds": round(build.seconds, 3)}
+    except (RuntimeError, OSError) as e:
+        info["kernel_build"] = {"error": f"{type(e).__name__}: "
+                                         f"{str(e)[-2000:]}"}
+    if not args.no_device and info.get("cuda") and "path" in info[
+            "kernel_build"]:
+        try:
+            info["device_check"] = _k1_check()
+        except (RuntimeError, ValueError) as e:
+            info["device_check"] = {"ok": False,
+                                    "error": f"{type(e).__name__}: {e}"}
+    print(json.dumps(info, indent=2), flush=True)
 
 
 def main(argv=None):
@@ -1011,8 +1138,12 @@ def main(argv=None):
                         "this directory (trace.json)")
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("export", help="write a serving artifact")
+    p = sub.add_parser("export",
+                       help="AOT-export a serving artifact (torch.export)")
     _add_common(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to trace on (default cuda; no "
+                        "automatic fallback to the CPU)")
     p.add_argument("--from-ckpt", default="",
                    help="checkpoint dir to export from (else a fresh net)")
     p.add_argument("--out", required=True, help="artifact directory")
@@ -1020,10 +1151,11 @@ def main(argv=None):
                    default="forward")
     p.add_argument("--domain", choices=("fft", "coord"), default="fft")
     p.add_argument("--batch", type=int, default=None,
-                   help="fixed batch size; omit for any batch size")
+                   help="fixed batch size; omit for batch-polymorphic")
     p.add_argument("--platforms", default="",
-                   help="kept for flag compatibility with the JAX CLI; "
-                        "only 'cuda' is accepted")
+                   help="comma-separated platforms the artifact may be "
+                        "loaded on, e.g. cpu,cuda (default: the device it "
+                        "is traced on)")
     p.add_argument("--tap-mode",
                    choices=("ref_gpu", "ref_cpu", "centered"), default=None,
                    help="coord-domain tap window baked into the artifact "
@@ -1051,6 +1183,16 @@ def main(argv=None):
                    help="dynamic batching window for concurrent /infer "
                         "requests (any-batch artifacts only; 0 disables)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("doctor", help="environment diagnostic (card, "
+                                      "kernel build, native lib, deps)")
+    p.add_argument("--no-device", action="store_true",
+                   help="skip the launch of K1 on the card")
+    p.add_argument("--device-timeout", type=float, default=60.0,
+                   help="seconds to wait for CUDA initialisation (and "
+                        "nvidia-smi) before reporting the device path as "
+                        "hung")
+    p.set_defaults(fn=cmd_doctor)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,15 +1,29 @@
-"""Model export for serving: a manifest plus the weights.
+"""Ahead-of-time model export for serving (``torch.export`` / ``.pt2``).
 
-Port of :mod:`spectralae.io.export`.  The JAX package serializes a traced
-StableHLO program; this port writes the weights instead and rebuilds the
-forward (or encoder-only) pass at load time, on the device the server asks
-for.  Ahead-of-time ``torch.export`` artifacts come with ROADMAP A14.
+Port of :mod:`spectralae.io.export`.  The forward (or encoder-only) pass
+is traced once with ``torch.export`` on the device the weights are on and
+saved as a ``.pt2`` program beside a JSON manifest.  A server process loads
+and calls it without tracing and without the model source, on a device
+chosen at load time among the artifact's ``platforms``.
+
+The hand-written kernels are nodes of the traced graph: K1 as the operator
+``spectralae_torch::cmul_contract`` on the fft path, K2 as
+``spectralae_torch::conv_valid`` on the coord path at its kernel shapes
+(:mod:`spectralae_torch.ops.spectral_kernels`,
+:mod:`spectralae_torch.ops.coord_kernels`).  Each operator's CPU kernel is
+its plain version and its CUDA kernel the launch, so one program runs on
+either device — the port's counterpart of JAX's multi-platform lowering.
 
 Artifact layout (a directory)::
 
     manifest.json      what/domain/shapes/platforms/spec, format version —
                        the JAX artifact's keys, plus the stage scales
-    weights.npz        stage{i}/c, stage{i}/b — the checkpoint's array names
+    <what>.pt2         torch.export.save of the traced program
+
+Weights are baked into the program as buffers (a serving snapshot, not a
+training checkpoint — use :mod:`spectralae_torch.io.checkpoint` for
+those).  The batch dimension can be exported symbolically (``batch=None``)
+so one artifact serves any batch size.
 """
 
 from __future__ import annotations
@@ -19,13 +33,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
 
-from ..core.types import AEParams, NetSpec, params_from_numpy, spec_of
+from ..core.types import AEParams, ConvStage, NetSpec
 from ..model import autoencoder as model
+from ..ops.dft import ieee_f32
 
-FORMAT_VERSION = 1
+#: 1 was a manifest and ``weights.npz``, the forward rebuilt at load time;
+#: 2 is a manifest and a ``.pt2`` program
+FORMAT_VERSION = 2
 
 _WHAT = ("forward", "encode")
+#: the device types an artifact may list: each has a kernel of both
+#: operators
+PLATFORMS = ("cpu", "cuda")
 
 
 def _build_fn(params: AEParams, spec: NetSpec, what: str, domain: str,
@@ -42,23 +63,67 @@ def _build_fn(params: AEParams, spec: NetSpec, what: str, domain: str,
     raise ValueError(f"what must be one of {_WHAT}, got {what!r}")
 
 
+class _Traced(torch.nn.Module):
+    """:func:`_build_fn`'s function as a module whose buffers are the
+    stages' weights (``c0``, ``b0``, ``c1``, …), the form ``torch.export``
+    traces and saves."""
+
+    def __init__(self, params: AEParams, spec: NetSpec, what: str,
+                 domain: str, tap_mode: str):
+        super().__init__()
+        for i, st in enumerate(params.stages):
+            self.register_buffer(f"c{i}", st.c.detach())
+            self.register_buffer(f"b{i}", st.b.detach())
+        self._n = params.n_stages
+        self._how = (spec, what, domain, tap_mode)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = AEParams(stages=tuple(
+            ConvStage(c=getattr(self, f"c{i}"), b=getattr(self, f"b{i}"))
+            for i in range(self._n)))
+        return _build_fn(params, *self._how)(x)
+
+
+def resolve_platforms(platforms, traced_on: torch.device) -> list[str]:
+    """The manifest's ``platforms``: ``platforms`` without repeats, each
+    checked against :data:`PLATFORMS`, or ``[traced_on.type]`` for
+    ``None``."""
+    if platforms is None:
+        return [traced_on.type]
+    out = list(dict.fromkeys(platforms))
+    bad = [p for p in out if p not in PLATFORMS]
+    if bad or not out:
+        raise ValueError(f"platforms must be drawn from {PLATFORMS}, got "
+                         f"{tuple(platforms)}")
+    return out
+
+
 def export_model(params: AEParams, spec: NetSpec, path: str | Path, *,
                  what: str = "forward", domain: str = "fft",
                  batch: int | None = None,
+                 platforms: tuple[str, ...] | None = None,
                  tap_mode: str | None = None,
                  extra: dict | None = None) -> Path:
-    """Write a serving artifact.
+    """Export an ahead-of-time serving artifact.
+
+    The function is traced with ``torch.export`` under ``torch.no_grad()``
+    on the device of ``params``.
 
     Args:
       what: ``"forward"`` (full reconstruction) or ``"encode"``
-        (bottleneck features).
+        (bottleneck features — the serving path).
       domain: ``"fft"`` or ``"coord"`` compute domain.
-      batch: fixed batch size, or ``None`` for any batch size.
+      batch: fixed batch size, or ``None`` for a symbolic batch dimension
+        (one artifact serves any batch size; traced at batch 2, since
+        ``torch.export`` specialises sizes 0 and 1).
+      platforms: device types the artifact may be loaded on, drawn from
+        ``("cpu", "cuda")``; ``None`` = the device it was traced on.
       tap_mode: coord-domain tap window.  ``None`` defaults to
         ``"ref_gpu"`` — the window the interactive engine trains with by
-        default, so an exported coord model computes the same convolution
-        as the runtime that produced its weights.  Ignored for
-        ``domain="fft"``.
+        default (gpu flag on), so an exported coord model computes the
+        same convolution as the runtime that produced its weights.  Pass
+        ``"ref_cpu"``/``"centered"`` for nets trained with those taps.
+        Ignored for ``domain="fft"``.
 
     Returns the artifact directory path.
     """
@@ -68,13 +133,24 @@ def export_model(params: AEParams, spec: NetSpec, path: str | Path, *,
         raise ValueError(f"domain must be 'fft' or 'coord', got {domain!r}")
     if tap_mode is None:
         tap_mode = "ref_gpu"
+    device = params.stages[0].c.device
+    platforms = resolve_platforms(platforms, device)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    arrays = {}
-    for i, st in enumerate(params.stages):
-        arrays[f"stage{i}/c"] = st.c.detach().cpu().numpy()
-        arrays[f"stage{i}/b"] = st.b.detach().cpu().numpy()
-    np.savez(path / "weights.npz", **arrays)
+
+    x = torch.zeros((2 if batch is None else batch, spec.d, spec.nx,
+                     spec.ny), device=device)
+    dynamic = (None if batch is not None
+               else ({0: torch.export.Dim("b", min=1)},))
+    module = _Traced(params, spec, what, domain, tap_mode)
+    with torch.no_grad():
+        # one eager call first fills the caches of constant tensors (the
+        # resize maps, the DFT bases: ops.dft.tensor_cache), so that the
+        # trace records each as a constant, not as a copy made every call
+        module(x)
+        program = torch.export.export(module, (x,), dynamic_shapes=dynamic)
+    torch.export.save(program, path / f"{what}.pt2")
+
     manifest = {
         "format_version": FORMAT_VERSION,
         "what": what,
@@ -83,7 +159,7 @@ def export_model(params: AEParams, spec: NetSpec, path: str | Path, *,
         "batch": batch,
         "dtype": "float32",
         "input_shape": [spec.d, spec.nx, spec.ny],
-        "platforms": ["cuda"],
+        "platforms": platforms,
         "spec": {
             "nx": spec.nx, "ny": spec.ny, "d": spec.d,
             "n_stages": len(spec.stages),
@@ -96,21 +172,21 @@ def export_model(params: AEParams, spec: NetSpec, path: str | Path, *,
 
 
 class ServingModel:
-    """An exported model, rebuilt on one device and callable on batches.
+    """A loaded ``.pt2`` artifact, callable without the model source.
 
-    ``ServingModel.load(path, device)`` reads the manifest + weights;
-    ``__call__`` runs the forward on a ``[B, D, Nx, Ny]`` batch under
-    ``torch.inference_mode()`` (B must match the exported batch unless it
-    was exported with ``batch=None``).  A numpy batch gives a numpy result;
-    a tensor gives a tensor on the model's device.
+    ``ServingModel.load(path, device)`` reads the manifest and the program
+    and moves the program to ``device``; ``__call__`` runs it on a
+    ``[B, D, Nx, Ny]`` batch under ``torch.inference_mode()`` with float32
+    matmuls and convolutions in IEEE float32 (B must match the exported
+    batch unless it was exported with ``batch=None``).  A numpy batch gives
+    a numpy result; a tensor gives a tensor on the model's device.
     """
 
-    def __init__(self, params: AEParams, spec: NetSpec, manifest: dict,
-                 device: torch.device | str):
+    def __init__(self, program: torch.export.ExportedProgram,
+                 manifest: dict, device: torch.device | str):
         self.manifest = manifest
         self.device = torch.device(device)
-        self._fn = _build_fn(params, spec, manifest["what"],
-                             manifest["domain"], manifest["tap_mode"])
+        self._fn = program.module()
 
     @classmethod
     def load(cls, path: str | Path,
@@ -124,17 +200,24 @@ class ServingModel:
                     path = path / sub
                     break
         manifest = json.loads((path / "manifest.json").read_text())
-        if manifest["format_version"] != FORMAT_VERSION:
-            raise ValueError("unsupported export format version "
-                             f"{manifest['format_version']}")
-        sm = manifest["spec"]
-        with np.load(path / "weights.npz") as data:
-            params = params_from_numpy(
-                [(data[f"stage{i}/c"], data[f"stage{i}/b"])
-                 for i in range(sm["n_stages"])], device=device)
-        spec = spec_of(params, sm["nx"], sm["ny"], sm["d"],
-                       tuple(sm["scales"]))
-        return cls(params, spec, manifest, device)
+        version = manifest["format_version"]
+        if version == 1:
+            raise ValueError(
+                f"{path} is a format-1 artifact (weights.npz, the forward "
+                "rebuilt at load time); re-export it (export_model, or the "
+                f"export command) to format {FORMAT_VERSION}, a .pt2 program")
+        if version != FORMAT_VERSION:
+            raise ValueError(f"unsupported export format version {version}")
+        device = torch.device(device)
+        if device.type not in manifest["platforms"]:
+            raise ValueError(
+                f"{path} was exported for platforms {manifest['platforms']}, "
+                f"not {device.type} (re-export with --platforms naming it)")
+        # the program calls the kernels' operators: register them first
+        from ..ops import coord_kernels, spectral_kernels  # noqa: F401
+        program = torch.export.load(path / f"{manifest['what']}.pt2")
+        program = move_to_device_pass(program, device)
+        return cls(program, manifest, device)
 
     @property
     def input_shape(self) -> tuple:
@@ -151,7 +234,9 @@ class ServingModel:
                 f"artifact was exported for batch={want_b}, got "
                 f"{x.shape[0]} (re-export with batch=None for an "
                 "any-batch artifact)")
-        with torch.inference_mode():
+        # the trace does not record the TF32 switches the forward sets:
+        # hold the library's matmuls and convolutions in float32 here
+        with torch.inference_mode(), ieee_f32():
             if isinstance(x, torch.Tensor):
                 return self._fn(x.to(self.device, torch.float32))
             t = torch.from_numpy(np.ascontiguousarray(x, np.float32))

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import TapMode, tap_anchor
-from .dft import ieee_f32
+from .dft import ieee_f32, kernel_route
 
 
 def _conv_padding(nk: int, nl: int,
@@ -51,8 +51,10 @@ def _kernel_shape(c_shape) -> bool:
 
 def _auto_conv_kernel(x: torch.Tensor, c_shape) -> bool:
     """Routing predicate for :func:`conv2d`: the hand-written kernel K2 for
-    CUDA tensors of a :func:`_kernel_shape`."""
-    return x.is_cuda and _kernel_shape(c_shape)
+    a :func:`_kernel_shape` on its route (:func:`dft.kernel_route
+    <spectralae_torch.ops.dft.kernel_route>`: CUDA tensors, or either
+    device while ``torch.export`` traces)."""
+    return kernel_route(x) and _kernel_shape(c_shape)
 
 
 def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,

@@ -16,8 +16,12 @@ weights — ``F.conv2d`` by default, or this kernel itself when
 pixels, is left to the library (cuDNN's backward-filter conv), as the JAX
 package leaves it to ``lax``.
 
-Each launch of the kernel runs :func:`conv_valid_plain` for CPU tensors and
-the kernel for CUDA tensors — never the plain version there.
+The kernel is the PyTorch operator ``spectralae_torch::conv_valid``
+(:func:`conv_valid_op`, made with ``torch.library.custom_op``), so a traced
+graph holds it as one node; eager code calls the operator's kernel for its
+device directly (:func:`spectralae_torch.ops.dft.call_operator`).  Its CPU
+kernel is :func:`conv_valid_plain`, its CUDA kernel the launch — never the
+plain version there.
 :data:`LAUNCHES` counts kernel launches.
 
 bf16 operands are upcast to float32 in the wrapper, as
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
+from .dft import call_operator
 
 #: kernel launches of :func:`conv_valid` since import (or the last reset)
 LAUNCHES = 0
@@ -131,7 +136,8 @@ def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
                         f"{xpad.dtype} and {w.dtype}")
     b, d, hp, wp = xpad.shape
     m, _, nk, nl = w.shape
-    if min(b, d, m, nk, nl) == 0 or hp < nk or wp < nl:
+    # `in`, not min(): see spectral_kernels._check_contract
+    if 0 in (b, d, m, nk, nl) or hp < nk or wp < nl:
         raise ValueError(f"empty or too-small operands: xpad "
                          f"{tuple(xpad.shape)}, w {tuple(w.shape)}")
     if xpad.device != w.device:
@@ -141,11 +147,28 @@ def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One valid correlation: the plain version for CPU tensors, a launch of
-    the kernel for CUDA tensors (checked by :func:`_check_valid`)."""
+    """One valid correlation of float32 operands (checked by
+    :func:`_check_valid`), through the operator (:func:`conv_valid_op`, by
+    :func:`~spectralae_torch.ops.dft.call_operator`): the plain version for
+    CPU tensors, a launch of the kernel for CUDA tensors."""
+    return call_operator(conv_valid_op, _CONV_VALID_KERNELS, xpad, w)
+
+
+def _conv_valid_cpu(xpad, w):
+    """The operator's CPU kernel: :func:`conv_valid_plain`."""
+    return conv_valid_plain(xpad, w)
+
+
+def _conv_valid_fake(xpad, w):
+    return xpad.new_empty((xpad.shape[0], w.shape[0],
+                           xpad.shape[2] - w.shape[2] + 1,
+                           xpad.shape[3] - w.shape[3] + 1),
+                          dtype=torch.float32)
+
+
+def _conv_valid_cuda(xpad, w):
+    """One launch of the kernel by :func:`k2_plan`, counted."""
     global LAUNCHES
-    if xpad.device.type == "cpu":
-        return conv_valid_plain(xpad, w)
     if not (xpad.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv_valid needs contiguous operands")
     b, d, hp, wp = xpad.shape
@@ -163,6 +186,18 @@ def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _kernels.check(err, "conv_valid")
     LAUNCHES += 1
     return out
+
+
+#: K2 as a PyTorch operator on float32 ``[B,D,Hp,Wp] × [M,D,nk,nl]``, the
+#: node a traced graph records: its CPU kernel is :func:`conv_valid_plain`,
+#: its CUDA kernel the launch, and its fake version gives the
+#: ``[B, M, Hp-nk+1, Wp-nl+1]`` float32 result.
+conv_valid_op = torch.library.custom_op(
+    "spectralae_torch::conv_valid", _conv_valid_cpu, mutates_args=(),
+    device_types="cpu", schema="(Tensor xpad, Tensor w) -> Tensor")
+conv_valid_op.register_kernel("cuda", _conv_valid_cuda)
+conv_valid_op.register_fake(_conv_valid_fake)
+_CONV_VALID_KERNELS = {"cpu": _conv_valid_cpu, "cuda": _conv_valid_cuda}
 
 
 class ConvValid(torch.autograd.Function):
@@ -205,8 +240,8 @@ def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     ``w`` holds the *already tap-flipped* correlation weights.  float32 or
     bfloat16 (upcast to float32; the result is float32); contiguous on the
-    card.  CPU tensors take :func:`conv_valid_plain`; CUDA tensors launch
-    the kernel.
+    card.  Through the operator (:func:`conv_valid_op`): CPU tensors take
+    :func:`conv_valid_plain`; CUDA tensors launch the kernel.
     """
     _check_valid(xpad, w)
     return ConvValid.apply(xpad, w)

@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from .dft import kernel_route, tensor_cache
+
 
 def rfft2(x: torch.Tensor) -> torch.Tensor:
     """Batched 2-D R2C transform (reference ``fft``, fft_backproplib.cu:764)."""
@@ -82,7 +84,7 @@ def _resize_maps(nx: int, ny: int, nxs: int, nys: int):
     return rows, row_mask, cols, col_mask
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def _resize_tensors(nx: int, ny: int, nxs: int, nys: int,
                     device: torch.device):
     """:func:`_resize_maps` as index/mask tensors, kept on ``device``.
@@ -140,7 +142,9 @@ def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
     Batched CUDA spectra go through the hand-written kernel K1
     (:func:`spectralae_torch.ops.spectral_kernels.spectral_conv_fused`);
     everything else through :func:`spectral_conv_einsum`, as the JAX
-    package routes its Pallas kernel.
+    package routes its Pallas kernel.  While ``torch.export`` traces, batched
+    spectra on either device take K1's operator (:func:`dft.kernel_route
+    <spectralae_torch.ops.dft.kernel_route>`).
 
     Args:
       X: ``[B, D, Nx, Nyr]`` complex input spectra.
@@ -150,7 +154,7 @@ def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
         sums, complex64 result) — through K1's bf16 mode on the card;
         ``None`` is float32.
     """
-    if X.dim() == 4 and X.is_cuda:
+    if X.dim() == 4 and kernel_route(X):
         from .spectral_kernels import spectral_conv_fused
         return spectral_conv_fused(X, C, b, nx, ny, scale_by_dm,
                                    compute_dtype)

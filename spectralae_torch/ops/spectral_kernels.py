@@ -13,10 +13,14 @@ backward is two more launches of the same kernel, one for the input spectra
 and one for the kernel spectra, with ``q`` conjugated (PyTorch's gradient of
 a complex-linear map is the conjugate of JAX's cotangent).
 
-Every wrapper runs the kernel's plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors — never the plain version, and never a
-library kernel in its place.  :data:`LAUNCHES` counts kernel launches
-with complex64 operands, :data:`LAUNCHES_BF16` those with bf16 operands.
+The kernel is the PyTorch operator ``spectralae_torch::cmul_contract``
+(:func:`cmul_contract_op`, made with ``torch.library.custom_op``), so a
+traced graph (``torch.export``, ``torch.compile``) holds it as one node;
+eager code calls the operator's kernel for its device directly
+(:func:`spectralae_torch.ops.dft.call_operator`).  Its CPU kernel is the
+plain PyTorch version; its CUDA kernel launches the hand-written kernel —
+never the plain version, and never a library kernel in its place.  :data:`LAUNCHES` counts kernel launches with complex64
+operands, :data:`LAUNCHES_BF16` those with bf16 operands.
 
 ``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision path
 (``_conv_fwd_impl``/``_conv_bwd``, pallas_kernels.py:100-151): every
@@ -36,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _kernels
+from .dft import call_operator
 
 #: kernel launches of :func:`cmul_contract` since import (or the last
 #: reset): complex64 operands, and bf16 operands (the second instantiation)
@@ -163,10 +168,14 @@ def _check_contract(p, q, bias) -> None:
     if p.shape[1] != q.shape[0] or p.shape[2] != q.shape[2]:
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, "
                          f"q {tuple(q.shape)}")
-    if min(p.shape) == 0 or q.shape[1] == 0:
+    # `in`, not min(): a symbolic batch under torch.export compares equal
+    # to 0 statically, where min() would guard it against the other sizes
+    if 0 in p.shape or q.shape[1] == 0:
         raise ValueError("cmul_contract needs non-empty operands")
     if p.device != q.device:
         raise ValueError(f"p on {p.device}, q on {q.device}")
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cmul_contract runs on cpu or cuda, not {p.device}")
     if bias is not None:
         if (bias.dtype != torch.float32 or bias.shape != (q.shape[1],)
                 or bias.device != p.device):
@@ -186,17 +195,36 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
     output complex64).  They may be any views whose bins are contiguous:
     the spectral conv passes its ``[M, D, W]`` kernel spectra transposed,
     and its backward the ``[B, M, W]`` cotangent transposed, with no copy.
-    ``conj_q`` contracts with ``conj(q)``.  CPU tensors take
-    :func:`cmul_contract_plain`; CUDA tensors launch the kernel.  The
+    ``conj_q`` contracts with ``conj(q)``.  Checks the operands and calls
+    the operator ``spectralae_torch::cmul_contract``
+    (:func:`cmul_contract_op`, through
+    :func:`~spectralae_torch.ops.dft.call_operator`): CPU tensors take
+    :func:`cmul_contract_plain`, CUDA tensors launch the kernel.  The
     result carries no gradient: :class:`SpectralConvFused` does.
     """
-    global LAUNCHES, LAUNCHES_BF16
     _check_contract(p, q, bias)
-    if p.device.type == "cpu":
-        return cmul_contract_plain(p, q, p_scale=p_scale, conj_q=conj_q,
-                                   bias=bias, bias_scale=bias_scale)
-    if p.device.type != "cuda":
-        raise ValueError(f"cmul_contract runs on cpu or cuda, not {p.device}")
+    return call_operator(cmul_contract_op, _CMUL_CONTRACT_KERNELS, p, q,
+                         float(p_scale), bool(conj_q), bias,
+                         float(bias_scale))
+
+
+def _cmul_contract_cpu(p, q, p_scale, conj_q, bias, bias_scale):
+    """The operator's CPU kernel: :func:`cmul_contract_plain`."""
+    # contiguous, as the kernel writes it (the einsum may permute it)
+    return cmul_contract_plain(p, q, p_scale=p_scale, conj_q=conj_q,
+                               bias=bias, bias_scale=bias_scale).contiguous()
+
+
+def _cmul_contract_fake(p, q, p_scale, conj_q, bias, bias_scale):
+    return p.new_empty((p.shape[0], q.shape[1], p.shape[2]),
+                       dtype=torch.complex64)
+
+
+def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
+    """One launch of the kernel: the operands' layout checked, the launch
+    plan (:func:`k1_vec`, :func:`k1_plan`) chosen from their strides and
+    addresses, and the launch counted."""
+    global LAUNCHES, LAUNCHES_BF16
     if p.dtype == torch.bfloat16:
         # strides in (re, im) pairs, the kernel's element
         if p.stride(3) != 1 or q.stride(3) != 1 or p.stride(2) != 2 \
@@ -238,6 +266,22 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
     else:
         LAUNCHES += 1
     return out
+
+
+#: K1 as a PyTorch operator, the node a traced graph records: its CPU
+#: kernel is :func:`cmul_contract_plain`, its CUDA kernel the launch, and
+#: its fake version gives the ``[A, B, W]`` complex64 result of either
+#: operand type.  Call it through :func:`cmul_contract`, which checks the
+#: operands.
+cmul_contract_op = torch.library.custom_op(
+    "spectralae_torch::cmul_contract", _cmul_contract_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor p, Tensor q, float p_scale, bool conj_q, Tensor? bias, "
+           "float bias_scale) -> Tensor")
+cmul_contract_op.register_kernel("cuda", _cmul_contract_cuda)
+cmul_contract_op.register_fake(_cmul_contract_fake)
+_CMUL_CONTRACT_KERNELS = {"cpu": _cmul_contract_cpu,
+                          "cuda": _cmul_contract_cuda}
 
 
 def check_compute_dtype(compute_dtype) -> None:

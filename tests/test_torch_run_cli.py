@@ -210,7 +210,7 @@ def test_eval_matches_jax_eval(tmp_path, capsys, domain):
 def test_eval_of_an_artifact_equals_eval_of_its_checkpoint(tmp_path, capsys):
     ck = _jax_checkpoint(tmp_path / "ck")
     tcli(["export", "--from-ckpt", str(ck), "--out", str(tmp_path / "art"),
-          "--what", "both"])
+          "--what", "both", "--device", "cpu"])
     tcli(["eval", "--from-ckpt", str(ck), "--device", "cpu", "--steps", "2"])
     tcli(["eval", "--model", str(tmp_path / "art" / "forward"), "--device",
           "cpu", "--steps", "2"])
@@ -311,7 +311,7 @@ def test_train_serve_eval_and_run_read_file_sources(tmp_path, capsys, kind):
     assert [r["step"] for r in recs] == [0, 1]
     assert all(np.isfinite(r["loss"]) for r in recs)
     tcli(["export", "--from-ckpt", str(tmp_path / "ck"), "--out",
-          str(tmp_path / "art")])
+          str(tmp_path / "art"), "--device", "cpu"])
     tcli(["serve", "--model", str(tmp_path / "art"), "--device", "cpu",
           "--source", src, "--steps", "3", "--batch", "1"])
     rec = _records(capsys.readouterr().out)[-1]

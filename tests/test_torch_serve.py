@@ -114,7 +114,7 @@ def test_exported_model_matches_jax(jax_net, port_net, tmp_path, what,
     assert set(manifest) == {"format_version", "what", "domain", "tap_mode",
                              "batch", "dtype", "input_shape", "platforms",
                              "spec", "extra"}
-    assert manifest["platforms"] == ["cuda"]
+    assert manifest["platforms"] == ["cpu"]     # the device traced on
     assert manifest["tap_mode"] == (tap or "ref_gpu")
     model = ServingModel.load(tmp_path, device="cpu")
     got = model(x)
@@ -192,8 +192,8 @@ def test_cli_info_export_and_serve(tmp_path, capsys):
     assert got == capsys.readouterr().out
     tcli.main(["export", "--nx", "32", "--layers", "2", "--seed", "3",
                "--out", str(tmp_path / "art"), "--what", "both",
-               "--domain", "coord"])
-    assert (tmp_path / "art" / "forward" / "weights.npz").exists()
+               "--domain", "coord", "--device", "cpu"])
+    assert (tmp_path / "art" / "forward" / "forward.pt2").exists()
     assert (tmp_path / "art" / "encode" / "manifest.json").exists()
     capsys.readouterr()
     tcli.main(["serve", "--model", str(tmp_path / "art" / "encode"),
