@@ -166,11 +166,24 @@ Phases (any failure raises and exits non-zero):
    frames' pair-0 input, K4 on 256-row slabs), each against the single
    process on the card within the JAX tests' tolerances; K3 twice a DP
    precompute, K4 once a TP one on the rank's row slab; no plain version
-   on the card; each distributed call's host ms.
+   on the card; each distributed call's host ms.  On the same two ranks,
+   the model axis on mesh (1, 2) with the default net at 256^2 b8:
+   TP_STEPS ``distributed_train_step`` steps in each domain from
+   ``shard_params`` (stages 0-4 on the rank's 5 output channels, the
+   10 -> 3 last stage whole), gathered back and held against the single
+   process's ``train_step`` (TOL_TP_STEP, TOL_MOM) and the ranks against
+   each other bit for bit; ``spatial_forward`` (K1 on half of each
+   stage's grid rows, the bias on rank 0's) against ``forward_fft``
+   (TOL_TP_FWD); every K1 and K2 launch's shapes against the layout's
+   (K2 only where the whole stage routes to it), and a step's and a
+   forward's collectives against the docstring of
+   ``spectralae_torch.dist.model_axis``; each step's and forward's host
+   ms beside the single process's, with the card's name and power limit.
 
 The line before the last is a JSON object with each kernel's launches on
 every path (serve, train, train_bf16, stream, stream_fft, burst, run,
-stream_coord, dist: phase 8's NCCL run and both gloo ranks, and
+stream_coord, dist: phase 8's NCCL run and both gloo ranks, the model
+axis's steps and forwards included, and
 omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
 engine at the headline input; probe_mosaic and probe_dft, the probe
 scripts), its largest error, and its time, plain time, bound and library
@@ -191,6 +204,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -2885,9 +2899,10 @@ def card_routes():
     from spectralae_torch.ops import spectral_kernels as sk
     conv, auto = spectral.spectral_conv, coord._auto_conv_kernel
 
-    def fused(X, C, b, nx, ny, *, scale_by_dm=True, compute_dtype=None):
+    def fused(X, C, b, nx, ny, *, scale_by_dm=True, compute_dtype=None,
+              m_global=None):
         return sk.spectral_conv_fused(X, C, b, nx, ny, scale_by_dm,
-                                      compute_dtype)
+                                      compute_dtype, m_global=m_global)
     spectral.spectral_conv = fused
     coord._auto_conv_kernel = lambda x, c: coord._kernel_shape(c)
     try:
@@ -3329,6 +3344,16 @@ K4_OUTPUTS = ("XX", "EGw", "seg", "e0")
 TOL_SLAB_SUM = 1e-6
 # the TP burst's frames (pair 0's input is half their size) and slab rows
 TP_FRAMES, TP_SLAB = 1024, 256
+# the model axis of the train step on mesh (1, 2): steps in each domain of
+# the default net at 256^2 b8, against the single process's steps on the
+# card: the parameters and the losses norm-relative (each stage's conv on
+# the rank's channel slice: the same float32 products, the whole stages'
+# partial sums added by an all_reduce in another order), the momentum at
+# TOL_MOM; spatial_forward against forward_fft at rtol / atol
+# (test_modern_dist.py:190-206)
+TP_STEPS = 3
+TOL_TP_STEP = 1e-5
+TOL_TP_FWD = (1e-5, 1e-4)
 
 
 def _slabs(X: torch.Tensor, k: int, uneven: bool):
@@ -3531,6 +3556,62 @@ def _twice(fn):
     return r, ms
 
 
+@functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _tp_rank(inp: dict) -> dict:
+    """The model axis on this rank of mesh (1, 2): TP_STEPS
+    ``distributed_train_step`` steps in each domain from ``shard_params``
+    of the default net (256^2 b8 frames), each timed (host ms) with its
+    collectives; then ``spatial_forward`` twice (the second timed, both
+    bit for bit).  The launches of each (counters and the launch log's
+    shapes) and the results gathered back to whole parameters, on the
+    CPU."""
+    from spectralae_torch.core.types import init_opt_state
+    from spectralae_torch.dist import collectives
+    from spectralae_torch.dist import mesh as dmesh
+    mesh = dmesh.make_mesh(1, 2)
+    params, frames = inp["params"], inp["frames"]
+    scales = inp["spec"].scales
+    step = dmesh.distributed_train_step(mesh)
+    out = {}
+    for domain in ("fft", "coord"):
+        sp = dmesh.shard_params(params, mesh)
+        so = dmesh.shard_opt_state(init_opt_state(params), params, mesh)
+        ms, losses, logs = [], [], []
+        reset_counts()
+        with launch_log() as log:
+            for _ in range(TP_STEPS):
+                collectives.reset()
+                r, t = _timed(lambda: step(sp, so, frames, scales,
+                                           domain=domain))
+                logs.append(list(collectives.COLLECTIVES))
+                sp, so = r.params, r.opt
+                ms.append(t)
+                losses.append(r.loss.cpu())
+        launched = counts()
+        whole = dmesh.gather_params(sp, mesh)
+        mom = dmesh.gather_opt_state(so, mesh).mom
+        out[domain] = dict(
+            params=[t.cpu() for t in whole.leaves()],
+            mom=[t.cpu() for t in mom.leaves()], losses=losses, ms=ms,
+            collectives=logs, launches=launched, log=log,
+            layout=[tuple(lay) for lay in sp.layout])
+    fwd = dmesh.spatial_forward(mesh, scales)
+    reset_counts()
+    with launch_log() as log:
+        collectives.reset()
+        y, ms = _twice(lambda: fwd(params, frames))
+    out["forward"] = dict(out=y.cpu(), ms=ms, launches=counts(), log=log,
+                          collectives=list(collectives.COLLECTIVES))
+    return out
+
+
 def _dist_rank(rank: int) -> dict:
     """One of the two gloo ranks on the card: the DP corr burst on mesh
     (2, 1) and the fused TP burst (K4 on this rank's row slab) on mesh
@@ -3565,8 +3646,152 @@ def _dist_rank(rank: int) -> dict:
                          ms=ms,
                          launches=counts(), row_slabs=seen,
                          frames=tuple(inp["x_tp"].shape))
+        # the coord steps' cuDNN backward sums with atomics by default
+        torch.backends.cudnn.deterministic = True
+        out["model"] = _tp_rank(inp)
     out["fallbacks"] = fallbacks
     return out
+
+
+def _tp_single(inp: dict) -> dict:
+    """The single process's counterpart of :func:`_tp_rank` on the card:
+    TP_STEPS ``train_step`` steps in each domain, each timed, and
+    ``forward_fft`` twice (the second timed)."""
+    from spectralae_torch.core.types import init_opt_state
+    from spectralae_torch.model import autoencoder as model
+    from spectralae_torch.train import modern
+    params, frames = inp["params"], inp["frames"]
+    scales = inp["spec"].scales
+    out = {}
+    for domain in ("fft", "coord"):
+        p, opt = params, init_opt_state(params)
+        ms, losses = [], []
+        for _ in range(TP_STEPS):
+            r, t = _timed(lambda: modern.train_step(p, opt, frames, scales,
+                                                    domain=domain))
+            p, opt = r.params, r.opt
+            ms.append(t)
+            losses.append(r.loss.cpu())
+        out[domain] = dict(params=[t.cpu() for t in p.leaves()],
+                           mom=[t.cpu() for t in opt.mom.leaves()],
+                           losses=losses, ms=ms)
+    y, ms = _twice(lambda: model.forward_fft(params, frames, scales))
+    out["forward"] = dict(out=y.cpu(), ms=ms)
+    return out
+
+
+def _tp_launch_shapes(spec, b: int, rank: int) -> dict:
+    """The launches one model-axis step and one spatial_forward make on
+    a rank of mesh (1, 2), by the layout (the default net: stages 0-4
+    sharded, M = 5 a rank; the 10 -> 3 last stage whole, on its gathered
+    input): K1's forward launches of a fft step (keys as
+    :func:`k1_key`), the count of its backward ones (dC of every stage, dX
+    of every stage but 0), K2's launches of a coord step (the route
+    decided on the whole stage: K2 where M·D <= 64, so stages 0 and 5) and
+    K1's of the forward, on row slabs, the bias on rank 0's."""
+    n = 2
+    fft, k2, rows = [], [], []
+    for s in spec.stages:
+        w = s.nx * (s.ny // 2 + 1)
+        part = (s.m // n if s.m % n == 0 else s.m, s.d)
+        fft.append(((b, s.d, w), (s.d, part[0], w), False, True))
+        if s.m * s.d <= 64:
+            k2.append(((b, part[1], s.nx + s.nk - 1, s.ny + s.nl - 1),
+                       part + (s.nk, s.nl)))
+        ws = s.nx // n * (s.ny // 2 + 1)
+        rows.append(((b, s.d, ws), (s.d, s.m, ws), False, rank == 0))
+    return dict(fft=fft, backward=2 * len(spec.stages) - 1, coord=k2,
+                forward=rows)
+
+
+def _tp_held(label: str, got: dict, want: dict) -> str:
+    """A model-axis run's gathered parameters and losses within
+    TOL_TP_STEP norm-relative of the single process's, each leaf and step,
+    the momentum within TOL_MOM; returns what was measured."""
+    p = max(rel_err(g, w) for g, w in zip(got["params"], want["params"]))
+    loss = max(rel_err(g, w) for g, w in zip(got["losses"],
+                                             want["losses"]))
+    mom = max(rel_err(g, w) for g, w in zip(got["mom"], want["mom"]))
+    check(p <= TOL_TP_STEP and loss <= TOL_TP_STEP and mom <= TOL_MOM,
+          f"{label}: params rel {p:.3e}, losses rel {loss:.3e} (tol "
+          f"{TOL_TP_STEP:g}), momentum rel {mom:.3e} (tol {TOL_MOM:g})")
+    return (f"params rel {p:.3e}, losses rel {loss:.3e} (tol "
+            f"{TOL_TP_STEP:g}), momentum rel {mom:.3e} (tol {TOL_MOM:g})")
+
+
+def _tp_check(ranks: list, single: dict, spec, b: int) -> None:
+    """Hold both ranks' model-axis runs against the single process and
+    each other, check their launches and collectives, and print them."""
+    from spectralae_torch.dist import model_axis
+    card = card_line()
+    for rank, r in enumerate(ranks):
+        want = _tp_launch_shapes(spec, b, rank)
+        for domain in ("fft", "coord"):
+            got = r["model"][domain]
+            other = ranks[1 - rank]["model"][domain]
+            check(all(torch.equal(a, o) for k in ("params", "mom", "losses")
+                      for a, o in zip(got[k], other[k])),
+                  f"model axis {domain}: the ranks' gathered results differ")
+            held = _tp_held(f"rank {rank} model axis {domain}", got,
+                            single[domain])
+            k1, k2 = got["launches"]["k1"], got["launches"]["k2"]
+            if domain == "fft":
+                fwd = [k for k in got["log"]["k1"] if not k[2]]
+                check(k1 == TP_STEPS * K1_PER_FFT_STEP and k2 == 0
+                      and fwd == want["fft"] * TP_STEPS
+                      and k1 - len(fwd) == TP_STEPS * want["backward"],
+                      f"rank {rank} model axis fft: K1 {k1}, K2 {k2}, "
+                      f"forward launches {fwd}")
+                seen = (f"K1 {k1} launches, the forward's q (K, M) "
+                        + ", ".join(f"{q[0]}x{q[1]}"
+                                    for _, q, _, _ in want["fft"]))
+            else:
+                check(k1 == 0 and got["log"]["k2"] == want["coord"]
+                      * TP_STEPS, f"rank {rank} model axis coord: K1 {k1},"
+                      f" K2 {got['log']['k2']}")
+                seen = (f"K2 {k2} launches (stages 0 and 5, w "
+                        + ", ".join(str(w) for _, w in want["coord"])
+                        + "; stages 1-4 10 -> 10 on cuDNN)")
+            steps = [sorted(c) for c in got["collectives"]]
+            plan = model_axis.step_collectives(spec, 2, b, domain)
+            check(all(c == plan for c in steps),
+                  f"rank {rank} model axis {domain}: collectives "
+                  f"{steps[0]}, the docstring's {plan}")
+            print(f"dist gloo rank {rank} model axis (1, 2) {domain} "
+                  f"{spec.nx}^2 b{b}: {TP_STEPS} steps host ms "
+                  + ", ".join(f"{t:.2f}" for t in got["ms"])
+                  + " (single process "
+                  + ", ".join(f"{t:.2f}" for t in single[domain]["ms"])
+                  + f"); {held}; {seen}, no plain version; a step's "
+                  f"collectives: " + ", ".join(f"{op} {e}" for op, e in
+                                               got["collectives"][-1])
+                  + f"; layout {got['layout']}; {card}", flush=True)
+        fwd = r["model"]["forward"]
+        rtol, atol = TOL_TP_FWD
+        want_y = single["forward"]["out"]
+        worst = float(((fwd["out"] - want_y).abs()
+                       / (atol + rtol * want_y.abs())).max())
+        k1 = fwd["launches"]["k1"]
+        # two calls, each one all_gather of each stage's rows (every grid
+        # of the default net has an even number of rows)
+        plan = model_axis.forward_collectives(spec, 2, b)
+        check(worst <= 1.0 and fwd["log"]["k1"] == want["forward"] * 2
+              and k1 == 2 * len(want["forward"])
+              and len(plan) == len(spec.stages)
+              and sorted(fwd["collectives"]) == sorted(plan * 2),
+              f"rank {rank} spatial_forward: {worst:.3g} of the tolerance, "
+              f"K1 {fwd['log']['k1']}, collectives {fwd['collectives']}")
+        check(torch.equal(fwd["out"], ranks[1 - rank]["model"]["forward"][
+            "out"]), "spatial_forward: the ranks' reconstructions differ")
+        print(f"dist gloo rank {rank} spatial_forward (1, 2) {spec.nx}^2 "
+              f"b{b}: "
+              f"host {fwd['ms']:.2f} ms (single process forward_fft "
+              f"{single['forward']['ms']:.2f} ms); {worst:.3g} of the "
+              f"tolerance (rtol {rtol:g} atol {atol:g}); K1 {k1} launches "
+              "on row slabs (two calls), the bias on rank 0's; "
+              "collectives: " + ", ".join(f"{op} {e}" for op, e in
+                                          fwd["collectives"])
+              + f"; {card}", flush=True)
 
 
 def _held(label: str, got: dict, want: dict, tol) -> str:
@@ -3707,6 +3932,7 @@ def phase_dist(gen: torch.Generator) -> tuple[dict, dict, float]:
     want_dp = _result(fft_corr.burst_corr(x, x, out0, *w, iters=DIST_ITERS))
     want_tp = _result(fft_corr.burst_corr(inp["x_tp"], None, None, *w,
                                           iters=DIST_ITERS))
+    _tp_check(ranks, _tp_single(inp), inp["spec"], inp["frames"].shape[0])
     launched = dict(nccl)
     for rank, r in enumerate(ranks):
         check(r["build_seconds"] == 0.0 and r["backend"] == "gloo",
@@ -3723,7 +3949,8 @@ def phase_dist(gen: torch.Generator) -> tuple[dict, dict, float]:
               f"K4 {tp['launches']['k4']} in two TP bursts")
         check(tp["row_slabs"] == [rank * TP_SLAB] * 2,
               f"rank {rank}: K4 row slabs {tp['row_slabs']}")
-        for part in (dp, tp):
+        for part in (dp, tp, r["model"]["fft"], r["model"]["coord"],
+                     r["model"]["forward"]):
             for k, v in part["launches"].items():
                 launched[k] += v
         print(f"dist gloo rank {rank}: DP corr burst {dp['frames']} "
@@ -3819,10 +4046,7 @@ def main() -> int:
     from spectralae_torch.ops import fft_kernels as fk
 
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3894,7 +4118,7 @@ def main() -> int:
             "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
             "run": ("k1", "k2", "k3"), "stream_coord": ("k2",),
             "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",),
-            "dist": ("k1", "k3", "k4", "k5", "k7")}
+            "dist": ("k1", "k2", "k3", "k4", "k5", "k7")}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
               f"launches on the {path} path: {by_path[path]}")

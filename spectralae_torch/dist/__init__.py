@@ -9,5 +9,9 @@ groups (:mod:`spectralae_torch.dist.mesh`); every collective goes through
   (:func:`~spectralae_torch.dist.multihost.init_multihost`), the rank's
   index and its batch shard;
 - :mod:`~spectralae_torch.dist.mesh`: the ``("data", "model")`` mesh, the
-  batch sharding and the data-parallel train step.
+  batch sharding, the parameters sharded over the model axis, the train
+  step on both axes and the forward on grid-row slabs;
+- :mod:`~spectralae_torch.dist.model_axis`: that step's and that
+  forward's bodies, each conv on the rank's slice, and the collectives
+  they issue.
 """

@@ -12,6 +12,26 @@ collective over it:
 - :func:`all_gather`: one ``all_gather``, concatenated along dim 0 (JAX's
   ``all_gather(..., tiled=True)``).
 
+None of these has a gradient.  Three autograd functions have explicit
+adjoints, in the Megatron convention for a loss that every rank of the
+axis computes whole (so the gradient of a tensor every rank holds alike
+is alike on every rank); the model axis of the train step
+(:mod:`spectralae_torch.dist.model_axis`) differentiates through
+:func:`gather` and :func:`copy`; :func:`reduce`, the sum of partial
+results (a contraction split over the ranks), completes the convention:
+
+=================  ==========================  =========================
+function           forward                     backward
+=================  ==========================  =========================
+:func:`gather`     all_gather along ``dim``    this rank's slice
+:func:`copy`       identity                    all_reduce (sum)
+:func:`reduce`     all_reduce (sum)            identity
+=================  ==========================  =========================
+
+``torch.distributed.nn.all_gather`` sums the gradient over the ranks in
+its backward, which is wrong where the loss is replicated.  The backward's
+collective goes through the same log as the forward's.
+
 Complex tensors travel through :func:`torch.view_as_real` (NCCL and gloo
 refuse complex).  Each call adds one to its op's count in :data:`CALLS`
 and the real float32 elements it sent to :data:`ELEMENTS`, as the kernel
@@ -129,6 +149,62 @@ def all_gather(t: torch.Tensor, axis) -> torch.Tensor:
     dist.all_gather(parts, src, group=g)
     out = torch.cat(parts)
     return torch.view_as_complex(out) if t.is_complex() else out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim, ctx.size = axis, dim, t.shape[dim]
+        out = all_gather(t.movedim(dim, 0).contiguous(), axis)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        at = axis_index(ctx.axis) * ctx.size
+        return g.narrow(ctx.dim, at, ctx.size).contiguous(), None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.axis), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return psum(t.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather(t: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` (alike in shape) concatenated along ``dim`` in
+    rank order: one all_gather.  Backward: this rank's slice of the
+    gradient, no collective (the gradient of the whole, which every rank
+    computes alike, restricted to what this rank gave)."""
+    return _Gather.apply(t, group(axis), dim % t.dim())
+
+
+def copy(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` itself, where every rank holds it alike and uses it for its
+    own share of the work.  Backward: one all_reduce, which sums the
+    ranks' partial gradients into the whole one."""
+    return _Copy.apply(t, group(axis))
+
+
+def reduce(t: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of every rank's ``t`` (alike in shape): one all_reduce.
+    Backward: the identity (each rank's share enters the sum once, and the
+    sum's gradient is alike on every rank)."""
+    return _Reduce.apply(t, group(axis))
 
 
 def check_shards(n: int, axis, what: str = "batch") -> None:

@@ -1,4 +1,5 @@
-"""The ``("data", "model")`` mesh over ranks, and data-parallel training.
+"""The ``("data", "model")`` mesh over ranks, and data- and
+tensor-parallel training.
 
 Port of :mod:`spectralae.dist.mesh`.  **The parallel model.**  The JAX
 package builds a ``jax.sharding.Mesh`` with named axes and runs the
@@ -21,27 +22,34 @@ Rank ``r`` of an ``n_data x n_model`` mesh sits at data index
 Axes:
   - ``data``: the batch of frames (DP; gradients and the burst's lag
     tensors pmean-ed over it);
-  - ``model``: the burst precompute's resolution-sized work
-    (:func:`spectralae_torch.train.fft_corr.corr_precompute_fused`, TP).
+  - ``model``: the M output channels of each stage whose M it divides
+    (:func:`shard_params`, the train step's TP), the spectra's grid rows
+    (:func:`spatial_forward`), and the burst precompute's
+    resolution-sized work
+    (:func:`spectralae_torch.train.fft_corr.corr_precompute_fused`).
 
-The model axis of the train step and of the forward (``stage_sharding``,
-``shard_params``, ``shard_opt_state``, ``grid_sharding``,
-``spatial_forward``, :func:`distributed_train_step` with ``n_model > 1``)
-is ROADMAP A12b: in JAX these are sharding annotations that XLA
-propagates; in PyTorch they need an M-sharded K1.  They raise.
+The JAX package's model axis is sharding annotations that XLA propagates.
+Here a rank holds its slices (:class:`ShardedParams`: each stage's
+:class:`StageSharding` beside the leaves), the step and the forward issue
+their collectives through the autograd functions of
+:mod:`spectralae_torch.dist.collectives`, from the per-stage conv hooks of
+:mod:`spectralae_torch.dist.model_axis`, which says which, and of what
+size.
+:func:`gather_params` and :func:`gather_opt_state` give back the whole
+``AEParams`` (``np.asarray`` of a JAX global array): what a checkpoint of a
+sharded run saves.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from ..core.types import AEParams, ConvStage, OptState
 from . import collectives
-
-_A12B = ("the model axis of the train step and the forward needs an "
-         "M-sharded K1: ROADMAP A12b")
 
 
 class Mesh:
@@ -126,46 +134,199 @@ def shard_batch(x, mesh: Mesh) -> torch.Tensor:
     return x[idx * per:(idx + 1) * per]
 
 
-def stage_sharding(mesh, stage):
-    raise NotImplementedError(f"stage_sharding: {_A12B}")
+class StageSharding(NamedTuple):
+    """Where a stage's kernels lie on this rank: output channels
+    ``index·m/shards .. (index+1)·m/shards`` of the stage's ``m`` (the
+    whole stage's M) — ``c[m/shards, D, nk, nl]`` and ``b[m/shards]`` —
+    where the model axis divides M; else the whole stage (``index`` 0,
+    ``shards`` 1).  A local shape cannot tell a sharded stage of M from a
+    whole one of M/n: this record can."""
+    index: int
+    shards: int
+    m: int
+
+    @property
+    def channels(self) -> slice:
+        per = self.m // self.shards
+        return slice(self.index * per, (self.index + 1) * per)
 
 
-def shard_params(params, mesh):
-    raise NotImplementedError(f"shard_params: {_A12B}")
+@dataclasses.dataclass
+class ShardedParams:
+    """This rank's slices of an :class:`AEParams` (``params``) and each
+    stage's :class:`StageSharding` (``layout``)."""
+    params: AEParams
+    layout: tuple[StageSharding, ...]
 
 
-def shard_opt_state(opt, params, mesh):
-    raise NotImplementedError(f"shard_opt_state: {_A12B}")
+def stage_layout(mesh: Mesh, m: int) -> StageSharding:
+    """The sharding of a stage of ``m`` output channels on this rank: over
+    the model axis where it divides ``m``, else whole (JAX's
+    ``_stage_shardings``)."""
+    n = mesh.shape["model"]
+    if n > 1 and m % n == 0:
+        return StageSharding(mesh.coords[1], n, m)
+    return StageSharding(0, 1, m)
 
 
-def grid_sharding(mesh):
-    raise NotImplementedError(f"grid_sharding: {_A12B}")
+def _slice(stage: ConvStage, lay: StageSharding) -> ConvStage:
+    if lay.shards == 1:
+        return stage
+    sl = lay.channels
+    return ConvStage(c=stage.c[sl].clone(), b=stage.b[sl].clone())
 
 
-def spatial_forward(mesh, scales, *, scale_by_dm: bool = True):
-    raise NotImplementedError(f"spatial_forward: {_A12B}")
+def _shard(tree: AEParams, layout) -> ShardedParams:
+    for s, lay in zip(tree.stages, layout):
+        if s.m != lay.m:
+            raise ValueError(f"a stage of {s.m} output channels where the "
+                             f"layout has {lay.m}: shard whole trees")
+    return ShardedParams(AEParams(stages=tuple(
+        _slice(s, lay) for s, lay in zip(tree.stages, layout))), layout)
+
+
+def stage_sharding(mesh: Mesh, stage: ConvStage) -> ConvStage:
+    """This rank's slice of a whole stage: c ``[M/n, D, nk, nl]`` and b
+    ``[M/n]`` where the model axis divides M, else the stage itself."""
+    return _slice(stage, stage_layout(mesh, stage.m))
+
+
+def _layout(params: AEParams, mesh: Mesh) -> tuple[StageSharding, ...]:
+    return tuple(stage_layout(mesh, s.m) for s in params.stages)
+
+
+def shard_params(params: AEParams, mesh: Mesh) -> ShardedParams:
+    """This rank's slices of ``params`` (every rank holds them whole):
+    replicated over data, M-sharded over model where divisible."""
+    return _shard(params, _layout(params, mesh))
+
+
+def shard_opt_state(opt: OptState, params: AEParams, mesh: Mesh) -> OptState:
+    """The whole optimizer state of the whole ``params``, laid out as
+    :func:`shard_params` lays them out: momentum and previous gradient
+    each a :class:`ShardedParams`."""
+    layout = _layout(params, mesh)
+    return OptState(mom=_shard(opt.mom, layout),
+                    prev_grad=_shard(opt.prev_grad, layout))
+
+
+def gather_params(sharded: ShardedParams, mesh: Mesh) -> AEParams:
+    """The whole :class:`AEParams` of every rank's slices, on every rank:
+    one all_gather over the model axis of all sharded leaves packed
+    together (none where no stage is sharded)."""
+    parts = [t for s, lay in zip(sharded.params.stages, sharded.layout)
+             if lay.shards > 1 for t in (s.c, s.b)]
+    if not parts:
+        return sharded.params
+    n = mesh.shape["model"]
+    flat = collectives.all_gather(torch.cat([t.reshape(-1) for t in parts]),
+                                  mesh.axis("model")).reshape(n, -1)
+    pieces, at = [], 0
+    for t in parts:
+        pieces.append(flat[:, at:at + t.numel()].reshape(
+            (n * t.shape[0],) + tuple(t.shape[1:])))
+        at += t.numel()
+    whole = iter(pieces)
+    return AEParams(stages=tuple(
+        ConvStage(c=next(whole), b=next(whole)) if lay.shards > 1 else s
+        for s, lay in zip(sharded.params.stages, sharded.layout)))
+
+
+def gather_opt_state(opt: OptState, mesh: Mesh) -> OptState:
+    """:func:`gather_params` of the momentum and the previous gradient."""
+    return OptState(mom=gather_params(opt.mom, mesh),
+                    prev_grad=gather_params(opt.prev_grad, mesh))
+
+
+class GridSharding(NamedTuple):
+    """Spectra ``[B, C, Nx, Nyr]`` with the grid rows split over the model
+    axis: this rank holds slab ``index`` of ``shards`` equal ones (JAX's
+    ``P(None, None, "model", None)``)."""
+    index: int
+    shards: int
+
+    def rows(self, nx: int) -> slice | None:
+        """This rank's rows of a grid of ``nx`` rows, or None where the
+        stage stays whole: the axis does not divide ``nx`` (JAX's
+        ``constrain`` keeps such a spectrum local), or has one rank."""
+        if self.shards == 1 or nx % self.shards:
+            return None
+        per = nx // self.shards
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def grid_sharding(mesh: Mesh) -> GridSharding:
+    """This rank's slab of the frequency grid's rows — spatial parallelism
+    for resolutions whose working set exceeds one card's memory."""
+    return GridSharding(mesh.coords[1], mesh.shape["model"])
+
+
+def spatial_forward(mesh: Mesh, scales, *, scale_by_dm: bool = True):
+    """The momentum-space forward with each stage's pointwise conv (K1 on
+    the card) on this rank's slab of grid rows
+    (:func:`spectralae_torch.dist.model_axis.row_conv`): the FFTs and the
+    pooling run whole, one all_gather a stage joins the rows.  Returns
+    ``fwd(params, x)``: ``params`` whole (:func:`gather_params` of a
+    sharded run's), ``x`` this rank's batch shard; the reconstruction of
+    ``x``, whole on every rank of the model axis.  A forward only: no
+    gradient."""
+    from ..model.autoencoder import forward_fft
+    from .model_axis import row_conv
+    conv = row_conv(grid_sharding(mesh), mesh.axis("model"))
+
+    @torch.no_grad()
+    def fwd(params: AEParams, x):
+        return forward_fft(params, x, scales, scale_by_dm=scale_by_dm,
+                           stage_conv=conv)
+
+    return fwd
 
 
 def distributed_train_step(mesh: Mesh):
-    """The data-parallel train step on ``mesh``: the
+    """The train step on ``mesh``:
     :func:`spectralae_torch.train.modern.train_step` of this rank's batch
-    shard, its loss and gradients pmean-ed over ``data`` (one all_reduce)
-    before the update, so every rank applies the same one.  The model axis
-    is ROADMAP A12b: a mesh with ``n_model > 1`` raises."""
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(f"distributed_train_step on a "
-                                  f"{mesh.shape['model']}-rank model axis: "
-                                  f"{_A12B}")
-    from ..train.modern import train_step
-    data = mesh.axis("data")
+    shard, the loss and the gradients pmean-ed over ``data`` (one
+    all_reduce) before the update, so every rank of a model index applies
+    the same one.
+
+    It takes :class:`ShardedParams` and their state (:func:`shard_params`,
+    :func:`shard_opt_state`): each stage's conv runs on the rank's slice
+    (:func:`spectralae_torch.dist.model_axis.stage_conv`, whose docstring
+    lists the collectives of a step), the update on the rank's slices, and
+    the result comes back sharded alike.  On a model axis of one rank every
+    stage is whole, and it also takes whole :class:`AEParams` and their
+    state: the step is the data-axis one, bit for bit.
+    ``step(params, opt, x, scales, *, lr, alpha, domain, tap_mode,
+    scale_by_dm, train_pair, active)``, as in the JAX package.
+    """
+    from ..train import modern
+    from .model_axis import stage_conv
+    data, model = mesh.axis("data"), mesh.axis("model")
 
     def step(params, opt, x, scales, *, lr=0.2, alpha=0.9, domain="fft",
              tap_mode="centered", scale_by_dm=True, train_pair=-1,
              active=False):
+        kw = dict(lr=lr, alpha=alpha, domain=domain, tap_mode=tap_mode,
+                  scale_by_dm=scale_by_dm, train_pair=train_pair,
+                  active=active)
+        sharded = isinstance(params, ShardedParams)
+        if not sharded and mesh.shape["model"] > 1:
+            raise TypeError("a model axis of more than one rank takes "
+                            "ShardedParams and their state (shard_params, "
+                            "shard_opt_state)")
         collectives.check_shards(x.shape[0], data)
-        return train_step(params, opt, x, scales, lr=lr, alpha=alpha,
-                          domain=domain, tap_mode=tap_mode,
-                          scale_by_dm=scale_by_dm, train_pair=train_pair,
-                          active=active, axis_name=data)
+        if not sharded:
+            return modern.train_step(params, opt, x, scales,
+                                     axis_name=data, **kw)
+        lay = params.layout
+        r = modern.train_step(
+            params.params, OptState(opt.mom.params, opt.prev_grad.params),
+            x, scales, axis_name=data, stage_conv=stage_conv(lay, model),
+            **kw)
+        return modern.TrainStepResult(
+            params=ShardedParams(r.params, lay),
+            opt=OptState(mom=ShardedParams(r.opt.mom, lay),
+                         prev_grad=ShardedParams(r.opt.prev_grad, lay)),
+            loss=r.loss)
 
     return step

@@ -40,25 +40,32 @@ def tie_symmetric(params: AEParams, n_l: int) -> AEParams:
 def forward_coord(params: AEParams, x: torch.Tensor, scales: Sequence[int],
                   *, tap_mode: TapMode = "centered",
                   scale_by_dm: bool = True, act=None,
-                  remat: bool = False) -> list[torch.Tensor]:
+                  remat: bool = False,
+                  stage_conv=None) -> list[torch.Tensor]:
     """Coordinate-space forward; returns the full activation tape.
 
     The returned list mirrors the reference ``layers`` vector: entry 0 is the
     input, then two entries per stage (encoder: pooled, conv-out; decoder:
     conv-out, unpooled), ``2·n_stages + 1`` entries total.  ``remat``
     checkpoints each conv (its padded input and intermediates are
-    recomputed in the backward instead of saved).
+    recomputed in the backward instead of saved).  ``stage_conv`` as in
+    :func:`forward_fft`, with ``k`` the stage's taps ``c``.
     """
     n = params.n_stages
 
-    def _conv(h, c, b):
+    def conv(h, c, b, **part):
         return coord.conv2d(h, c, b, tap_mode=tap_mode,
-                            scale_by_dm=scale_by_dm, act=act)
+                            scale_by_dm=scale_by_dm, act=act, **part)
 
-    def conv(h, c, b):
+    def _stage(i, h, c, b):
+        if stage_conv is not None:
+            return stage_conv(i, h, c, b, conv)
+        return conv(h, c, b)
+
+    def stage_fn(i, h, c, b):
         if remat:
-            return checkpoint(_conv, h, c, b, use_reentrant=False)
-        return _conv(h, c, b)
+            return checkpoint(_stage, i, h, c, b, use_reentrant=False)
+        return _stage(i, h, c, b)
 
     acts = [x]
     h = x
@@ -66,10 +73,10 @@ def forward_coord(params: AEParams, x: torch.Tensor, scales: Sequence[int],
         if i < n // 2:  # encoder: pool then conv
             h = coord.pool(h, sc)
             acts.append(h)
-            h = conv(h, stage.c, stage.b)
+            h = stage_fn(i, h, stage.c, stage.b)
             acts.append(h)
         else:  # decoder: conv then unpool
-            h = conv(h, stage.c, stage.b)
+            h = stage_fn(i, h, stage.c, stage.b)
             acts.append(h)
             h = coord.pool(h, sc)
             acts.append(h)
@@ -79,7 +86,7 @@ def forward_coord(params: AEParams, x: torch.Tensor, scales: Sequence[int],
 def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
                 scale_by_dm: bool = True,
                 return_layers: bool = False,
-                constrain=None, compute_dtype=None,
+                stage_conv=None, compute_dtype=None,
                 remat: bool = False):
     """Momentum-space forward (reference ``autoenc_fft``).
 
@@ -88,7 +95,14 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
       return_layers: also inverse-transform every intermediate spectrum —
         the reference's ``fft_l`` per-layer visualization mode ('g' key,
         fft_backproplib.cu:1347-1361).
-      constrain: optional hook applied to each stage's spectrum.
+      stage_conv: optional hook ``stage_conv(i, X, k, b, conv)`` that runs
+        stage ``i``'s conv in place of ``conv(X, k, b)``: ``k`` the stage's
+        kernel spectra, ``conv(X, k, b, m_global=None)`` this forward's
+        conv at the stage's grid, ``m_global`` the whole stage's output
+        channels where ``k`` holds a slice of them.  The model axis
+        (:mod:`spectralae_torch.dist.model_axis`) runs each stage on a
+        rank's slice through it, where the JAX package's ``constrain``
+        hook lays out the spectrum.
       compute_dtype: ``torch.bfloat16`` streams bf16 operands through the
         pointwise convs (float32 sums; the FFTs stay float32).
       remat: checkpoint each stage's kernel-spectrum + conv block — the
@@ -101,8 +115,6 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
     n = params.n_stages
     nx, ny = x.shape[-2], x.shape[-1]
     X = spectral.rfft2(x)
-    if constrain is not None:
-        X = constrain(X)
     layers = [x]
     cx, cy = nx, ny
     for i, (stage, sc) in enumerate(zip(params.stages, scales)):
@@ -111,20 +123,23 @@ def forward_fft(params: AEParams, x: torch.Tensor, scales: Sequence[int], *,
             if return_layers:
                 layers.append(spectral.irfft2(X, (cx, cy)))
 
-        def _stage(Xs, c, b, cx=cx, cy=cy):
+        def _stage(Xs, c, b, i=i, cx=cx, cy=cy):
+            def conv(Xs, C, b, **part):
+                return spectral.spectral_conv(Xs, C, b, cx, cy,
+                                              scale_by_dm=scale_by_dm,
+                                              compute_dtype=compute_dtype,
+                                              **part)
             # kernel spectra are recomputed per call — the functional
             # replacement for the reference's lazily-filled host-side
             # net_cfreq cache (fft_backproplib.cu:1146-1161)
             C = spectral.kernel_rfft(c, cx, cy)
-            return spectral.spectral_conv(Xs, C, b, cx, cy,
-                                          scale_by_dm=scale_by_dm,
-                                          compute_dtype=compute_dtype)
+            if stage_conv is not None:
+                return stage_conv(i, Xs, C, b, conv)
+            return conv(Xs, C, b)
         if remat:
             X = checkpoint(_stage, X, stage.c, stage.b, use_reentrant=False)
         else:
             X = _stage(X, stage.c, stage.b)
-        if constrain is not None:
-            X = constrain(X)
         if return_layers:
             layers.append(spectral.irfft2(X, (cx, cy)))
         if i >= n // 2:

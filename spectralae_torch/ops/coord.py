@@ -59,7 +59,8 @@ def _auto_conv_kernel(x: torch.Tensor, c_shape) -> bool:
 
 def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
            *, tap_mode: TapMode = "centered", scale_by_dm: bool = True,
-           act=None, pallas: bool | None = None) -> torch.Tensor:
+           act=None, pallas: bool | None = None,
+           m_global: int | None = None) -> torch.Tensor:
     """Reference-semantics 2-D convolution.
 
     Args:
@@ -75,13 +76,21 @@ def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
         (:func:`spectralae_torch.ops.coord_kernels.conv_valid`; its plain
         version for CPU tensors) instead of ``F.conv2d``.  The name is the
         JAX package's.  ``None`` routes by :func:`_auto_conv_kernel`.
+      m_global: the whole stage's M where ``c`` holds a slice of its
+        output channels (the model axis,
+        :mod:`spectralae_torch.dist.model_axis`).  It scales the input, as
+        on one rank, and the route is decided on the whole stage's shape,
+        as the JAX package's ``_auto_pallas_conv`` sees the unsharded one:
+        a 10 → 10 stage takes cuDNN on every rank, though its [5, 10]
+        slice would pass :func:`_kernel_shape`.  ``None``: ``c.shape[0]``.
 
     Reference: ``Conv`` netlib.cpp:318-358 (tap_mode='ref_cpu'),
     ``Conv_gpu``/``conv_parallel`` backproplib.cu:70-182 (tap_mode='ref_gpu').
     """
-    m, _, nk, nl = c.shape
+    shape = (m_global or c.shape[0],) + tuple(c.shape[1:])
+    _, _, nk, nl = c.shape
     if scale_by_dm:
-        x = x / m
+        x = x / shape[0]
     if tap_mode == "ref_cpu":
         # CPU boundary quirk: the bound check is `i-ik > 0` *strictly*
         # (netlib.cpp:344), so input row 0 / col 0 never contribute.
@@ -92,7 +101,7 @@ def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
     (top, bottom), (left, right) = _conv_padding(nk, nl, tap_mode)
     xpad = F.pad(x, (left, right, top, bottom))
     if pallas is None:
-        pallas = _auto_conv_kernel(x, c.shape)
+        pallas = _auto_conv_kernel(x, shape)
     if pallas:
         from .coord_kernels import conv_valid
         # the kernel computes in float32; the stage keeps x's dtype

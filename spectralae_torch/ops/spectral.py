@@ -130,9 +130,10 @@ def spectral_pool(X: torch.Tensor, nx: int, ny: int,
     return spectral_resize(X, nx, ny, nxs, nys), nxs, nys
 
 
-def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
+def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor | None,
                   nx: int, ny: int, *, scale_by_dm: bool = True,
-                  compute_dtype=None) -> torch.Tensor:
+                  compute_dtype=None,
+                  m_global: int | None = None) -> torch.Tensor:
     """Pointwise complex-multiply convolution with DC-bin bias.
 
     ``out[b,m,ω] = Σ_d (X[b,d,ω]/M)·C[m,d,ω]``, with ``b[m]·Nx·Ny`` added to
@@ -153,20 +154,29 @@ def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
       compute_dtype: ``torch.bfloat16`` streams bf16 operands (float32
         sums, complex64 result) — through K1's bf16 mode on the card;
         ``None`` is float32.
+      m_global: the whole stage's M where ``C`` holds a slice of its
+        output channels (the model axis): the scale stays ``1/M``.
+        ``None``: ``C.shape[0]``.
+
+    ``X`` and ``C`` may hold a slab of the grid's rows (the bias goes on
+    the slab's first bin; ``b=None`` adds none, for a slab without row 0);
+    ``nx``, ``ny`` stay the whole grid's.
     """
     if X.dim() == 4 and kernel_route(X):
         from .spectral_kernels import spectral_conv_fused
         return spectral_conv_fused(X, C, b, nx, ny, scale_by_dm,
-                                   compute_dtype)
+                                   compute_dtype, m_global=m_global)
     return spectral_conv_einsum(X, C, b, nx, ny, scale_by_dm=scale_by_dm,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                m_global=m_global)
 
 
-def spectral_conv_einsum(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
-                         nx: int, ny: int, *,
-                         scale_by_dm: bool = True,
-                         compute_dtype=None) -> torch.Tensor:
-    """The plain pointwise conv (no kernel dispatch).
+def spectral_conv_einsum(X: torch.Tensor, C: torch.Tensor,
+                         b: torch.Tensor | None, nx: int, ny: int, *,
+                         scale_by_dm: bool = True, compute_dtype=None,
+                         m_global: int | None = None) -> torch.Tensor:
+    """The plain pointwise conv (no kernel dispatch); ``m_global`` and
+    ``b=None`` as in :func:`spectral_conv`.
 
     With ``compute_dtype`` it runs the JAX package's reduced branch: the
     four real products of the bf16-rounded operands (``X/M`` rounded after
@@ -174,7 +184,7 @@ def spectral_conv_einsum(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
     einsum has no ``preferred_element_type``."""
     from .spectral_kernels import check_compute_dtype
     check_compute_dtype(compute_dtype)
-    m = C.shape[0]
+    m = m_global or C.shape[0]
     scale = (1.0 / m) if scale_by_dm else 1.0
     if compute_dtype is not None:
         def rnd(t):
@@ -187,8 +197,9 @@ def spectral_conv_einsum(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
             torch.einsum(eq, cr, xi) + torch.einsum(eq, ci, xr))
     else:
         out = torch.einsum("mdxy,bdxy->bmxy", C, X * scale)
-    # the einsum result is fresh, so the DC add may update it in place
-    out[..., 0, 0] += b.to(out.dtype) * (nx * ny)
+    if b is not None:
+        # the einsum result is fresh, so the DC add may update it in place
+        out[..., 0, 0] += b.to(out.dtype) * (nx * ny)
     return out
 
 

@@ -310,15 +310,24 @@ class SpectralConvFused(torch.autograd.Function):
     forward, ``g`` and ``C`` for dX (the ``1/M`` applied in float32 by the
     kernel), ``gᵀ`` and ``X/M`` for dC.  ``X`` and ``C`` are saved in
     complex64 and rounded again in the backward, as ``_conv_bwd`` does.
+
+    A part of the whole conv (the model axis,
+    :mod:`spectralae_torch.dist.model_axis`): ``m_global`` is the whole
+    stage's M where ``C`` holds a slice of its output channels (the scale
+    stays ``1/M``; every launch runs at the local shape), and ``b=None``
+    adds no bias (a slab of grid rows without row 0).  ``X`` and
+    ``C`` may hold a slab of the grid's rows: the bins are read off their
+    shape, and ``nx·ny``, the bias's scale, is the whole grid's.
     """
 
     @staticmethod
-    def forward(ctx, X, C, b, nx, ny, scale_by_dm, compute_dtype):
+    def forward(ctx, X, C, b, nx, ny, scale_by_dm, compute_dtype,
+                m_global=None):
         nb, d = X.shape[0], X.shape[1]
         m = C.shape[0]
-        nyr = ny // 2 + 1
-        w = nx * nyr
-        scale = (1.0 / m) if scale_by_dm else 1.0
+        rows, cols = X.shape[-2], X.shape[-1]
+        w = rows * cols
+        scale = (1.0 / (m_global or m)) if scale_by_dm else 1.0
         Cw = C.reshape(m, d, w)
         if compute_dtype is None:
             p, q, p_scale = X.reshape(nb, d, w), Cw.transpose(0, 1), scale
@@ -327,11 +336,13 @@ class SpectralConvFused(torch.autograd.Function):
             p = bf16_planes(X.reshape(nb, d, w), scale)
             q, p_scale = bf16_planes(Cw).transpose(0, 1), 1.0
         out = cmul_contract(p, q, p_scale=p_scale,   # q: [D, M, W] view
-                            bias=b.to(torch.float32).contiguous(),
+                            bias=None if b is None else
+                            b.to(torch.float32).contiguous(),
                             bias_scale=float(nx * ny))
         ctx.save_for_backward(X, C)
-        ctx.dims = (nb, d, m, w, nx * ny, scale, b.dtype, compute_dtype)
-        return out.reshape(nb, m, nx, nyr)
+        ctx.dims = (nb, d, m, w, nx * ny, scale,
+                    None if b is None else b.dtype, compute_dtype)
+        return out.reshape(nb, m, rows, cols)
 
     @staticmethod
     def backward(ctx, g):
@@ -355,12 +366,13 @@ class SpectralConvFused(torch.autograd.Function):
                                conj_q=True).reshape(C.shape)
         if ctx.needs_input_grad[2]:
             db = (g[:, :, 0].real.sum(dim=0) * n_pix).to(b_dtype)
-        return dX, dC, db, None, None, None, None
+        return dX, dC, db, None, None, None, None, None
 
 
-def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
-                        nx: int, ny: int, scale_by_dm: bool = True,
-                        compute_dtype=None) -> torch.Tensor:
+def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor,
+                        b: torch.Tensor | None, nx: int, ny: int,
+                        scale_by_dm: bool = True, compute_dtype=None, *,
+                        m_global: int | None = None) -> torch.Tensor:
     """Batched pointwise complex conv through K1, differentiable — drop-in
     for :func:`spectralae_torch.ops.spectral.spectral_conv`:
     ``out[b,m,ω] = Σ_d (X[b,d,ω]/M)·C[m,d,ω]`` + ``b[m]·Nx·Ny`` on the DC
@@ -368,12 +380,15 @@ def spectral_conv_fused(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,
 
     X: ``[B, D, Nx, Nyr]``, C: ``[M, D, Nx, Nyr]`` complex64, b: ``[M]``.
     ``compute_dtype=torch.bfloat16`` streams bf16 operands with float32
-    sums and a complex64 result, forward and backward.  Runs
-    :class:`SpectralConvFused` on either device.
+    sums and a complex64 result, forward and backward.  ``m_global`` (the
+    whole stage's M, where C is a slice of its output channels) and
+    ``b=None`` (no bias) are for a part of the conv
+    (:class:`SpectralConvFused`).  Runs :class:`SpectralConvFused` on
+    either device.
     """
     check_compute_dtype(compute_dtype)
     return SpectralConvFused.apply(X, C, b, nx, ny, scale_by_dm,
-                                   compute_dtype)
+                                   compute_dtype, m_global)
 
 
 def spectral_conv_pallas(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor,

@@ -13,10 +13,14 @@ same bit for bit.
 
 Tolerances are the JAX tests' own: the DP bursts rtol 1e-4 / atol 1e-5
 (test_fft_dp.py), the fused TP burst rtol 3e-5 / atol 1e-6
-(test_tp_proof.py), streams rtol 2e-5 (test_streaming.py), the train
-step 1e-5 and the coord step and stream 1e-5 norm-relative (the port's
-parity tests of the single-device functions).  The collectives' log
-mirrors test_collectives.py.
+(test_tp_proof.py), streams rtol 2e-5 (test_streaming.py), the model
+axis's ten steps rtol 1e-4 and spatial_forward rtol 1e-5 / atol 1e-4
+(test_modern_dist.py), the train step (data and model axes) 1e-5 and the
+coord step and stream 1e-5 norm-relative (the port's parity tests of the
+single-device functions).  The collectives' log mirrors
+test_collectives.py; the model axis's is held to the plan of
+spectralae_torch.dist.model_axis (``step_collectives``,
+``forward_collectives``), itself held to one case written out by hand.
 """
 
 import functools
@@ -144,25 +148,240 @@ def test_distributed_coord_step_matches_jax(ranks):
             assert rel(got[k], want[k]) < STEP_TOL, k
 
 
-def test_distributed_train_step_matches_jax(ranks):
-    """The data-axis step against JAX's on a data-only mesh; on a mesh
-    with a model axis the step is ROADMAP A12b and raises."""
-    nd, nm, res = ranks
-    if nm > 1:
-        assert "A12b" in res[0]["train_step"]
-        return
-    spec, arrays, x, _ = worker.net_problem()
-    m = _jax_mesh(nd, nm)
-    jp = jtypes.AEParams(stages=tuple(
+def _jparams(arrays):
+    return jtypes.AEParams(stages=tuple(
         jtypes.ConvStage(c=jnp.asarray(c), b=jnp.asarray(b))
         for c, b in arrays))
+
+
+def test_distributed_train_step_matches_jax(ranks):
+    """The step against JAX's on every mesh: on a data-only mesh the
+    whole parameters, with a model axis their slices (gathered back), as
+    JAX's step of ``shard_params`` is."""
+    nd, nm, res = ranks
+    spec, arrays, x, _ = worker.net_problem()
+    m = _jax_mesh(nd, nm)
+    jp = _jparams(arrays)
     want = _jnp(jmesh.distributed_train_step(m)(
-        jp, jtypes.init_opt_state(jp), jmesh.shard_batch(x, m),
-        spec.scales))
-    got = replicated(res, "train_step")
+        jmesh.shard_params(jp, m),
+        jmesh.shard_opt_state(jtypes.init_opt_state(jp), jp, m),
+        jmesh.shard_batch(x, m), spec.scales))
+    got = replicated(res, "train_step" if nm == 1 else "train_step_sharded")
     assert set(got) == set(want)
     for k in want:
         assert rel(got[k], want[k]) < STEP_TOL, k
+
+
+# the one mesh whose model axis has one rank (the module fixture's first)
+@pytest.mark.parametrize("ranks", [pytest.param(MESHES[0], id="mesh2x1")],
+                         indirect=True)
+def test_model_axis_of_one_rank_is_the_data_step(ranks):
+    """Sharded parameters on a model axis of one rank take the data-axis
+    step, bit for bit.  (On a wider axis there is no data-axis step of the
+    whole parameters; the gathered result is what the test above holds
+    against JAX.)"""
+    _, nm, res = ranks
+    assert nm == 1
+    got = replicated(res, "train_step_sharded")
+    want = replicated(res, "train_step")
+    assert set(got) == set(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+# ------------------------------------------------------ the model axis
+
+TP_CASES = [(name, domain) for name, _ in worker.TP_NETS
+            for domain in ("fft", "coord")]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tp_step(nd, nm, name, domain):
+    spec, arrays, x = worker.tp_problem(**dict(worker.TP_NETS)[name])
+    m = _jax_mesh(nd, nm)
+    jp = _jparams(arrays)
+    sp = jmesh.shard_params(jp, m)
+    return _jnp(jmesh.distributed_train_step(m)(
+        sp, jmesh.shard_opt_state(jtypes.init_opt_state(jp), sp, m),
+        jmesh.shard_batch(x, m), spec.scales, domain=domain))
+
+
+@pytest.mark.parametrize("name,domain", TP_CASES,
+                         ids=[f"{n}-{d}" for n, d in TP_CASES])
+def test_model_axis_step_matches_jax(ranks, name, domain):
+    """One step of each TP_NETS net in both domains: the gathered
+    parameters, momentum, previous gradient and loss, alike on every rank
+    bit for bit, against JAX's ``distributed_train_step`` on
+    ``shard_params`` of the same mesh shape (test_modern_dist.py)."""
+    nd, nm, res = ranks
+    got = replicated(res, f"tp_{name}_{domain}")
+    want = _jax_tp_step(nd, nm, name, domain)
+    assert set(got) == set(want)
+    for k in want:
+        assert rel(got[k], want[k]) < STEP_TOL, k
+
+
+@pytest.mark.parametrize("name,domain", TP_CASES,
+                         ids=[f"{n}-{d}" for n, d in TP_CASES])
+def test_model_axis_slices_concatenate_to_jax(ranks, name, domain):
+    """Each rank's own slices (its layout: output channels ``index·M/n``
+    of a sharded stage, the whole of any other) concatenate over the model
+    axis to JAX's global arrays; a whole stage is the same on every
+    rank."""
+    nd, nm, res = ranks
+    want = _jax_tp_step(nd, nm, name, domain)
+    for d in range(nd):
+        row = [res[d * nm + m] for m in range(nm)]
+        for i in range(len(row[0][f"tp_layout_{name}"])):
+            layouts = [r[f"tp_layout_{name}"][i] for r in row]
+            shards = layouts[0][1]
+            assert [lay[0] for lay in layouts] == (
+                list(range(nm)) if shards > 1 else [0] * nm)
+            for k in (f"c{i}", f"b{i}", f"mom{2 * i}", f"mom{2 * i + 1}"):
+                parts = [r[f"tp_local_{name}_{domain}"][k] for r in row]
+                if shards == 1:
+                    assert all(np.array_equal(p, parts[0]) for p in parts)
+                    parts = parts[:1]
+                assert rel(np.concatenate(parts), want[k]) < STEP_TOL, k
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_single_steps():
+    from spectralae.train.modern import train_step
+    spec, arrays, x = worker.tp_problem(**dict(worker.TP_NETS)[
+        "sharded_out"], batch=2 * worker.B)
+    params = _jparams(arrays)
+    opt = jtypes.init_opt_state(params)
+    losses = []
+    for _ in range(worker.TP_STEPS):
+        r = train_step(params, opt, jnp.asarray(x), spec.scales,
+                       lr=worker.TP_LR, domain="fft")
+        params, opt = r.params, r.opt
+        losses.append(float(r.loss))
+    return np.array(losses)
+
+
+def test_model_axis_ten_steps_match_single_device(ranks):
+    """test_modern_dist.py:61-86 on the port: ten fft steps of the
+    d = 2, m = 4 net (its last stage sharded too) on the mesh; the loss
+    falls and matches the single-device step's, JAX's and the port's, at
+    rtol 1e-4."""
+    _, _, res = ranks
+    got = replicated(res, "tp_steps")
+    assert got["losses"][-1] < got["losses"][0]
+    np.testing.assert_allclose(got["losses"], _jax_single_steps(),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got["losses"], got["single"], rtol=1e-4,
+                               atol=1e-6)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_spatial(nd, nm, name):
+    """JAX's spatial_forward on the mesh shape, or with ``nd = nm = 0``
+    the single-device forward."""
+    from spectralae.model import autoencoder as jmodel
+    spec, arrays, x = worker.tp_problem(**dict(worker.SPATIAL_NETS)[name])
+    jp = _jparams(arrays)
+    if nd == 0:
+        return np.asarray(jmodel.forward_fft(jp, jnp.asarray(x),
+                                             spec.scales))
+    m = _jax_mesh(nd, nm)
+    return np.asarray(jmesh.spatial_forward(m, spec.scales)(
+        jmesh.shard_params(jp, m), jmesh.shard_batch(x, m)))
+
+
+@pytest.mark.parametrize("name", [n for n, _ in worker.SPATIAL_NETS])
+def test_spatial_forward_matches_jax(ranks, name):
+    """test_modern_dist.py:190-206 on the port: the forward with the
+    grid rows over the model axis, alike on every rank bit for bit,
+    against JAX's ``spatial_forward`` on the same mesh shape and the
+    single-device forward, at rtol 1e-5 / atol 1e-4."""
+    nd, nm, res = ranks
+    got = replicated(res, f"spatial_{name}")["out"]
+    for want in (_jax_spatial(nd, nm, name), _jax_spatial(0, 0, name)):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_step_collectives_by_hand():
+    """model_axis.step_collectives, which the test below holds the log
+    to, on the "net" TP_NETS net (16², two pairs, D = 3, M = 4, 3×3 taps)
+    at n = 2 and a batch shard of 2, written out by hand from the module
+    docstring: stages 0-2 sharded, the 4 → 3 last one whole."""
+    from spectralae_torch.dist import model_axis
+    spec = worker.tp_problem(**dict(worker.TP_NETS)["net"])[0]
+    assert [(s.d, s.m, s.nx, s.ny, s.nk) for s in spec.stages] == [
+        (3, 4, 8, 8, 3), (4, 4, 4, 4, 3), (4, 4, 4, 4, 3), (4, 3, 8, 8, 3)]
+    fft = [("all_gather", 2 * 2 * 4 * 3 * 2),   # stage 1's input
+           ("all_gather", 2 * 2 * 4 * 3 * 2),   # stage 2's
+           ("all_gather", 2 * 2 * 8 * 5 * 2),   # stage 3's
+           ("all_reduce", 2 * 4 * 4 * 3 * 2),   # stage 1's dX
+           ("all_reduce", 2 * 4 * 4 * 3 * 2),   # stage 2's dX
+           ("all_reduce", 2),                   # the batch shards' check
+           # the loss and the local gradients: 3 stages of 2 channels, a
+           # whole one of 3, each channel D·9 taps and a bias
+           ("all_reduce", 1 + 2 * 28 + 2 * 37 + 2 * 37 + 3 * 37)]
+    assert model_axis.step_collectives(spec, 2, 2, "fft") == sorted(fft)
+    rows = [("all_gather", 2 * 4 * 4 * 5 * 2),  # stage 0's 8 rows, 4 each
+            ("all_gather", 2 * 4 * 2 * 3 * 2),
+            ("all_gather", 2 * 4 * 2 * 3 * 2),
+            ("all_gather", 2 * 3 * 4 * 5 * 2)]
+    assert model_axis.forward_collectives(spec, 2, 2) == sorted(rows)
+
+
+COLLECTIVE_CASES = TP_CASES + [(n, "spatial") for n, _ in
+                               worker.SPATIAL_NETS]
+
+
+@pytest.mark.parametrize("name,kind", COLLECTIVE_CASES,
+                         ids=[f"{n}-{k}" for n, k in COLLECTIVE_CASES])
+def test_model_axis_collectives_match_the_docstring(ranks, name, kind):
+    """The collectives of one step (each domain) and of one
+    spatial_forward, read from the log on every rank, are those the
+    docstring of spectralae_torch.dist.model_axis states."""
+    from spectralae_torch.dist import model_axis
+    nd, nm, res = ranks
+    nets = dict(worker.TP_NETS) | dict(worker.SPATIAL_NETS)
+    spec = worker.tp_problem(**nets[name])[0]
+    b = worker.B // nd
+    want = (model_axis.forward_collectives(spec, nm, b) if kind == "spatial"
+            else model_axis.step_collectives(spec, nm, b, kind))
+    for r in res:
+        assert sorted(r["tp_collectives"][(name, kind)]) == want
+
+
+@pytest.mark.parametrize("name", ["gather", "gather_complex", "copy",
+                                  "reduce"])
+def test_autograd_collectives_adjoints(ranks, name):
+    """Each autograd collective over the model axis (one rank or two):
+    its forward, and its input's gradient under a linear loss against the
+    adjoint written out by hand; one logged collective, in the forward
+    (gather, reduce) or the backward (copy)."""
+    _, nm, res = ranks
+    for r in res:
+        rank = r["multihost"]["coords"][1]
+        got = r["adjoints"][name]
+        t, z = worker.adjoint_problem(rank)
+        w_g, wz, w_c, w_r = worker.adjoint_weights(nm, rank)
+        every = [worker.adjoint_problem(k) for k in range(nm)]
+        if name == "gather":
+            y = np.concatenate([e[0] for e in every], axis=1)
+            grad = w_g[:, 3 * rank:3 * rank + 3]
+            logs = ([("all_gather", t.size)], [])
+        elif name == "gather_complex":
+            y = np.concatenate([e[1] for e in every], axis=0)
+            grad = wz[2 * rank:2 * rank + 2]
+            logs = ([("all_gather", 2 * z.size)], [])
+        elif name == "copy":
+            y = t
+            grad = sum(worker.adjoint_weights(nm, k)[2] for k in range(nm))
+            logs = ([], [("all_reduce", t.size)])
+        else:
+            y = sum(e[0] for e in every)
+            grad = w_r
+            logs = ([("all_reduce", t.size)], [])
+        np.testing.assert_array_equal(got["y"], y)
+        np.testing.assert_allclose(got["grad"], grad, rtol=1e-6)
+        assert (got["forward"], got["backward"]) == logs
 
 
 # --------------------------------------------------------------- streams
@@ -338,16 +557,44 @@ def test_distributed_burst_checks_its_arguments():
         tdp.distributed_burst(None, pallas_windows=True)
 
 
-def test_model_axis_of_the_step_and_forward_is_a12b():
-    one_by_two = tmesh.Mesh(1, 2, (0, 0), {})
-    for call in (lambda: tmesh.stage_sharding(one_by_two, None),
-                 lambda: tmesh.shard_params(None, one_by_two),
-                 lambda: tmesh.shard_opt_state(None, None, one_by_two),
-                 lambda: tmesh.grid_sharding(one_by_two),
-                 lambda: tmesh.spatial_forward(one_by_two, (1,)),
-                 lambda: tmesh.distributed_train_step(one_by_two)):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            call()
+def test_model_axis_layouts():
+    """``stage_layout`` shards a stage over the model axis where the axis
+    divides its M (JAX's ``_stage_shardings``), and ``GridSharding`` gives
+    a rank its slab of rows where the axis divides them; ``stage_sharding``
+    and ``shard_params`` slice, ``shard_opt_state`` lays the state out
+    alike.  A model axis of more than one rank takes ShardedParams."""
+    from spectralae_torch.core.types import (AEParams, ConvStage,
+                                             init_opt_state)
+    second = tmesh.Mesh(1, 2, (0, 1), {"data": None, "model": None})
+    assert tmesh.stage_layout(second, 10) == (1, 2, 10)
+    assert tmesh.stage_layout(second, 10).channels == slice(5, 10)
+    assert tmesh.stage_layout(second, 3) == (0, 1, 3)
+    assert tmesh.stage_layout(tmesh.Mesh(2, 1, (1, 0), {}), 10) == (0, 1,
+                                                                    10)
+    grid = tmesh.grid_sharding(second)
+    assert grid == (1, 2) and grid.rows(16) == slice(8, 16)
+    assert grid.rows(3) is None
+    assert tmesh.GridSharding(0, 1).rows(16) is None
+    c = torch.arange(10 * 3 * 4, dtype=torch.float32).reshape(10, 3, 2, 2)
+    params = AEParams(stages=(ConvStage(c=c, b=torch.arange(10.)),
+                              ConvStage(c=c[:3, :, :, :].clone(),
+                                        b=torch.arange(3.))))
+    half = tmesh.stage_sharding(second, params.stages[0])
+    assert torch.equal(half.c, c[5:]) and torch.equal(half.b,
+                                                      torch.arange(5., 10.))
+    sp = tmesh.shard_params(params, second)
+    assert sp.layout == ((1, 2, 10), (0, 1, 3))
+    assert sp.params.stages[1] is params.stages[1]
+    opt = tmesh.shard_opt_state(init_opt_state(params), params, second)
+    for tree in (opt.mom, opt.prev_grad):
+        assert tree.layout == sp.layout
+        assert [t.shape for t in tree.params.leaves()] == [
+            t.shape for t in sp.params.leaves()]
+    with pytest.raises(ValueError, match="shard whole trees"):
+        tmesh.shard_opt_state(init_opt_state(sp.params), params, second)
+    with pytest.raises(TypeError, match="ShardedParams"):
+        tmesh.distributed_train_step(second)(
+            params, init_opt_state(params), torch.zeros(1, 3, 8, 8), (2, -2))
 
 
 def test_axes_take_process_groups():
