@@ -68,8 +68,10 @@ Phases (any failure raises and exits non-zero):
    plain version, at the three sizes; and a check that the burst's entry
    points run with TF32 off whatever the caller set.
 3d. The omega-space burst engines (B7-B9, ``csrc/omega_burst.cu``) at the
-   JAX benchmark's headline input (one [3, 256, 256] frame) and at the
-   stream's pair-0 input (128^2 b8): K5-K8 against their plain versions
+   JAX benchmark's headline input (one [3, 256, 256] frame), at the
+   stream's pair-0 input (128^2 b8) and, for the kernels alone, at the
+   headline frame with 13×13 kernels (169 taps: the contraction over taps
+   in six chunks of 32): K5-K8 against their plain versions
    with float32 and bf16 operands, each output held on its own (O, the MSE
    sum, g, db, dp; K8's weights, momenta and MSEs), each run twice more
    and held bit for bit, timed with both operand types beside the plain
@@ -179,6 +181,15 @@ Phases (any failure raises and exits non-zero):
    forward's collectives against the docstring of
    ``spectralae_torch.dist.model_axis``; each step's and forward's host
    ms beside the single process's, with the card's name and power limit.
+9. The benchmark harness (``spectralae_torch.bench``), short: the headline
+   window's six burst impls, ``forward_fft_3layer_256_ms`` and its coord
+   twin, ``modern_fft_step_b8_ms`` and ``fft_burst_dp_b8_100_ms``, and the
+   5×5 conv rows with ``conv_coord_5x5_b8_ms[pallas]`` (K2), and the
+   13×13 bursts (``fft_burst_100_ms_13x13[corr]`` and ``[pallas-fused]``:
+   K5 and K7 on 169 taps), each two chains of two links: every row recorded with its host ms, median and
+   device ms and no error, the corr row's ``pct_peak_*`` at most 105 % of
+   the peaks ``device_peaks()`` names for the card, K1-K3 and K5-K8
+   launched and no plain version run on the card; the rows on one line.
 
 The line before the last is a JSON object with each kernel's launches on
 every path (serve, train, train_bf16, stream, stream_fft, burst, run,
@@ -186,7 +197,7 @@ stream_coord, dist: phase 8's NCCL run and both gloo ranks, the model
 axis's steps and forwards included, and
 omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
 engine at the headline input; probe_mosaic and probe_dft, the probe
-scripts), its largest error, and its time, plain time, bound and library
+scripts; bench, phase 9's rows and their costs), its largest error, and its time, plain time, bound and library
 time: K1, K1 with bf16 operands and K2 per 256^2 batch-8 train step
 (forward and backward; the rows of phase 3 at the shapes of the launches
 one such step made, summed), K3 per precompute of a burst, K4, B5a and
@@ -2070,6 +2081,28 @@ def _omega_inputs(gen: torch.Generator) -> list:
     return out
 
 
+def _omega_taps13(gen: torch.Generator) -> tuple:
+    """The harness's 13×13 burst input (``bench.taps13``): one [3, 256,
+    256] frame, O0 from the forward of a one-pair net of 13×13 kernels (169
+    taps, K5-K8's contraction over taps in six chunks of 32), pair-0
+    weights from seed 0 with biases set non-zero."""
+    from spectralae_torch.core.config import Config, LayerParams
+    from spectralae_torch.core.types import init_params, initial_spec
+    from spectralae_torch.model import autoencoder as model
+    cfg = Config(nx=256, ny=256, layer=LayerParams(lk=5, ll=5))
+    spec = initial_spec(cfg)
+    net = init_params(torch.Generator().manual_seed(0), spec, cfg.layer.rmax,
+                      device="cuda")
+    x = torch.randn(3, 256, 256, device="cuda", generator=gen) * 50
+    with torch.no_grad():
+        out0 = model.forward_fft(net, x[None], spec.scales)[0]
+    enc, dec = net.pair(0)
+    w = (enc.c, dec.c,
+         torch.randn(enc.c.shape[0], device="cuda", generator=gen) * 0.5,
+         torch.randn(dec.c.shape[0], device="cuda", generator=gen) * 0.5)
+    return "256x256 b1 13x13 (169 taps)", x, out0, w
+
+
 def _omega_kernel_rows(label, x, out0, w) -> dict:
     """K5-K8 at one input against their plain versions, float32 and bf16
     operands, each also run twice more and held bit for bit and timed; K8
@@ -2151,8 +2184,9 @@ def _burst_vs(label, a, b, tols) -> None:
 
 
 def phase_omega(gen: torch.Generator) -> tuple[dict, ...]:
-    """3d: K5-K8 against their plain versions at both inputs, then each
-    engine: launches per burst (no plain version may run on the card), a
+    """3d: K5-K8 against their plain versions at both inputs and with
+    13×13 kernels at the headline's frame size (:func:`_omega_taps13`),
+    then each engine at both inputs: launches per burst (no plain version may run on the card), a
     STREAM_CMP_ITERS burst against the CPU port and the card's ω-space
     burst (``fft_burst(impl="dft")``, batched: ``fft_burst_dp``'s ω body),
     an OMEGA_ITERS burst within the map's spread of the card's ω-space
@@ -2168,7 +2202,7 @@ def phase_omega(gen: torch.Generator) -> tuple[dict, ...]:
     t0 = time.perf_counter()
     inputs = _omega_inputs(gen)
     rows, errs, rels = {}, {}, {}
-    for label, x, out0, w in inputs:
+    for label, x, out0, w in inputs + [_omega_taps13(gen)]:
         timed, e, r = _omega_kernel_rows(label, x, out0, w)
         rows.update({(label,) + k: v for k, v in timed.items()})
         errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
@@ -3964,6 +3998,73 @@ def phase_dist(gen: torch.Generator) -> tuple[dict, dict, float]:
     return slabs, launched, worst
 
 
+# the harness's rows phase 9 runs, and the kernels they launch
+BENCH_ROWS = tuple(f"fft_burst_100_ms[{impl}]" for impl in (
+    "corr", "pallas-fused", "pallas", "itergrid", "dft", "fft")) + (
+    "forward_fft_3layer_256_ms", "modern_fft_step_b8_ms",
+    "conv_coord_5x5_b8_ms[pallas]", "fft_burst_100_ms_13x13[corr]",
+    "fft_burst_100_ms_13x13[pallas-fused]")
+BENCH_KERNELS = ("k1", "k2", "k3", "k5", "k6", "k7", "k8")
+BENCH_PCT_MAX = 105.0
+
+
+def phase_bench() -> dict:
+    """The benchmark harness (``spectralae_torch.bench``) on the card, short:
+    the headline window's six impls, the forward, step and conv groups
+    (the 5×5 conv only) and the 13×13 bursts (corr, and K5 and K7 on 169
+    taps), each row two chains of two links; the counters
+    reset before and read after, the plain versions guarded.  Every row of
+    BENCH_ROWS recorded with its host and device ms and no error; the corr
+    row's roofline shares at most BENCH_PCT_MAX %; ``device_peaks()``
+    names the card.  Prints the rows on one line; returns the launches."""
+    from spectralae_torch import bench
+    from spectralae_torch.core import roofline
+    from spectralae_torch.ops import burst_kernels as bk
+    from spectralae_torch.ops import window_kernels as wk
+    t0 = time.perf_counter()
+    peaks = roofline.device_peaks()
+    check(peaks is not None, "device_peaks() names no card for "
+          f"{torch.cuda.get_device_name(0)!r}")
+    b = bench.Bench(path=None, peaks=peaks)
+    ctx = bench.Ctx(torch.device("cuda"), b, links=2, trials=2)
+    fallbacks = []
+    plains = _k123_plains() + [(wk, "anchor_windows_plain")] + [
+        (bk, f"{k}_plain") for k in ("grad_project", "respectra_conv",
+                                     "fused_step", "itergrid")]
+    reset_counts()
+    with guard_plains(plains, fallbacks):
+        hl = bench.Headline(ctx).window1()
+        bench.forward(ctx)
+        bench.steps(ctx)
+        bench.conv(ctx, lks=(1,))
+        bench.taps13(ctx, hl)
+        line = hl.summary()
+    launched = counts()
+    check(not fallbacks, f"bench: plain versions ran on the card: "
+          f"{fallbacks}")
+    r = b.results
+    errors = {k: v for k, v in r.items() if k.endswith(":error")}
+    check(not errors, f"bench: rows failed: {errors}")
+    for key in BENCH_ROWS:
+        check(r.get(key) is not None and r.get(key + ":median") is not None
+              and r.get(key + ":device_ms") is not None,
+              f"bench: row {key} not recorded: {r.get(key)}")
+    util = r.get("util[fft_burst_100_ms[corr]]") or {}
+    shares = {k: util.get(k) for k in ("pct_peak_flops", "pct_peak_bw")}
+    check(all(v is not None and v <= BENCH_PCT_MAX
+              for v in shares.values()),
+          f"bench: the corr row's roofline shares {util}")
+    check(all(launched[k] > 0 for k in BENCH_KERNELS),
+          f"bench: launches {launched}")
+    print("bench rows: " + json.dumps({
+        "card": card_line(), "peaks": util.get("peaks"),
+        "rows": {k: {"ms": r[k], "median_ms": r[k + ":median"],
+                     "device_ms": r[k + ":device_ms"]} for k in BENCH_ROWS},
+        "util[fft_burst_100_ms[corr]]": util, "line": line,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return launched
+
+
 def _flat_any(r) -> torch.Tensor:
     """Every tensor of a result (NamedTuples, tuples, parameter trees),
     flattened into one float64 vector."""
@@ -4107,6 +4208,8 @@ def main() -> int:
     # gloo ranks on the card
     slab_rows, by_path["dist"], slab_err = phase_dist(gen)
     errs["k4"] = max(errs["k4"], slab_err)
+    # 9. the benchmark harness, short
+    by_path["bench"] = phase_bench()
     by_path.update(omega_paths)
     by_path.update(probe_paths)
     # every kernel that a path runs was launched in that path's run
@@ -4118,7 +4221,8 @@ def main() -> int:
             "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
             "run": ("k1", "k2", "k3"), "stream_coord": ("k2",),
             "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",),
-            "dist": ("k1", "k2", "k3", "k4", "k5", "k7")}
+            "dist": ("k1", "k2", "k3", "k4", "k5", "k7"),
+            "bench": BENCH_KERNELS}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
               f"launches on the {path} path: {by_path[path]}")

@@ -22,11 +22,17 @@ runtime's attributes of the tensor-core kernels).
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
 that choice is made by the wrappers, never here.
+
+:func:`opaque` marks each kernel's wrapper (the function that launches the
+kernel on a CUDA tensor and runs its plain version on a CPU one), so that
+a caller may see each of its calls as one unit on either device
+(:data:`HOOK`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -223,3 +229,28 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+#: None, or a callable ``hook(fn, args, kwargs)`` that every call of a
+#: kernel's wrapper (:func:`opaque`) goes through instead, returning what
+#: the call returns.  Process-wide, not thread-local: autograd runs a CUDA
+#: backward's kernel calls on its own device threads, which must see it;
+#: whoever sets it clears it in a ``finally`` (one hook at a time).
+HOOK = None
+
+
+def hooked() -> bool:
+    """Whether a :data:`HOOK` is set."""
+    return HOOK is not None
+
+
+def opaque(fn):
+    """Mark ``fn`` as a kernel's wrapper: called as it is, or, while a
+    :data:`HOOK` is set, through ``HOOK(fn, args, kwargs)``."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        hook = HOOK
+        if hook is None:
+            return fn(*args, **kwargs)
+        return hook(fn, args, kwargs)
+    return call

@@ -1,8 +1,7 @@
 """Command-line interface of the port: run / train / info / eval / export /
-serve / doctor.
+serve / doctor / bench.
 
-Port of :mod:`spectralae.cli.main`, with the same flags (``bench``, which
-runs the JAX package's benchmark harness, is not ported yet: ROADMAP A16):
+Port of :mod:`spectralae.cli.main`, with the same flags:
 
   - ``spectralae-torch run``    — the reference's live loop on a frame
     source and a device (``--device``, default ``cuda``), with its 24
@@ -27,6 +26,11 @@ runs the JAX package's benchmark harness, is not ported yet: ROADMAP A16):
   - ``spectralae-torch doctor`` — environment report: versions, the
     native library, the card, the kernel build, and (unless
     ``--no-device``) one launch of K1 held against its plain version.
+  - ``spectralae-torch bench``  — the benchmark harness
+    (:mod:`spectralae_torch.bench`) on a device (``--device``, default
+    ``cuda``): every row of the JAX package's ``bench.py`` (``--quick``:
+    its small subset; ``--xl``: the 16384² rows), details in ``--out``,
+    the headline JSON line last.
 
 ``--source`` takes what the JAX CLI takes: ``synthetic``, ``camera``, a
 ``.y4m`` video, a ``.npy``/``.npz`` frame stack, a directory of PNGs, or
@@ -970,6 +974,11 @@ def cmd_doctor(args):
     print(json.dumps(info, indent=2), flush=True)
 
 
+def cmd_bench(args):
+    from .. import bench
+    bench.run(args)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="spectralae-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1193,6 +1202,11 @@ def main(argv=None):
                         "nvidia-smi) before reporting the device path as "
                         "hung")
     p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("bench", help="run the benchmark harness")
+    from .. import bench
+    bench.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

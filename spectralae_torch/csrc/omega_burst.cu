@@ -52,13 +52,19 @@
 //    (~73 KB) and runs three blocks an SM;
 //  - the spectra rebuild [64 rows x 32 p] . [32 p x 64 bins] and the
 //    projection [64 rows x 64 bins] . [64 bins x 32 p] as m64n64k16 and
-//    m64n32k16 wgmma from shared memory, rows padded 60 -> 64 and P 25 ->
-//    32 with zeros, cos on one warpgroup and sin on the other; operands as
-//    bf16 pieces (wgmma.cuh): with bf16 operands one product (the JAX
+//    m64n32k16 wgmma from shared memory, rows padded 60 -> 64 and P to
+//    whole chunks of 32 taps with zeros (5x5: 25 -> 32, one chunk; 13x13:
+//    169 -> 192, six), cos on one warpgroup and sin on the other; operands
+//    as bf16 pieces (wgmma.cuh): with bf16 operands one product (the JAX
 //    mxu_dtype), with float32 ones bf16x6 for the rebuild (bf16x3 left O
 //    8-9e-6 from the float32 product) and bf16x3 for the projection, each
-//    tile's projection fresh (the per-chunk promotion: the tensor cores
-//    truncate as they accumulate); never TF32;
+//    chunk's rebuild and each tile's projection fresh (the per-chunk
+//    promotion: the tensor cores truncate as they accumulate); never TF32;
+//  - a kernel of more than 32 taps (the JAX fused step takes any) runs the
+//    rebuild chunk by chunk, each chunk's operands through the same shared
+//    memory and its product added into the spectra, and the projection
+//    chunk by chunk into its own columns of g; one chunk is the 5x5 path
+//    unchanged;
 //  - the host lays the basis out once in the kernel's tile order, two
 //    copies ([bin][p] for the rebuild, [p][bin] for the projection), and
 //    a block takes its tile's by cp.async (K6 only the rebuild's, so B7's
@@ -109,7 +115,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxD = 4;
-constexpr int kMaxP = 32;
+constexpr int kMaxP = 32;      // taps a chunk of the contraction over p
+constexpr int kMaxChunks = 8;  // P <= kMaxP * kMaxChunks (13x13: 6 chunks)
 constexpr int kMaxRows = 64;   // 2 * M * D
 constexpr float kGradClip = 10.f;
 
@@ -126,7 +133,7 @@ constexpr int kCopy = kMaxP * kTB;   // elements of one (piece, cos|sin)
                                      // basis tile: 32 p x 64 bins
 
 struct Dims {
-  int nb, M, D, P, W, rows, ntiles;
+  int nb, M, D, P, W, rows, ntiles, nc;   // nc: chunks of kMaxP taps
   float norm, inv_m, inv_d, scale;
 };
 
@@ -136,8 +143,8 @@ enum Mode { kGradGivenO, kFwd, kFwdGrad, kItGivenO, kItFwd };
 
 bool make_dims(int nb, int M, int D, int P, int W, float norm, float inv_m,
                float inv_d, float scale, Dims* a) {
-  if (nb < 1 || M < 1 || D < 1 || D > kMaxD || P < 1 || P > kMaxP || W < 1 ||
-      2 * M * D > kMaxRows)
+  if (nb < 1 || M < 1 || D < 1 || D > kMaxD || P < 1 ||
+      P > kMaxP * kMaxChunks || W < 1 || 2 * M * D > kMaxRows)
     return false;
   a->nb = nb;
   a->M = M;
@@ -146,6 +153,7 @@ bool make_dims(int nb, int M, int D, int P, int W, float norm, float inv_m,
   a->W = W;
   a->rows = 2 * M * D;
   a->ntiles = (W + kTB - 1) / kTB;
+  a->nc = (P + kMaxP - 1) / kMaxP;
   a->norm = norm;
   a->inv_m = inv_m;
   a->inv_d = inv_d;
@@ -175,9 +183,10 @@ template <bool BF16> struct TcTiers {
   static constexpr int kProject = BF16 ? 0 : 1;
 };
 
-// elements of one tile's basis copies in global memory: the rebuild's
-// [piece][cos|sin][off32(bin, p)], then the projection's
-// [piece][cos|sin][tile_off(p, bin)]
+// elements of one chunk of kMaxP taps of one tile's basis copies in global
+// memory.  A tile's record holds the rebuild's copy, chunk by chunk
+// ([chunk][piece][cos|sin][off32(bin, p)]), then the projection's
+// ([chunk][piece][cos|sin][tile_off(p, bin)]): nc times these elements
 __host__ __device__ constexpr int tc_tile_elems(int rt, int pt) {
   return (wg::pieces(rt) + wg::pieces(pt)) * 2 * kCopy;
 }
@@ -469,34 +478,38 @@ constexpr int kOuts = (kMaxRows * kMaxP + 1 + kTC - 1) / kTC;
 constexpr int kBatch = 4;
 __device__ void sum_records(const float* src, int nrec, int n_total,
                             float* dst, int n_scaled, float scale) {
-  const int t = threadIdx.x;
-  float acc[kOuts];
+  // kOuts outputs a thread a pass: one pass up to 5 x 5 taps, more for
+  // the chunked contraction of larger kernels
+#pragma unroll 1
+  for (int base = threadIdx.x; base < n_total; base += kTC * kOuts) {
+    float acc[kOuts];
 #pragma unroll
-  for (int j = 0; j < kOuts; ++j) {
-    const int o = t + kTC * j;
-    acc[j] = o < n_total ? __ldcg(src + o) : 0.f;
-  }
-  for (int k0 = 1; k0 < nrec; k0 += kBatch) {
-    float v[kBatch][kOuts];
+    for (int j = 0; j < kOuts; ++j) {
+      const int o = base + kTC * j;
+      acc[j] = o < n_total ? __ldcg(src + o) : 0.f;
+    }
+    for (int k0 = 1; k0 < nrec; k0 += kBatch) {
+      float v[kBatch][kOuts];
 #pragma unroll
-    for (int kk = 0; kk < kBatch; ++kk)
+      for (int kk = 0; kk < kBatch; ++kk)
 #pragma unroll
-      for (int j = 0; j < kOuts; ++j) {
-        const int o = t + kTC * j;
-        v[kk][j] = (k0 + kk < nrec && o < n_total)
-                       ? __ldcg(src + (size_t)(k0 + kk) * n_total + o)
-                       : 0.f;
-      }
+        for (int j = 0; j < kOuts; ++j) {
+          const int o = base + kTC * j;
+          v[kk][j] = (k0 + kk < nrec && o < n_total)
+                         ? __ldcg(src + (size_t)(k0 + kk) * n_total + o)
+                         : 0.f;
+        }
 #pragma unroll
-    for (int kk = 0; kk < kBatch; ++kk)
-      if (k0 + kk < nrec)
+      for (int kk = 0; kk < kBatch; ++kk)
+        if (k0 + kk < nrec)
 #pragma unroll
-        for (int j = 0; j < kOuts; ++j) acc[j] += v[kk][j];
-  }
+          for (int j = 0; j < kOuts; ++j) acc[j] += v[kk][j];
+    }
 #pragma unroll
-  for (int j = 0; j < kOuts; ++j) {
-    const int o = t + kTC * j;
-    if (o < n_total) dst[o] = o < n_scaled ? acc[j] * scale : acc[j];
+    for (int j = 0; j < kOuts; ++j) {
+      const int o = base + kTC * j;
+      if (o < n_total) dst[o] = o < n_scaled ? acc[j] * scale : acc[j];
+    }
   }
 }
 
@@ -613,39 +626,48 @@ __device__ __forceinline__ void tc_tile(
   Frame first;
   load_frame<MODE, D>(first, planes, a, 0, tile * kTB + t / kTPB);
 
-  // the tile's basis copies, by cp.async: the rebuild's, then the
-  // projection's (waited for only before the projection)
-  const __nv_bfloat16* src = tiles + (size_t)tile * tc_tile_elems(RT, PT);
-  for (int c = t; c < RP * 2 * kCopy / 8; c += kTC)
-    wg::cp_async16(s.rs + 8 * c, src + 8 * c);
-  wg::cp_async_commit();
-  if (project) {
-    src += RP * 2 * kCopy;
-    for (int c = t; c < T::PP * 2 * kCopy / 8; c += kTC)
-      wg::cp_async16(s.ps + 8 * c, src + 8 * c);
-  }
-  wg::cp_async_commit();
-  // the compact kernels' pieces: A of the rebuild, rows x P (K = 32)
-  for (int e = t; e < kMaxRows * (kMaxP / 8); e += kTC) {
-    const int j = e >> 2, k0 = 8 * (e & 3);
-    float v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k] = (j < a.rows && k0 + k < a.P) ? cf[j * a.P + k0 + k] : 0.f;
-    __nv_bfloat16* dst[RP];
-#pragma unroll
-    for (int i = 0; i < RP; ++i)
-      dst[i] = s.cfs + i * kMaxRows * kMaxP + off32(j, k0);
-    wg::store_row8<RP>(v, dst);
-  }
-  wg::cp_async_wait<1>();
-  wg::fence_stores();
-  __syncthreads();
-
-  // the spectra: [rows x 32] . [32 x 64 bins], warpgroup 0 against cos
-  // (the real parts), warpgroup 1 against sin (minus the imaginary parts)
+  // the tile's basis copies, by cp.async, a chunk of kMaxP taps at a
+  // time: the rebuild's, and with the first chunk the projection's first
+  // (waited for only before the projection)
+  const __nv_bfloat16* rsrc =
+      tiles + (size_t)tile * a.nc * tc_tile_elems(RT, PT);
+  const __nv_bfloat16* psrc = rsrc + (size_t)a.nc * RP * 2 * kCopy;
   const int wgi = t / 128;
-  {
+#pragma unroll 1
+  for (int c = 0; c < a.nc; ++c) {
+    if (c) __syncthreads();   // both warpgroups done with the last chunk
+    for (int q = t; q < RP * 2 * kCopy / 8; q += kTC)
+      wg::cp_async16(s.rs + 8 * q, rsrc + (size_t)c * RP * 2 * kCopy + 8 * q);
+    wg::cp_async_commit();
+    if (project && c == 0)
+      for (int q = t; q < T::PP * 2 * kCopy / 8; q += kTC)
+        wg::cp_async16(s.ps + 8 * q, psrc + 8 * q);
+    wg::cp_async_commit();
+    // the compact kernels' pieces: A of the rebuild, rows x the chunk's
+    // taps (K = 32)
+    const int p0 = c * kMaxP;
+    for (int e = t; e < kMaxRows * (kMaxP / 8); e += kTC) {
+      const int j = e >> 2, k0 = p0 + 8 * (e & 3);
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = (j < a.rows && k0 + k < a.P) ? cf[j * a.P + k0 + k] : 0.f;
+      __nv_bfloat16* dst[RP];
+#pragma unroll
+      for (int i = 0; i < RP; ++i)
+        dst[i] = s.cfs + i * kMaxRows * kMaxP + off32(j, k0 - p0);
+      wg::store_row8<RP>(v, dst);
+    }
+    // this chunk's rebuild copy (and, at the first, nothing else) landed
+    wg::cp_async_wait<1>();
+    wg::fence_stores();
+    __syncthreads();
+
+    // the spectra: [rows x 32] . [32 x 64 bins], warpgroup 0 against cos
+    // (the real parts), warpgroup 1 against sin (minus the imaginary
+    // parts); each chunk accumulates afresh and is added into sr/si with
+    // IEEE adds (the per-chunk promotion: the tensor cores truncate as
+    // they accumulate)
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -670,7 +692,10 @@ __device__ __forceinline__ void tc_tile(
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
-      if (r < a.rows) dst[r * kTBS + col] = wgi ? -acc[i] : acc[i];
+      if (r < a.rows) {
+        const float v = wgi ? -acc[i] : acc[i];
+        dst[r * kTBS + col] = c ? dst[r * kTBS + col] + v : v;
+      }
     }
   }
   __syncthreads();
@@ -696,40 +721,56 @@ __device__ __forceinline__ void tc_tile(
   wg::fence_stores();
   __syncthreads();
 
-  // the projection, fresh for this tile: warpgroup 0 d_re [rows x 64] .
-  // cos [64 x 32 p], warpgroup 1 -d_im against sin; then the two added in
-  // that order (warpgroup 1's through region X, free after staging)
-  float g[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) g[i] = 0.f;
-  wg::pin(g);
-  wg::fence();
-#pragma unroll
-  for (int ks = 0; ks < kTB / 16; ++ks)
-#pragma unroll
-    for (int p = 0; p < wg::products(PT); ++p)
-      wg::mma_m64n32k16(
-          g,
-          wg::desc(s.as + wg::prod_a(PT, p) * 2 * kMaxRows * kTB +
-                   wgi * kMaxRows * kTB + ks * 128),
-          wg::desc(s.ps + wg::prod_b(PT, p) * 2 * kCopy + wgi * kCopy +
-                   ks * 128),
-          (ks == 0 && p == 0) ? 0 : 1);
-  wg::commit();
-  wg::wait_all();
-  wg::pin(g);
+  // the projection, fresh for this tile, a chunk of kMaxP taps at a time
+  // (each chunk's projection copy loaded after the last one's products):
+  // warpgroup 0 d_re [rows x 64] . cos [64 x 32 p], warpgroup 1 -d_im
+  // against sin; then the two added in that order (warpgroup 1's through
+  // region X, free after staging)
   float* xch = s.ar;   // [16][128]: warpgroup 1's sums, thread-private
-  if (wgi) {
+#pragma unroll 1
+  for (int c = 0; c < a.nc; ++c) {
+    if (c) {
+      __syncthreads();   // both warpgroups done with s.ps and xch
+      for (int q = t; q < T::PP * 2 * kCopy / 8; q += kTC)
+        wg::cp_async16(s.ps + 8 * q,
+                       psrc + (size_t)c * T::PP * 2 * kCopy + 8 * q);
+      wg::cp_async_commit();
+      wg::cp_async_wait<0>();
+      wg::fence_stores();
+      __syncthreads();
+    }
+    float g[16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) xch[i * 128 + t - 128] = g[i];
-  }
-  __syncthreads();
-  if (!wgi) {
+    for (int i = 0; i < 16; ++i) g[i] = 0.f;
+    wg::pin(g);
+    wg::fence();
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int r = wg::acc_row(t, i), col = wg::acc_col(t, i);
-      if (r < a.rows && col < a.P)
-        rec[r * a.P + col] = g[i] + xch[i * 128 + t];
+    for (int ks = 0; ks < kTB / 16; ++ks)
+#pragma unroll
+      for (int p = 0; p < wg::products(PT); ++p)
+        wg::mma_m64n32k16(
+            g,
+            wg::desc(s.as + wg::prod_a(PT, p) * 2 * kMaxRows * kTB +
+                     wgi * kMaxRows * kTB + ks * 128),
+            wg::desc(s.ps + wg::prod_b(PT, p) * 2 * kCopy + wgi * kCopy +
+                     ks * 128),
+            (ks == 0 && p == 0) ? 0 : 1);
+    wg::commit();
+    wg::wait_all();
+    wg::pin(g);
+    if (wgi) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) xch[i * 128 + t - 128] = g[i];
+    }
+    __syncthreads();
+    if (!wgi) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = wg::acc_row(t, i);
+        const int col = c * kMaxP + wg::acc_col(t, i);
+        if (r < a.rows && col < a.P)
+          rec[r * a.P + col] = g[i] + xch[i * 128 + t];
+      }
     }
   }
   if (t == 0) rec[n] = s.red[0] / (float)a.nb;

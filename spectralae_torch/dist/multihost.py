@@ -41,6 +41,10 @@ import torch.distributed as dist
 from . import collectives
 
 
+_NO_CARD = ("{fn}: torch finds no CUDA device; pass device=\"cpu\" to run "
+            "the ranks on the CPU")
+
+
 def init_multihost(coordinator: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None, *,
@@ -62,8 +66,9 @@ def init_multihost(coordinator: str | None = None,
     ``num_processes``.
 
     ``device``: the rank's device, made the current one; by default, and
-    for ``"cuda"`` with no index, the card of its local index when CUDA is
-    available, else the CPU.
+    for ``"cuda"`` with no index, the card of its local index.  With no
+    card it raises: CPU ranks pass ``device="cpu"`` (there is no fallback
+    to the CPU).
 
     ``backend``: by default NCCL when the device is a card and this host
     has a card for each of its ranks, else gloo: CPU ranks, or more ranks
@@ -83,9 +88,9 @@ def init_multihost(coordinator: str | None = None,
     else:
         local = local_processes or max(1, min(num_processes or 1, cards))
         local_rank = (process_id or 0) % local
-    if device is None:
-        device = "cuda" if cards else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not cards:
+        raise RuntimeError(_NO_CARD.format(fn="init_multihost"))
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local_rank % max(cards, 1))
     if backend is None:
@@ -148,7 +153,7 @@ def _rank_main(fn, rank, world, url, device, backend, timeout, args,
 
 
 def spawn_ranks(fn, world: int, args: tuple = (), *,
-                device: torch.device | str = "cpu",
+                device: torch.device | str | None = None,
                 timeout: float = 180.0) -> list:
     """Run ``fn(rank, *args)`` on ``world`` ranks of one process group and
     return their results in rank order.
@@ -158,18 +163,21 @@ def spawn_ranks(fn, world: int, args: tuple = (), *,
     thread, joined by :func:`init_multihost` over a ``FileStore`` in a
     fresh temporary directory (no TCP port, so concurrent runs cannot
     collide).  ``fn`` and its results must pickle; ``fn`` must live in a
-    module the ranks can import.  ``device``: ``"cuda"`` for a card a rank
-    (NCCL when the host has enough, else gloo), one card (``"cuda:0"``)
-    that every rank shares over gloo, or the CPU (gloo).  Every collective waits at most ``timeout``
-    seconds, and so does the whole run: a rank that raises, dies or hangs
-    ends the run, every rank is killed, and the first traceback is raised
-    as a RuntimeError.
+    module the ranks can import.  ``device``: ``"cuda"`` (the default) for
+    a card a rank (NCCL when the host has enough, else gloo), one card
+    (``"cuda:0"``) that every rank shares over gloo, or ``"cpu"`` (gloo);
+    with no card and no ``"cpu"`` it raises before it starts a rank.
+    Every collective waits at most ``timeout`` seconds, and so does the
+    whole run: a rank that raises, dies or hangs ends the run, every rank
+    is killed, and the first traceback is raised as a RuntimeError.
     """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(_NO_CARD.format(fn="spawn_ranks"))
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="spectralae_ranks_")
     out = ctx.Queue()
     url = f"file://{tmp}/store"
-    dev = torch.device(device)
     backend = ("gloo" if world > 1 and dev.type == "cuda"
                and dev.index is not None else None)
     procs = [ctx.Process(target=_rank_main, daemon=True,

@@ -49,12 +49,14 @@ from ..optim.update import burst_inertia
 LAUNCHES = {"grad_project": 0, "respectra_conv": 0, "fused_step": 0,
             "itergrid": 0}
 
-# the shapes the kernels take (csrc/omega_burst.cu: kMaxD, kMaxP, kMaxRows)
-_MAX_D, _MAX_P, _MAX_ROWS = 4, 32, 64
+# the shapes the kernels take (csrc/omega_burst.cu: kMaxD, kMaxP ·
+# kMaxChunks, kMaxRows)
+_MAX_D, _MAX_P, _MAX_ROWS = 4, 256, 64
 
-#: the tensor-core sweep of K5-K8 (csrc/omega_burst.cu kTB, kTG): bins a
-#: tile, and tiles a group of the fixed-order sum of their partials
-TC_TILE, TC_GROUP = 64, 16
+#: the tensor-core sweep of K5-K8 (csrc/omega_burst.cu kTB, kTG, kMaxP):
+#: bins a tile, tiles a group of the fixed-order sum of their partials, and
+#: taps a chunk of the contraction over p (13×13 kernels take six chunks)
+TC_TILE, TC_GROUP, TC_TAPS = 64, 16, 32
 #: the JAX dot tiers of K5-K8's basis products on the tensor cores,
 #: (spectra rebuild, projection), by ``mxu_bf16``: one bf16 product (the
 #: JAX ``mxu_dtype``) for bf16 operands; for float32 ones bf16×6
@@ -69,21 +71,24 @@ def basis_tiles(basis: torch.Tensor, bf16: bool) -> torch.Tensor:
     tile of :data:`TC_TILE` bins, the rebuild's copy (``[bin][p]``, p the
     contraction) split into its tier's bf16 pieces, then the projection's
     (``[p][bin]``, bins the contraction) into its tier's
-    (:data:`TC_TIERS`), each piece cos then sin, P padded to 32 and W to
-    whole tiles with zeros, in the kernels' core-matrix order
-    (``csrc/wgmma.cuh``): ``[tiles, pieces · 2 · 32 · TC_TILE]`` bf16."""
+    (:data:`TC_TIERS`), each copy chunk by chunk of :data:`TC_TAPS` taps,
+    each chunk piece by piece, each piece cos then sin, P padded to whole
+    chunks and W to whole tiles with zeros, in the kernels' core-matrix
+    order (``csrc/wgmma.cuh``): ``[tiles, chunks · pieces · 2 · TC_TAPS ·
+    TC_TILE]`` bf16.  One chunk (P <= 32) is the layout of one copy of
+    pieces."""
     _, P, W = basis.shape
-    nt = -(-W // TC_TILE)
+    nt, nc = -(-W // TC_TILE), -(-P // TC_TAPS)
     with torch.inference_mode(False):
-        z = basis.new_zeros(2, _MAX_P, nt * TC_TILE)
+        z = basis.new_zeros(2, nc * TC_TAPS, nt * TC_TILE)
         z[:, :P, :W] = basis
-        pt = z.reshape(2, _MAX_P, nt, TC_TILE).permute(2, 0, 1, 3)  # t,cs,p,u
-        out = []
+        pt = z.reshape(2, nc, TC_TAPS, nt, TC_TILE).permute(3, 1, 0, 2, 4)
+        out = []                                        # pt: t,c,cs,p,u
         for copy, prec in zip((pt.transpose(-1, -2), pt), TC_TIERS[bf16]):
-            for piece in fft_kernels.pieces(copy,
-                                            fft_kernels._TIERS[prec] + 1):
-                out.append(fft_kernels.core_order(piece.to(torch.bfloat16))
-                           .reshape(nt, -1))
+            pieces = fft_kernels.pieces(copy, fft_kernels._TIERS[prec] + 1)
+            out.append(torch.stack([fft_kernels.core_order(
+                piece.to(torch.bfloat16)) for piece in pieces], 2)
+                .reshape(nt, -1))                       # t,c,piece,cs,x
         return torch.cat(out, 1).contiguous()
 
 
@@ -379,6 +384,7 @@ def _o_out(out, planes, nb, D, W):
     return out
 
 
+@_kernels.opaque
 def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
                  mxu_bf16: bool = False):
     """Projected gradients of one burst iteration from O (K5).
@@ -413,6 +419,7 @@ def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
     return out[:rows * P].view(rows, P), dbdp[:M], dbdp[M:]
 
 
+@_kernels.opaque
 def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
                    inv_d: float, mxu_bf16: bool = False, out=None):
     """The two-stage conv of an updated kernel pair and its MSE (K6).
@@ -448,6 +455,7 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
     return O, mse[0]
 
 
+@_kernels.opaque
 def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
                inv_d: float, scale: float, mxu_bf16: bool = False, out=None):
     """K6 and then K5 on the fresh O, in one sweep (K7).
@@ -484,6 +492,7 @@ def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
             dbdp[M:])
 
 
+@_kernels.opaque
 def itergrid(planes, basis, wv, cf, b, p, mcf, mb, mp, *, iters: int,
              norm: float, inv_m: float, inv_d: float, scale: float,
              lr_eff: float, alpha: float, mxu_bf16: bool = False):

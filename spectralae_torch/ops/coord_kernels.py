@@ -146,6 +146,7 @@ def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"conv_valid runs on cpu or cuda, not {xpad.device}")
 
 
+@_kernels.opaque
 def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One valid correlation of float32 operands (checked by
     :func:`_check_valid`), through the operator (:func:`conv_valid_op`, by

@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import _kernels
+
 
 @contextlib.contextmanager
 def ieee_f32():
@@ -53,8 +55,11 @@ def kernel_route(x: torch.Tensor) -> bool:
     on either device while ``torch.export`` traces — the graph then holds
     the kernel's operator, which runs the kernel on the card and its plain
     version on the CPU (the port's counterpart of JAX's multi-platform
-    lowering)."""
-    return x.is_cuda or torch.compiler.is_exporting()
+    lowering) — or while a hook sees every kernel wrapper's call
+    (:data:`spectralae_torch._kernels.HOOK`), so that it meets the same
+    kernel calls on either device."""
+    return (x.is_cuda or torch.compiler.is_exporting()
+            or _kernels.hooked())
 
 
 def call_operator(op, kernels: dict, *args):

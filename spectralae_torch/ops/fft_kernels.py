@@ -489,6 +489,7 @@ def _launch(entry: str, key: str, xr, xi, kind: str, n: int, outs,
     LAUNCHES[key] += 1
 
 
+@_kernels.opaque
 def _bfly_lanes(xr, xi, n: int):
     """One DIF radix-4 round along lanes (B5c): ``[BD, R, n] → [BD, 4, R,
     n/4]`` twiddled streams, float32 (``xi=None`` for real input)."""
@@ -504,6 +505,7 @@ def _bfly_lanes(xr, xi, n: int):
     return tuple(outs)
 
 
+@_kernels.opaque
 def _bfly_rows(yr, yi, n: int):
     """One DIF radix-4 round along rows (B5d): ``[BD, n, L] → [BD, 4, n/4,
     L]``."""
@@ -517,6 +519,7 @@ def _bfly_rows(yr, yi, n: int):
     return tuple(outs)
 
 
+@_kernels.opaque
 def _y_leaf(xr, xi, precision=None):
     """The y-leaf (B5a real, B5e complex): ``[BD, R, n] → [BD, 4, R,
     k1p]``; on the card at :func:`tier` ``(precision)``, on the CPU in
@@ -619,18 +622,25 @@ def fft_x_mixed(Yre: torch.Tensor, Yim: torch.Tensor, *, precision=None,
         sr, si = fft_x_mixed(Br.reshape(-1, m, L), Bi.reshape(-1, m, L),
                              precision=precision, out_dtype=out_dtype)
         return sr.reshape(lead + (nx, L)), si.reshape(lead + (nx, L))
-    if not _on_card(yr, "fft_x_mixed"):
-        sr, si = fft_x_mixed_plain(yr, yi, out_dtype)
-    else:
-        BD = yr.shape[0]
-        out = torch.float32 if out_dtype is None else out_dtype
-        outs = [torch.empty((BD, nx, L), dtype=out, device=yr.device)
-                for _ in range(2)]
-        _launch("fft_x_leaf_launch", "fft_x_mixed", _f32(yr), _f32(yi), "x",
-                nx, outs, BD, nx, L, int(out == torch.bfloat16),
-                precision=tier(precision))
-        sr, si = outs
+    sr, si = _x_leaf(yr, yi, out_dtype, precision)
     return sr.reshape(lead + (nx, L)), si.reshape(lead + (nx, L))
+
+
+@_kernels.opaque
+def _x_leaf(yr, yi, out_dtype, precision):
+    """The x-leaf (B5b): ``[BD, nx, L] → [BD, nx, L]`` in mixed row order,
+    float32 or ``out_dtype``; on the card at :func:`tier` ``(precision)``,
+    on the CPU in float32."""
+    if not _on_card(yr, "fft_x_mixed"):
+        return fft_x_mixed_plain(yr, yi, out_dtype)
+    BD, nx, L = yr.shape
+    out = torch.float32 if out_dtype is None else out_dtype
+    outs = [torch.empty((BD, nx, L), dtype=out, device=yr.device)
+            for _ in range(2)]
+    _launch("fft_x_leaf_launch", "fft_x_mixed", _f32(yr), _f32(yi), "x",
+            nx, outs, BD, nx, L, int(out == torch.bfloat16),
+            precision=tier(precision))
+    return tuple(outs)
 
 
 def rfft2_mixed(x: torch.Tensor, *, precision=None, out_dtype=None,

@@ -184,6 +184,7 @@ def _check_contract(p, q, bias) -> None:
                              f"{tuple(bias.shape)} on {bias.device}")
 
 
+@_kernels.opaque
 def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
                   p_scale: float = 1.0, conj_q: bool = False,
                   bias: torch.Tensor | None = None,

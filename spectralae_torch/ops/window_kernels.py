@@ -357,6 +357,7 @@ def _consts_on(kind: str, nx: int, ny: int, a: int, b: int,
         return torch.as_tensor(flat, device=device)
 
 
+@_kernels.opaque
 def corr_pair_windows(X: torch.Tensor, Z: torch.Tensor, nx: int, ny: int,
                       hx: int, hy: int) -> torch.Tensor:
     """Batch-mean centred lag windows of ``conj(X[b,d])·Z[b,e]`` (K3).
@@ -455,6 +456,7 @@ def anchor_windows_plain(X: torch.Tensor, K0taps: torch.Tensor, nx: int,
             EGw.reshape(D, D, 2 * hx2 + 1, 2 * hy2 + 1), seg, e0)
 
 
+@_kernels.opaque
 def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
                    hx2: int, hy2: int, s1: float, *, row_slab=None,
                    signal_dtype=None, mixed: bool = False):

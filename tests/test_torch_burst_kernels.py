@@ -7,8 +7,9 @@ imports no JAX, so it runs on a machine that has none::
     python -m pytest tests/test_torch_burst_kernels.py -m cuda --noconftest
 
 Shapes: the default net's pair 0 (D=3, M=10, 5x5) at the JAX benchmark's
-headline (one 256² frame, W = 33,024) and smaller, and a small net (D=2,
-M=4, 3x3), at one and several frames; W = 840 and 220 leave a masked tail
+headline (one 256² frame, W = 33,024) and smaller, a small net (D=2,
+M=4, 3x3), at one and several frames, and 7x7 and 13x13 kernels (49 and
+169 taps: the contraction over taps in chunks of 32); W = 840 and 220 leave a masked tail
 in the kernels' 64-bin tiles, W = 2,112 and 33,024 fill whole tiles (516
 at the headline: K8's grid strides over them).  Tolerances,
 norm-relative: 1e-5 for g, O and the MSE sums (the same float32 products
@@ -31,6 +32,11 @@ SHAPES = [  # (nb, D, M, nk, n): W = n·(n/2+1)
     (1, 3, 10, 5, 64),     # W = 2,112
     (4, 3, 10, 5, 40),     # W = 840
     (3, 2, 4, 3, 20),      # W = 220
+    # more than 32 taps, the contraction in chunks of 32: 7x7 (two chunks),
+    # 13x13 (six) at a masked tail and at the headline
+    (2, 3, 10, 7, 40),
+    (1, 3, 10, 13, 32),    # W = 544
+    (1, 3, 10, 13, 256),
 ]
 
 
@@ -194,10 +200,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         bk.grad_project(s.planes.double(), s.basis, s.wv, cf, b, norm=1.0,
                         scale=1.0)
-    basis7 = torch.zeros(2, 49, s.planes.shape[-1], device=cuda_device)
-    with pytest.raises(ValueError, match="P <= 32"):   # 7x7 kernels
-        bk.grad_project(s.planes, basis7, s.wv,
-                        torch.zeros(60, 49, device=cuda_device), b,
+    basis17 = torch.zeros(2, 289, s.planes.shape[-1], device=cuda_device)
+    with pytest.raises(ValueError, match="P <= 256"):   # 17x17 kernels
+        bk.grad_project(s.planes, basis17, s.wv,
+                        torch.zeros(60, 289, device=cuda_device), b,
                         norm=1.0, scale=1.0)
 
 

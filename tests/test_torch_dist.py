@@ -62,7 +62,7 @@ def rel(got, want) -> float:
 def ranks(request):
     """``(n_data, n_model, [each rank's results])``."""
     nd, nm = request.param
-    res = spawn_ranks(worker.run_mesh, nd * nm, (nd, nm),
+    res = spawn_ranks(worker.run_mesh, nd * nm, (nd, nm), device="cpu",
                       timeout=SPAWN_TIMEOUT)
     return nd, nm, res
 
@@ -607,9 +607,10 @@ def test_axes_take_process_groups():
 
 
 # (cards, LOCAL_WORLD_SIZE/LOCAL_RANK of torchrun, init_multihost's
-# arguments) -> (the rank's device, the backend)
+# arguments) -> (the rank's device, the backend), or None where it raises
 BACKEND_CASES = [
-    (0, None, dict(num_processes=2, process_id=1), ("cpu", "gloo")),
+    # no card and no device: no fallback to the CPU
+    (0, None, dict(num_processes=2, process_id=1), None),
     # two hosts of eight cards: rank 11 is the fourth of its host
     (8, None, dict(num_processes=16, process_id=11), ("cuda:3", "nccl")),
     (8, ("8", "3"), dict(), ("cuda:3", "nccl")),
@@ -648,6 +649,11 @@ def test_init_multihost_picks_the_card_and_backend(monkeypatch, cards, env,
     if env is None:
         monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
         monkeypatch.delenv("LOCAL_RANK", raising=False)
+    if want is None:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            multihost.init_multihost("file:///unused", **kw)
+        assert "pg" not in calls
+        return
     device, backend = want
     assert multihost.init_multihost("file:///unused", **kw) == backend
     assert calls["pg"] == backend
@@ -658,4 +664,14 @@ def test_spawn_ranks_reports_a_failing_rank():
     """A rank that raises ends the run at once with its traceback, and the
     other rank, left waiting in a collective, is killed."""
     with pytest.raises(RuntimeError, match="rank 1 raised"):
+        spawn_ranks(worker.fail_on_rank_one, 2, device="cpu", timeout=60.0)
+
+
+def test_spawn_ranks_raises_without_a_card(monkeypatch):
+    """With no device given and no card, spawn_ranks raises before it
+    starts a rank (no fallback to the CPU); device="cpu" is the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         spawn_ranks(worker.fail_on_rank_one, 2, timeout=60.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        spawn_ranks(worker.fail_on_rank_one, 2, device="cuda", timeout=60.0)

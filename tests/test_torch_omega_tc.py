@@ -71,34 +71,38 @@ def _off64(r, k):
 
 def _read_back(tiles, bf16, P, W):
     """The two copies' pieces ``[pieces, 2, P, W]`` as the kernel reads
-    them: tile t, piece i, cos|sin cs, (bin u, p) at ``off32(u, p)`` of the
-    rebuild's copy and at ``_off64(p, u)`` of the projection's."""
+    them: tile t, chunk c of 32 taps, piece i, cos|sin cs, (bin u, tap
+    32·c + p) at ``off32(u, p)`` of the rebuild's copy and at
+    ``_off64(p, u)`` of the projection's, each copy's chunks in order."""
     T, n = bk.TC_TILE, 32 * bk.TC_TILE
     np_r, np_p = (fk._TIERS[q] + 1 for q in bk.TC_TIERS[bf16])
-    nt = tiles.shape[0]
+    nt, nc = tiles.shape[0], -(-P // 32)
     u = torch.arange(T)[:, None]
     p = torch.arange(32)[None, :]
-    rcopy = tiles[:, :np_r * 2 * n].reshape(nt, np_r, 2, n)
-    pcopy = tiles[:, np_r * 2 * n:].reshape(nt, np_p, 2, n)
-    r = rcopy[..., _off32(u, p)]                    # [t, i, cs, u, p]
+    rcopy = tiles[:, :nc * np_r * 2 * n].reshape(nt, nc, np_r, 2, n)
+    pcopy = tiles[:, nc * np_r * 2 * n:].reshape(nt, nc, np_p, 2, n)
+    r = rcopy[..., _off32(u, p)]                    # [t, c, i, cs, u, p]
     q = pcopy[..., _off64(p, u)]
     out = []
     for c in (r, q):
-        c = c.float().permute(1, 2, 4, 0, 3).reshape(c.shape[1], 2, 32,
-                                                     nt * T)
+        c = c.float().permute(2, 3, 1, 5, 0, 4).reshape(c.shape[2], 2,
+                                                        nc * 32, nt * T)
         assert not c[:, :, P:].any() and not c[..., W:].any()   # the padding
         out.append(c[:, :, :P, :W])
     return out
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("P,W", [(25, 2112), (9, 220), (25, 33024)])
+@pytest.mark.parametrize("P,W", [(25, 2112), (9, 220), (25, 33024),
+                                 (49, 2112), (169, 544)])
 def test_basis_tiles_read_back_to_the_basis(bf16, P, W):
     gen = torch.Generator().manual_seed(P + W)
     basis = torch.rand(2, P, W, generator=gen) * 2 - 1
     tiles = bk.basis_tiles(basis, bf16)
     assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
     assert tiles.shape[0] == -(-W // bk.TC_TILE)
+    n_r, n_p = (fk._TIERS[q] + 1 for q in bk.TC_TIERS[bf16])
+    assert tiles.shape[1] == -(-P // 32) * (n_r + n_p) * 2 * 32 * bk.TC_TILE
     for pieces, prec in zip(_read_back(tiles, bf16, P, W), bk.TC_TIERS[bf16]):
         n = fk._TIERS[prec] + 1
         assert pieces.shape[0] == n
@@ -211,6 +215,8 @@ SHAPES = {  # (nb, D, M, nk, n)
     "64x64 b1, W=2112": (1, 3, 10, 5, 64),
     "40x40 b4, W=840": (4, 3, 10, 5, 40),
     "20x20 b3 D=2 M=4 3x3, W=220": (3, 2, 4, 3, 20),
+    # 13x13 kernels: 169 taps, six chunks of 32 (the 13x13 fused burst)
+    "32x32 b1 13x13, W=544": (1, 3, 10, 13, 32),
 }
 
 
