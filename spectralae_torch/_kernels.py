@@ -26,7 +26,7 @@ that choice is made by the wrappers, never here.
 :func:`opaque` marks each kernel's wrapper (the function that launches the
 kernel on a CUDA tensor and runs its plain version on a CPU one), so that
 a caller may see each of its calls as one unit on either device
-(:data:`HOOK`).
+(:data:`HOOK`), and the recorder counts them.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from .core import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: streaming multiprocessors of the card the launch plans are sized for
@@ -244,11 +246,27 @@ def hooked() -> bool:
     return HOOK is not None
 
 
+#: how deep this thread is inside kernel wrappers' calls the recorder counts
+_depth = threading.local()
+
+
 def opaque(fn):
     """Mark ``fn`` as a kernel's wrapper: called as it is, or, while a
-    :data:`HOOK` is set, through ``HOOK(fn, args, kwargs)``."""
+    :data:`HOOK` is set, through ``HOOK(fn, args, kwargs)``.  While the
+    recorder is on (:mod:`spectralae_torch.core.profiling`), each call
+    counts under ``kernel.<name>``; a wrapper that another wrapper calls is
+    part of the outer call, as the roofline tally's boundary counts it."""
+    name = "kernel." + fn.__name__
+
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        if profiling.recording and not getattr(_depth, "n", 0):
+            profiling.count(name)
+            _depth.n = 1
+            try:
+                return call(*args, **kwargs)
+            finally:
+                _depth.n = 0
         hook = HOOK
         if hook is None:
             return fn(*args, **kwargs)

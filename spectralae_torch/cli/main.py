@@ -349,7 +349,9 @@ def _train_steps(args, device):
     metrics = MetricsLogger(args.metrics or None)
     pf = pipeline.DevicePrefetcher(src, args.nx, args.ny, batch=args.batch,
                                    device=device)
-    t_start = time.perf_counter()
+    # the previous log line's step and the host clock after its loss read:
+    # steps_per_sec is the rate since then (None on the first line)
+    last_log = None
     last_step = start_step
     # last params/opt verified finite at a log step — what we roll back to
     # (and save) on divergence, so NaN updates applied between log steps
@@ -372,6 +374,7 @@ def _train_steps(args, device):
             # stay queued behind the prefetcher
             if step_i % args.log_every == 0:
                 loss = float(res.loss)
+                t_read = time.perf_counter()
                 if not math.isfinite(loss):
                     print(json.dumps({"step": step_i,
                                       "error": "non-finite loss",
@@ -384,9 +387,11 @@ def _train_steps(args, device):
             params, opt = res.params, res.opt
             last_step = step_i + 1
             if step_i % args.log_every == 0:
+                rate = (None if last_log is None else
+                        (step_i - last_log[0]) / (t_read - last_log[1]))
+                last_log = (step_i, t_read)
                 metrics.log(step=step_i, loss=loss, domain=args.domain,
-                            steps_per_sec=(step_i + 1)
-                            / (time.perf_counter() - t_start))
+                            steps_per_sec=rate)
             if (args.ckpt and args.ckpt_every > 0 and step_i
                     and step_i % args.ckpt_every == 0):
                 # stamp the step REACHED (params already applied step_i's
@@ -1144,7 +1149,8 @@ def main(argv=None):
     p.add_argument("--metrics", default="")
     p.add_argument("--trace", default="",
                    help="capture a torch.profiler trace of the run into "
-                        "this directory (trace.json)")
+                        "this directory (trace.json), and the train step's "
+                        "spans and counters (spans.json)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("export",

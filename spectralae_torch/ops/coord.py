@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core import profiling
 from ..core.config import TapMode, tap_anchor
 from .dft import ieee_f32, kernel_route
 
@@ -86,7 +87,16 @@ def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
 
     Reference: ``Conv`` netlib.cpp:318-358 (tap_mode='ref_cpu'),
     ``Conv_gpu``/``conv_parallel`` backproplib.cu:70-182 (tap_mode='ref_gpu').
+
+    The span ``coord_conv``, its backward ``coord_conv.grad``; each call
+    counts ``coord_conv.k2`` or ``coord_conv.cudnn`` by its route.
     """
+    with profiling.span("coord_conv"):
+        y = _conv2d(x, c, b, tap_mode, scale_by_dm, act, pallas, m_global)
+    return profiling.grad_span("coord_conv.grad", y, x, c, b)
+
+
+def _conv2d(x, c, b, tap_mode, scale_by_dm, act, pallas, m_global):
     shape = (m_global or c.shape[0],) + tuple(c.shape[1:])
     _, _, nk, nl = c.shape
     if scale_by_dm:
@@ -102,6 +112,7 @@ def conv2d(x: torch.Tensor, c: torch.Tensor, b: torch.Tensor | None = None,
     xpad = F.pad(x, (left, right, top, bottom))
     if pallas is None:
         pallas = _auto_conv_kernel(x, shape)
+    profiling.count("coord_conv.k2" if pallas else "coord_conv.cudnn")
     if pallas:
         from .coord_kernels import conv_valid
         # the kernel computes in float32; the stage keeps x's dtype
@@ -148,13 +159,15 @@ def pool(x: torch.Tensor, scale: int, *,
 
     Matches the reference's single ``Pool`` entry point (netlib.cpp:114);
     ``quantize`` selects the executed reference's integer-truncated
-    downsample (see :func:`max_pool` — upsampling never truncates).
+    downsample (see :func:`max_pool` — upsampling never truncates).  A
+    resize is the span ``pool``, its backward ``pool.grad``.
     """
-    if scale > 1:
-        return max_pool(x, scale, quantize=quantize)
-    if scale < -1:
-        return nn_upsample(x, -scale)
-    return x
+    if -1 <= scale <= 1:
+        return x
+    with profiling.span("pool"):
+        out = (max_pool(x, scale, quantize=quantize) if scale > 1
+               else nn_upsample(x, -scale))
+    return profiling.grad_span("pool.grad", out, x)
 
 
 def center_crop(x: torch.Tensor, q: int) -> torch.Tensor:

@@ -24,6 +24,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..core import profiling
 from ..core.types import AEParams, OptState
 from ..model import autoencoder as model
 from ..ops.spectral_kernels import check_compute_dtype
@@ -72,11 +73,14 @@ def reconstruction_loss(params: AEParams, x: torch.Tensor, scales, *,
 
 def _loss_and_grads(params: AEParams, x: torch.Tensor, scales, **loss_kw):
     """``(loss, grads)`` of :func:`reconstruction_loss` at ``params``; the
-    parameters are differentiated through fresh leaves, never modified."""
+    parameters are differentiated through fresh leaves, never modified.
+    The spans ``forward`` and ``backward``."""
     leaves = [t.detach().requires_grad_() for t in params.leaves()]
-    loss = reconstruction_loss(AEParams.from_leaves(leaves), x, scales,
-                               **loss_kw)
-    grads = torch.autograd.grad(loss, leaves)
+    with profiling.span("forward"):
+        loss = reconstruction_loss(AEParams.from_leaves(leaves), x, scales,
+                                   **loss_kw)
+    with profiling.span("backward"):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), AEParams.from_leaves(list(grads))
 
 
@@ -156,19 +160,25 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
         result.
 
     The loss returned is that of the parameters going *into* the step.
+    The step is the span ``train_step`` (:func:`profiling.step
+    <spectralae_torch.core.profiling.step>`), its optimizer ``update``.
     """
     loss_kw = dict(domain=domain, tap_mode=tap_mode,
                    scale_by_dm=scale_by_dm, act=act,
                    compute_dtype=compute_dtype, remat=remat,
                    stage_conv=stage_conv)
-    loss, grads = _grads(params, x, scales, accum_steps, train_pair, loss_kw)
-    if axis_name is not None:
-        from ..dist import collectives
-        loss, *leaves = collectives.pmean([loss, *grads.leaves()], axis_name)
-        grads = AEParams.from_leaves(leaves)
-    with torch.no_grad():
-        new_params, new_mom, new_pg = tree_update(
-            params, grads, opt.mom, opt.prev_grad, lr, alpha, active=active)
+    with profiling.step(x):
+        loss, grads = _grads(params, x, scales, accum_steps, train_pair,
+                             loss_kw)
+        if axis_name is not None:
+            from ..dist import collectives
+            loss, *leaves = collectives.pmean([loss, *grads.leaves()],
+                                              axis_name)
+            grads = AEParams.from_leaves(leaves)
+        with profiling.span("update"), torch.no_grad():
+            new_params, new_mom, new_pg = tree_update(
+                params, grads, opt.mom, opt.prev_grad, lr, alpha,
+                active=active)
     return TrainStepResult(params=new_params,
                            opt=OptState(mom=new_mom, prev_grad=new_pg),
                            loss=loss)
@@ -300,9 +310,12 @@ def make_optim_train_step(optimizer: Optimizer, *, domain: str = "fft",
                    compute_dtype=compute_dtype, remat=remat)
 
     def step(params, opt_state, x, scales) -> TrainStepResult:
-        loss, grads = _grads(params, x, scales, accum_steps, train_pair,
-                             loss_kw)
-        new_params, new_state = optimizer.update(params, grads, opt_state)
+        with profiling.step(x):
+            loss, grads = _grads(params, x, scales, accum_steps, train_pair,
+                                 loss_kw)
+            with profiling.span("update"):
+                new_params, new_state = optimizer.update(params, grads,
+                                                         opt_state)
         return TrainStepResult(params=new_params, opt=new_state, loss=loss)
 
     return step

@@ -9,8 +9,7 @@ The native binding is held against JAX's binding of the same library and
 against the numpy paths where the library builds (``make -C native``, into
 a directory of this test session's own, so that no other test process
 loads a library while it is written), and skips with its reason where it
-does not.  ``StepTimer`` times on
-the host and synchronises with a CUDA device at both ends of a step.
+does not.
 """
 
 import ctypes
@@ -29,7 +28,6 @@ from spectralae.data import pipeline as jpipe
 from spectralae.viz import ansi as jansi
 from spectralae.viz import png as jpng
 from spectralae.viz import spectrum as jspectrum
-from spectralae_torch.core.profiling import StepTimer
 from spectralae_torch.data import native as tnative
 from spectralae_torch.data import pipeline as tpipe
 from spectralae_torch.viz import ansi as tansi
@@ -372,28 +370,3 @@ def test_prefetcher_native_batch_stage_matches_the_numpy_path(native):
     imgs = np.stack([next(src) for _ in range(3)])
     np.testing.assert_array_equal(native.batch_to_tensor(imgs, 16, 12),
                                   jnative.batch_to_tensor(imgs, 16, 12))
-
-
-def test_step_timer_times_host_steps():
-    t = StepTimer(window=2)
-    assert np.isnan(t.last_ms) and t.steps_per_sec == 0.0
-    for _ in range(3):
-        with t:
-            sum(range(1000))
-    assert t.last_ms > 0 and t.median_ms > 0 and t.steps_per_sec > 0
-    assert len(t._times) == 2
-
-
-def test_step_timer_synchronises_a_cuda_device(monkeypatch):
-    """On a CUDA device the step is timed to the end of its device work:
-    the timer synchronises with the device when it starts and ends."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda device=None: calls.append(device))
-    t = StepTimer(device="cuda:0")
-    with t:
-        calls.append("body")
-    assert calls == [torch.device("cuda:0"), "body", torch.device("cuda:0")]
-    with StepTimer(device="cpu"):
-        pass
-    assert len(calls) == 3
