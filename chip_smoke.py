@@ -25,8 +25,12 @@ Phases (any failure raises and exits non-zero):
    device time beside the plain call's, the library call's (one einsum for
    K1, cuDNN for K2) and the bound, one line per shape; K1's three
    launches with bf16 operands at the 256^2 stage shapes (no library
-   call: PyTorch has no complex bf16); each K1 and K2 line names the
-   launch plan the wrapper took (``k1_plan``, ``k2_plan``) and each launch
+   call: PyTorch has no complex bf16); K1's forward, dX and dC, complex64
+   and bf16, at every stage shape of the benchmark's two fft train steps
+   (M = 50 at 1024^2 batch 16, M = 10 at 1024^2 batch 64), whose wide
+   launches take K1's blocked design; each K1 and K2 line names the
+   launch plan the wrapper took (``k1_plan``: the lane or the blocked
+   design, ``k2_plan``) and each launch
    is run twice and held bit for bit; then the whole forward and the
    whole train step in both domains at both sizes, in float32 and with
    bf16 operands (``compute_dtype``): host time, device time and the
@@ -268,6 +272,8 @@ TOL_STREAM_W, TOL_STREAM_MOM, TOL_STREAM_MSE = 1e-4, 1e-3, 1e-4
 # weight spread and a factor 3 of the CPU's last MSEs
 STREAM_LONG_ITERS = 100
 TOL_LONG_W, TOL_LONG_MSE_FACTOR = 0.3, 3.0
+# (frame size, batch, channel width) of the benchmark's fft train steps
+BENCH_FFT_STEPS = ((1024, 16, 50), (1024, 64, 10))
 REPS = 20          # timed launches per measurement, after 3 warm-up ones
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -721,11 +727,12 @@ def pair_mse64(x, c, f, b, p) -> float:
     return float(spectral.parseval_mse(X, O, c.shape[1], c.shape[0], nx, ny))
 
 
-def stage_shapes(nx: int, layers: int):
-    """(spatial n, D, M) of each conv stage of the default net."""
-    from spectralae_torch.core.config import Config
+def stage_shapes(nx: int, layers: int, depth: int = 10):
+    """(spatial n, D, M) of each conv stage of the default net, or of the
+    net whose stages are ``depth`` channels wide."""
+    from spectralae_torch.core.config import Config, LayerParams
     from spectralae_torch.core.types import initial_spec
-    cfg = Config(nx=nx, ny=nx)
+    cfg = Config(nx=nx, ny=nx, layer=LayerParams(depth=depth))
     spec = initial_spec(cfg)
     for _ in range(layers - 1):
         spec = spec.add_pair(cfg.layer)
@@ -743,14 +750,21 @@ def _grads_line(label: str, pairs, tol: float) -> float:
                if t is None)
 
 
-def k1_plan_text(p, q, vec: int) -> str:
-    """The launch plan K1's wrapper takes for these operands (rows whose
-    16-byte vectors are aligned, as at every stage shape here)."""
+def k1_plan_text(p, q, vec: int, op_bytes: int) -> str:
+    """The design and launch plan K1's wrapper takes for these operands
+    (rows whose 16-byte vectors are aligned, as at every stage shape
+    here; ``op_bytes``: 8 for complex64, 4 for bf16 pairs)."""
     from spectralae_torch.ops import spectral_kernels as sk
     a, k, w = p.shape[:3]
-    plan = sk.k1_plan(a, k, q.shape[1], w, vec)
-    return (f"; plan {plan.group} channel warps a block, {plan.rows} rows a "
-            f"thread, grid {plan.grid}")
+    plan = sk.k1_plan(a, k, q.shape[1], w, vec, op_bytes)
+    if isinstance(plan, sk.K1BlockedPlan):
+        return (f"; design blocked, {plan.na}x{plan.nb} warps a block "
+                f"({plan.na * sk._K1B_RA} rows x {plan.nb * sk._K1B_RB} "
+                f"channels), kc {plan.kc}, {plan.stages} stages "
+                f"({plan.smem} B shared), grid {plan.grid} over tiles "
+                f"{plan.tiles}")
+    return (f"; design lane, {plan.group} channel warps a block, "
+            f"{plan.rows} rows a thread, grid {plan.grid}")
 
 
 def k1_repeated(p, q, kw) -> torch.Tensor:
@@ -819,7 +833,7 @@ def k1_shape(gen, n: int, batch: int, d: int, m: int,
                 k1_repeated(p, q, kw), sk.cmul_contract_plain(p, q, **kw),
                 lambda: sk.cmul_contract(p, q, **kw),
                 lambda: sk.cmul_contract_plain(p, q, **kw), bound,
-                TOL_K1_BF16, library=None, extra=k1_plan_text(p, q, 4))
+                TOL_K1_BF16, library=None, extra=k1_plan_text(p, q, 4, 4))
             rows[k1_key(p, q, kw.get("conj_q"), kw.get("bias"))] = dict(
                 row, part=part)
         return rows, max(r["abs"] for r in rows.values())
@@ -840,7 +854,7 @@ def k1_shape(gen, n: int, batch: int, d: int, m: int,
             lambda: sk.cmul_contract(p, q, **kw),
             lambda: sk.cmul_contract_plain(p, q, **kw), bound, TOL_K1,
             library=lambda: torch.einsum("akw,kbw->abw", p, q_lib),
-            extra=k1_plan_text(p, q, 2))
+            extra=k1_plan_text(p, q, 2, 8))
         rows[k1_key(p, q, kw.get("conj_q"), kw.get("bias"))] = dict(
             row, part=part)
     grads = []
@@ -933,6 +947,14 @@ def phase_kernels(gen: torch.Generator) -> tuple[dict, dict]:
                 rows, err = k1_shape(gen, n, batch, d, m, bf16=True)
                 timed["k1bf"].update(rows)
                 errs["k1bf"] = max(errs["k1bf"], err)
+    # K1 at every launch shape of the benchmark's fft steps (M = 50 at
+    # 1024^2 b16, M = 10 at 1024^2 b64), whose wide launches take the
+    # blocked design, in complex64 and with bf16 operands
+    for nx, batch, depth in BENCH_FFT_STEPS:
+        for n, d, m in sorted(set(stage_shapes(nx, 3, depth))):
+            for kern, bf16 in (("k1", False), ("k1bf", True)):
+                _, err = k1_shape(gen, n, batch, d, m, bf16=bf16)
+                errs[kern] = max(errs[kern], err)
     # B2, the unbatched spectral_conv_pallas: K1 at batch 1, at stage 0's
     # shape of a 256^2 frame (no path of the port calls it)
     n, d, m = stage_shapes(256, 3)[0]

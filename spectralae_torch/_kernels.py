@@ -70,6 +70,12 @@ _SIGNATURES = {
     # the same, p and q bf16 (re, im) pairs
     "cmul_contract_bf16_launch": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
                                   _I, _F, _P, _F, _I, _I, _I, _P),
+    # K1's blocked design: the same operands, then vec, na, nb, kc,
+    # stages, grid, smem, stream; and with bf16 pairs
+    "cmul_contract_blocked_launch": (_P, _P, _P, _I, _I, _I) + (_L,) * 5
+    + (_I, _F, _P, _F) + (_I,) * 7 + (_P,),
+    "cmul_contract_blocked_bf16_launch": (_P, _P, _P, _I, _I, _I) + (_L,) * 5
+    + (_I, _F, _P, _F) + (_I,) * 7 + (_P,),
     # xpad, w, out, B, D, Hp, Wp, M, nk, nl, tx, ty, mb, vec, stream
     "conv_valid_launch": (_P, _P, _P) + (_I,) * 11 + (_P,),
     # X, Z, consts, out, scratch, scratch_floats, B, D, E, nx, nyr, hx, hy,

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _kernels
+from ..core import profiling
 from .dft import call_operator
 
 #: kernel launches of :func:`cmul_contract` since import (or the last
@@ -48,26 +49,57 @@ LAUNCHES = 0
 LAUNCHES_BF16 = 0
 
 NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
-# K1's launch plan (csrc/cmul_contract.cu): a warp's 32 lanes along the
-# bins, at most 8 channel warps a block; rows ``a`` are chunked as long as
-# the grid keeps _K1_THREADS threads, at most _K1_MAX_ROWS rows a thread;
-# a grid of _K1_MANY_BLOCKS blocks or more takes small channel groups (the
-# choices measured best at the train steps' shapes,
-# scripts/torch_k1k2_bench.py)
+# K1's lane design (csrc/cmul_contract.cu): a warp's 32 lanes along the
+# bins, at most 8 channel warps a block, K unrolled up to _K1_MAX_LANE_K;
+# rows ``a`` are chunked as long as the grid keeps _K1_THREADS threads, at
+# most _K1_MAX_ROWS rows a thread; a grid of _K1_MANY_BLOCKS blocks or more
+# takes small channel groups (the choices measured best at the train
+# steps' shapes, scripts/torch_k1k2_bench.py)
 _K1_LANES, _K1_MAX_GROUP, _K1_MAX_ROWS = 32, 8, 4
+_K1_MAX_LANE_K = 16
 _K1_THREADS = NUM_SMS * 384
 _K1_MANY_BLOCKS = NUM_SMS * 8
+# K1's blocked design: a thread's _K1B_RA rows x _K1B_RB channels at one
+# bin, at most _K1B_MAX_WARPS warps a block, which the kernel's launch
+# bound holds to _K1B_REGS registers a thread; the H100's registers,
+# threads and shared memory an SM and a block, and its L2
+_K1B_RA, _K1B_RB, _K1B_MAX_WARPS, _K1B_REGS = 4, 5, 20, 96
+_SM_REGS, _SM_THREADS, _SM_SMEM, _BLOCK_SMEM = 65536, 2048, 233472, 232448
+# the most complex elements of an operand the lane design may read again:
+# as many as fill half of the H100's 50 MB L2 in complex64.  The sweep
+# (scripts/torch_k1k2_bench.py) found the lane design ahead at every
+# launch whose re-read operand had under 1.3M elements, the two designs
+# within -25 to +16 % of each other from 1.3M to 1.6M, and the blocked
+# one ahead from 3.9M on, with either operand type
+_K1_REREAD = 50 * 2**20 // 2 // 8
 
 
 class K1Plan(NamedTuple):
-    """One K1 launch: ``vec`` bins a lane (1, or one 16-byte vector: 2
-    complex64 bins, 4 bf16 pairs), ``group`` channel warps a block,
-    ``rows`` rows ``a`` a thread, and the grid (bin tiles, channel
-    groups, row chunks)."""
+    """One launch of K1's lane design: ``vec`` bins a lane (1, or one
+    16-byte vector: 2 complex64 bins, 4 bf16 pairs), ``group`` channel
+    warps a block, ``rows`` rows ``a`` a thread, and the grid (bin tiles,
+    channel groups, row chunks)."""
     vec: int
     group: int
     rows: int
     grid: tuple[int, int, int]
+
+
+class K1BlockedPlan(NamedTuple):
+    """One launch of K1's blocked design: ``vec`` elements a copy (as
+    :class:`K1Plan`'s), ``na`` x ``nb`` warps a block (its tile: ``na·4``
+    rows ``a`` by ``nb·5`` channels ``b`` by 32 bins), ``kc`` values of
+    ``k`` a stage, a ring of ``stages`` buffers of ``smem`` bytes in all,
+    ``grid`` blocks, each walking every ``grid``-th of the ``tiles``
+    (bin tiles, row tiles, channel tiles)."""
+    vec: int
+    na: int
+    nb: int
+    kc: int
+    stages: int
+    smem: int
+    grid: int
+    tiles: tuple[int, int, int]
 
 
 def k1_vec(w: int, strides, ptrs, wide: int) -> int:
@@ -80,9 +112,35 @@ def k1_vec(w: int, strides, ptrs, wide: int) -> int:
 
 
 @functools.lru_cache(maxsize=512)
-def k1_plan(a: int, k: int, b: int, w: int, vec: int) -> K1Plan:
+def k1_plan(a: int, k: int, b: int, w: int, vec: int,
+            op_bytes: int) -> K1Plan | K1BlockedPlan:
     """K1's launch plan for ``[A,K,W] × [K,B,W] → [A,B,W]`` from the shape
-    alone (``vec``: the widest vector the operands' layout allows).
+    alone (``vec``: the widest vector the operands' layout allows;
+    ``op_bytes``: an operand's complex element, 8, or 4 for bf16 pairs).
+
+    The lane design (:func:`_lane_plan`) where it reads each operand from
+    memory once; the blocked design (:func:`_blocked_plan`) where it would
+    not: ``K`` over 16 (the lane design unrolls ``K``), or an operand the
+    lane plan reads again (``q`` for each chunk of rows, ``p`` for each
+    channel group) with more elements than half of L2 holds in complex64,
+    so that the second read comes from memory.  The narrow launches (the
+    10-wide net at 256², the 1024² b4 step, a model-axis slice, ``A = 1``)
+    keep the lane design, at its launch floor there.
+    """
+    if min(a, k, b, w) < 1 or vec not in (1, 2, 4) or op_bytes not in (4, 8):
+        raise ValueError(f"k1_plan: A={a} K={k} B={b} W={w} vec={vec} "
+                         f"op_bytes={op_bytes}")
+    if k <= _K1_MAX_LANE_K:
+        plan = _lane_plan(a, b, w, vec)
+        tiles, groups, chunks = plan.grid
+        again = max(k * b if chunks > 1 else 0, a * k if groups > 1 else 0)
+        if again * w <= _K1_REREAD:
+            return plan
+    return _blocked_plan(a, k, b, w, vec, op_bytes)
+
+
+def _lane_plan(a: int, b: int, w: int, vec: int) -> K1Plan:
+    """The lane design's plan.
 
     One thread computes one output channel at ``vec`` bins for a chunk of
     up to 4 rows, holding ``q`` for every ``k`` in registers, so a chunk
@@ -95,8 +153,6 @@ def k1_plan(a: int, k: int, b: int, w: int, vec: int) -> K1Plan:
     rows as keeps the chunks within the grid's z limit.  ``K`` does not
     change the plan (the kernel unrolls it).
     """
-    if min(a, k, b, w) < 1 or vec not in (1, 2, 4):
-        raise ValueError(f"k1_plan: A={a} K={k} B={b} W={w} vec={vec}")
     tiles = _cdiv(w, _K1_LANES * vec)
     per_chunk = tiles * _K1_LANES * b          # threads a chunk of rows
     rows = next((r for r in (_cdiv(a, n) for n in range(
@@ -113,6 +169,73 @@ def k1_plan(a: int, k: int, b: int, w: int, vec: int) -> K1Plan:
                          f"{groups} channel groups, over the grid's y limit "
                          f"of {_GRID_YZ}")
     return K1Plan(vec, group, rows, (tiles, groups, _cdiv(a, rows)))
+
+
+def _blocked_plan(a: int, k: int, b: int, w: int, vec: int,
+                  op_bytes: int) -> K1BlockedPlan:
+    """The blocked design's plan.
+
+    A block's tile (``na`` row warps, ``nb`` channel warps) is chosen to
+    read the operands the fewest times: ``q`` once for each tile of rows,
+    ``p`` once for each tile of channels (after the first time from L2:
+    the tiles of one bin tile are neighbours in the walk).  Of the tiles
+    that read as little, the one that computes the fewest padded outputs,
+    then the one that keeps the most warps resident an SM.  ``kc`` is 8
+    where ``K`` is 16 or more and that keeps as many warps resident, else
+    4; 3 buffers where they keep as many too.  (The sweep found 8 x 2
+    warps ahead of 10 x 2 at A = 64 by 4-9 %, and 8 values of ``k`` in 2
+    buffers ahead of 4 in 3 by 4-10 % at the 20-warp tiles.)
+    """
+    plans = k1_blocked_plans(a, k, b, w, vec, op_bytes)
+    if not plans:
+        raise ValueError(f"k1_plan: A={a} K={k} B={b} W={w} has more "
+                         "tiles than a block's walk can count")
+    return plans[0]
+
+
+def k1_blocked_plans(a: int, k: int, b: int, w: int, vec: int,
+                     op_bytes: int) -> list[K1BlockedPlan]:
+    """Every blocked plan :func:`_blocked_plan` weighs, best first."""
+    ranked = []
+    for na in range(1, min(_cdiv(a, _K1B_RA), _K1B_MAX_WARPS) + 1):
+        for nb in range(1, min(_cdiv(b, _K1B_RB),
+                               _K1B_MAX_WARPS // na) + 1):
+            for kc in (4, 8) if k >= _K1_MAX_LANE_K else (4,):
+                for stages in (3, 2):
+                    plan = k1_blocked_plan_of(a, k, b, w, vec, op_bytes, na,
+                                              nb, kc, stages)
+                    bins, ta, tb = plan.tiles
+                    if plan.smem > _BLOCK_SMEM or bins * ta * tb >= 2**31:
+                        continue
+                    warps = _resident(na * nb, plan.smem) * na * nb
+                    ranked.append(((ta * k * b + tb * a * k,
+                                    ta * na * tb * nb, -warps, -kc,
+                                    -stages), plan))
+    return [plan for _, plan in sorted(ranked)]
+
+
+def _resident(warps: int, smem: int) -> int:
+    """Blocks of ``warps`` warps and ``smem`` bytes resident on one SM."""
+    threads = _K1_LANES * warps
+    return min(_SM_REGS // (_K1B_REGS * threads), _SM_THREADS // threads,
+               _SM_SMEM // (smem + 1024), 32)
+
+
+def k1_blocked_plan_of(a: int, k: int, b: int, w: int, vec: int,
+                       op_bytes: int, na: int, nb: int, kc: int,
+                       stages: int) -> K1BlockedPlan:
+    """The blocked design's plan of a given tile (``na`` x ``nb`` warps),
+    stage (``kc``) and ring (``stages``), as :func:`_blocked_plan` and the
+    sweep of ``scripts/torch_k1k2_bench.py`` build them: the ring's bytes,
+    and as many blocks as stay resident on the card at once, or one a
+    tile where there are fewer tiles."""
+    smem = (stages * (na * _K1B_RA + nb * _K1B_RB) * kc * _K1_LANES
+            * op_bytes)
+    tiles = (_cdiv(w, _K1_LANES), _cdiv(a, na * _K1B_RA),
+             _cdiv(b, nb * _K1B_RB))
+    grid = min(tiles[0] * tiles[1] * tiles[2],
+               max(1, _resident(na * nb, smem)) * NUM_SMS)
+    return K1BlockedPlan(vec, na, nb, kc, stages, smem, grid, tiles)
 
 
 def bf16_planes(z: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -224,9 +347,11 @@ def _cmul_contract_fake(p, q, p_scale, conj_q, bias, bias_scale):
 def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
     """One launch of the kernel: the operands' layout checked, the launch
     plan (:func:`k1_vec`, :func:`k1_plan`) chosen from their strides and
-    addresses, and the launch counted."""
+    addresses, and the launch counted (a launch of the blocked design also
+    under the recorder's ``k1.blocked``)."""
     global LAUNCHES, LAUNCHES_BF16
-    if p.dtype == torch.bfloat16:
+    bf16 = p.dtype == torch.bfloat16
+    if bf16:
         # strides in (re, im) pairs, the kernel's element
         if p.stride(3) != 1 or q.stride(3) != 1 or p.stride(2) != 2 \
                 or q.stride(2) != 2 or any(
@@ -236,7 +361,7 @@ def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
                              "(re, im) pairs are contiguous and aligned")
         strides = (p.stride(0) // 2, p.stride(1) // 2, q.stride(0) // 2,
                    q.stride(1) // 2)
-        launch, wide = _kernels.lib().cmul_contract_bf16_launch, 4
+        wide = 4
     else:
         # a lazily conjugated or negated view flags its storage but does
         # not change it, and the kernel reads the storage: materialise it
@@ -246,26 +371,39 @@ def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
             raise ValueError("cmul_contract needs p and q whose last axis "
                              "is contiguous")
         strides = (p.stride(0), p.stride(1), q.stride(0), q.stride(1))
-        launch, wide = _kernels.lib().cmul_contract_launch, 2
+        wide = 2
     if bias is not None and not bias.is_contiguous():
         raise ValueError("bias must be contiguous")
     a, k, w = p.shape[:3]
     b = q.shape[1]
     plan = k1_plan(a, k, b, w, k1_vec(w, strides,
-                                      (p.data_ptr(), q.data_ptr()), wide))
+                                      (p.data_ptr(), q.data_ptr()), wide),
+                   4 if bf16 else 8)
+    blocked = isinstance(plan, K1BlockedPlan)
+    lib = _kernels.lib()
+    if blocked:
+        launch = (lib.cmul_contract_blocked_bf16_launch if bf16
+                  else lib.cmul_contract_blocked_launch)
+        shape = (plan.vec, plan.na, plan.nb, plan.kc, plan.stages, plan.grid,
+                 plan.smem)
+    else:
+        launch = (lib.cmul_contract_bf16_launch if bf16
+                  else lib.cmul_contract_launch)
+        shape = (plan.vec, plan.group, plan.rows)
     out = torch.empty((a, b, w), dtype=torch.complex64, device=p.device)
     with torch.cuda.device(p.device):
         err = launch(
             p.data_ptr(), q.data_ptr(), out.data_ptr(), a, k, b, w,
             *strides, int(conj_q), float(p_scale),
             None if bias is None else bias.data_ptr(), float(bias_scale),
-            plan.vec, plan.group, plan.rows,
-            torch.cuda.current_stream().cuda_stream)
+            *shape, torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "cmul_contract")
-    if p.dtype == torch.bfloat16:
+    if bf16:
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
+    if blocked:
+        profiling.count("k1.blocked")
     return out
 
 

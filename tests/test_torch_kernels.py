@@ -314,7 +314,12 @@ K1_SHAPES = [  # (A, K, B, W) of the 256^2 b8 and 1024^2 b4 steps, and edges
 @pytest.mark.parametrize("a,k,b,w", K1_SHAPES)
 @pytest.mark.parametrize("vec", [1, 2, 4])
 def test_k1_plan_covers_every_output_within_the_grid(a, k, b, w, vec):
-    plan = sk.k1_plan(a, k, b, w, vec)
+    """Of the design the plan takes (K = 17: the blocked one)."""
+    op_bytes = 4 if vec == 4 else 8
+    plan = sk.k1_plan(a, k, b, w, vec, op_bytes)
+    if isinstance(plan, sk.K1BlockedPlan):
+        _check_blocked_plan(plan, a, b, w, vec, op_bytes)
+        return
     tiles, groups, chunks = plan.grid
     assert plan.vec == vec
     assert tiles * 32 * vec >= w > (tiles - 1) * 32 * vec
@@ -328,16 +333,16 @@ def test_k1_plan_large_grid_reads_q_once_for_every_row():
     """1024^2 b4, stage 0's forward: a thread takes all four rows a (q read
     once); a grid this large takes the ten channels two warps a block, the
     three of stage 5 three a block (B's smallest factors)."""
-    plan = sk.k1_plan(4, 3, 10, 131584, 2)
+    plan = sk.k1_plan(4, 3, 10, 131584, 2, 8)
     assert plan.rows == 4 and plan.group == 2
     assert plan.grid == (2056, 5, 1)
-    assert sk.k1_plan(4, 10, 3, 131584, 2).group == 3
+    assert sk.k1_plan(4, 10, 3, 131584, 2, 8).group == 3
 
 
 def test_k1_plan_small_grid_shares_p_among_the_channel_warps():
     """32^2 b8 (W = 544): one row a thread, five channel warps a block
     sharing each p vector, and still over two blocks for every SM."""
-    plan = sk.k1_plan(8, 10, 10, 544, 2)
+    plan = sk.k1_plan(8, 10, 10, 544, 2, 8)
     tiles, groups, chunks = plan.grid
     assert plan.rows == 1 and chunks == 8 and plan.group == 5
     assert tiles * groups * chunks >= sk.NUM_SMS
@@ -348,23 +353,124 @@ def test_k1_plan_chunks_rows_while_the_grid_stays_full():
     at stage 5's (three channels, one block of three warps a tile: two rows
     would leave under 384 threads an SM), two in stage 0's and stage 5's
     dC; at most four."""
-    assert sk.k1_plan(8, 3, 10, 8320, 2) == sk.K1Plan(2, 5, 4, (130, 2, 2))
-    assert sk.k1_plan(8, 10, 3, 8320, 2) == sk.K1Plan(2, 3, 1, (130, 1, 8))
-    assert sk.k1_plan(10, 8, 3, 8320, 2).rows == 2
-    assert sk.k1_plan(3, 8, 10, 8320, 2).rows == 2
-    assert sk.k1_plan(10, 4, 10, 33024, 2).rows == 4
-    assert sk.k1_plan(8, 10, 10, 2112, 2).rows == 1
+    assert sk.k1_plan(8, 3, 10, 8320, 2, 8) == sk.K1Plan(2, 5, 4,
+                                                         (130, 2, 2))
+    assert sk.k1_plan(8, 10, 3, 8320, 2, 8) == sk.K1Plan(2, 3, 1,
+                                                         (130, 1, 8))
+    assert sk.k1_plan(10, 8, 3, 8320, 2, 8).rows == 2
+    assert sk.k1_plan(3, 8, 10, 8320, 2, 8).rows == 2
+    assert sk.k1_plan(10, 4, 10, 33024, 2, 8).rows == 4
+    assert sk.k1_plan(8, 10, 10, 2112, 2, 8).rows == 1
 
 
 def test_k1_plan_lifts_the_row_limit_and_ignores_k():
-    plan = sk.k1_plan(200000, 3, 4, 64, 2)
+    """A is unbounded; within the lane design's range (K <= 16, which it
+    unrolls) K never changes the plan, and past it the blocked design
+    takes every launch."""
+    plan = sk._lane_plan(200000, 4, 64, 2)
     assert plan.grid[2] <= 65535 and plan.rows * plan.grid[2] >= 200000
-    assert sk.k1_plan(8, 3, 10, 8320, 2) == sk.k1_plan(8, 16, 10, 8320, 2)
+    for shape in ((8, 10, 8320), (1, 10, 544), (4, 3, 131584)):
+        a, b, w = shape
+        plans = {sk.k1_plan(a, k, b, w, 2, 8) for k in range(1, 17)}
+        assert len(plans) == 1 and isinstance(plans.pop(), sk.K1Plan)
+        assert isinstance(sk.k1_plan(a, 17, b, w, 2, 8), sk.K1BlockedPlan)
 
 
-@pytest.mark.parametrize("args", [(0, 3, 4, 64, 2), (2, 3, 4, 0, 2),
-                                  (2, 3, 4, 64, 3),
-                                  (2, 3, 4 * 65537, 64, 1)])
+def _step_launches(n, batch, m, pairs=3):
+    """(A, K, B, W) of every K1 launch of a fft train step of the net with
+    D 3 and M output channels at every stage: per stage the forward, the
+    weight gradient (dC: A = M, K = batch) and, past stage 0, the data
+    gradient (dX)."""
+    sizes = [n // 2 ** (1 + min(i, 2 * pairs - 1 - i)) for i in
+             range(2 * pairs)]
+    chans = [(3, m)] + [(m, m)] * (2 * pairs - 2) + [(m, 3)]
+    out = []
+    for s, (nx, (d, mm)) in enumerate(zip(sizes, chans)):
+        w = nx * (nx // 2 + 1)
+        out += [(batch, d, mm, w), (mm, batch, d, w)]
+        if s:
+            out.append((batch, mm, d, w))
+    return out
+
+
+# the benchmark's fft cells: M = 50 at 1024^2 b16, M = 10 at 1024^2 b64
+M50_B16 = sorted(set(_step_launches(1024, 16, 50)))
+M10_B64_DC = sorted({s for s in _step_launches(1024, 64, 10) if s[1] == 64})
+# the lane design's launches: the 10-wide net at 256^2 b8 and 1024^2 b4, a
+# model-axis slice (M = 5 a rank), A = 1 (B2's unbatched conv)
+NARROW = sorted(set(_step_launches(256, 8, 10) + _step_launches(1024, 4, 10)
+                    + [s for s in _step_launches(256, 8, 10)
+                       if s[2] == 10 and s[0] == 8]
+                    + [(8, 3, 5, 8320), (8, 10, 5, 2112), (8, 5, 10, 2112),
+                       (5, 8, 10, 2112), (5, 8, 3, 8320), (8, 5, 3, 8320),
+                       (1, 3, 10, 8320), (1, 10, 10, 2112),
+                       (1, 10, 3, 131584)]))
+
+
+def test_step_launches_count_seventeen():
+    assert len(_step_launches(1024, 16, 50)) == 17
+    assert (16, 50, 50, 33024) in M50_B16 and (50, 16, 3, 131584) in M50_B16
+    assert len(M10_B64_DC) == 4
+
+
+@pytest.mark.parametrize("a,k,b,w", M50_B16 + M10_B64_DC)
+def test_k1_plan_takes_the_blocked_design_for_wide_launches(a, k, b, w):
+    """Every launch of the M = 50 b16 step, and the b64 step's weight
+    gradients (K = 64), whose lane plan would read an operand from memory
+    again (or loop over K at run time)."""
+    assert isinstance(sk.k1_plan(a, k, b, w, 2, 8), sk.K1BlockedPlan)
+
+
+@pytest.mark.parametrize("a,k,b,w", NARROW)
+@pytest.mark.parametrize("vec", [1, 2, 4])
+def test_k1_plan_keeps_the_lane_design_for_narrow_launches(a, k, b, w, vec):
+    assert isinstance(sk.k1_plan(a, k, b, w, vec, 4 if vec == 4 else 8),
+                      sk.K1Plan)
+
+
+K1_BLOCKED_SHAPES = M50_B16 + M10_B64_DC + [  # and edges: K = 17, A = 1,
+    # W not a multiple of the bin tile, B under a thread's 5, A over 2^16
+    (1, 17, 1, 1), (1, 50, 50, 1000), (16, 64, 50, 33), (50, 17, 7, 2112),
+    (3, 20, 2, 8320), (70000, 17, 2, 64), (16, 50, 3, 131584)]
+
+
+@pytest.mark.parametrize("a,k,b,w", K1_BLOCKED_SHAPES)
+@pytest.mark.parametrize("vec,op_bytes", [(1, 8), (2, 8), (1, 4), (4, 4)])
+def test_k1_blocked_plan_covers_every_output_within_the_grid(a, k, b, w, vec,
+                                                             op_bytes):
+    _check_blocked_plan(sk._blocked_plan(a, k, b, w, vec, op_bytes), a, b, w,
+                        vec, op_bytes)
+
+
+def _check_blocked_plan(plan, a, b, w, vec, op_bytes):
+    bins, at, bt = plan.tiles
+    ta, tb = plan.na * 4, plan.nb * 5
+    assert plan.vec == vec and 1 <= plan.na * plan.nb <= 20
+    assert bins * 32 >= w > (bins - 1) * 32
+    assert at * ta >= a > (at - 1) * ta and bt * tb >= b > (bt - 1) * tb
+    assert bins * at * bt < 2**31
+    assert 1 <= plan.grid <= min(bins * at * bt, 32 * sk.NUM_SMS)
+    assert plan.kc in (4, 8) and plan.stages in (2, 3)
+    assert plan.smem == plan.stages * (ta + tb) * plan.kc * 32 * op_bytes
+    assert plan.smem <= 232448
+
+
+def test_k1_blocked_plan_reads_q_once_at_the_m50_widths():
+    """[16, 50] x [50, 50] at 256^2: all 16 rows a tile (q read once), two
+    tiles of 25 channels (p twice, the second from L2), 20 warps a block,
+    one block resident on each SM, 8 values of k a stage in 2 buffers; at
+    A = 64 two tiles of 32 rows, none padded."""
+    plan = sk.k1_plan(16, 50, 50, 33024, 2, 8)
+    assert (plan.na, plan.nb) == (4, 5) and plan.tiles == (1032, 1, 2)
+    assert plan.grid == sk.NUM_SMS and (plan.kc, plan.stages) == (8, 2)
+    assert sk.k1_plan(64, 10, 10, 33024, 2, 8).tiles == (1032, 2, 1)
+    assert sk.k1_plan(64, 3, 10, 131584, 2, 8).na == 8
+
+
+@pytest.mark.parametrize("args", [(0, 3, 4, 64, 2, 8), (2, 3, 4, 0, 2, 8),
+                                  (2, 3, 4, 64, 3, 8),
+                                  (2, 3, 4 * 65537, 64, 1, 8),
+                                  (2, 3, 4, 64, 2, 16)])
 def test_k1_plan_refuses_what_no_launch_can_run(args):
     with pytest.raises(ValueError):
         sk.k1_plan(*args)
@@ -515,6 +621,88 @@ def test_cmul_contract_unaligned_view_on_card(cuda_device):
     got = sk.cmul_contract(p, q, conj_q=True)
     want = sk.cmul_contract_plain(p.contiguous(), q, conj_q=True)
     assert rel(got.cpu(), want.cpu()) < TOL
+
+
+def _k1_design(monkeypatch, design):
+    """Make every K1 launch take ``design`` ("lane" or "blocked"), whatever
+    its shape."""
+    def plan(a, k, b, w, vec, op_bytes):
+        if design == "lane":
+            return sk._lane_plan(a, b, w, vec)
+        return sk._blocked_plan(a, k, b, w, vec, op_bytes)
+    monkeypatch.setattr(sk, "k1_plan", plan)
+
+
+def _bits(t):
+    """A complex64 tensor's bits, for comparisons bit for bit."""
+    return torch.view_as_real(t).view(torch.int32)
+
+
+K1_BLOCKED_CARD = [  # (A, K, B, W): K in {17, 50, 64} x A in {1, 16, 50};
+    # W not a multiple of the 32-bin tile, B under a thread's 5 channels
+    (1, 17, 50, 2112), (16, 17, 50, 2112), (50, 17, 50, 2112),
+    (1, 50, 50, 2112), (16, 50, 50, 2112), (50, 50, 50, 2112),
+    (1, 64, 10, 2112), (16, 64, 10, 2112), (50, 64, 10, 2112),
+    (16, 50, 50, 1000), (5, 20, 3, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k,b,w", K1_BLOCKED_CARD)
+@pytest.mark.parametrize("form", ["forward", "dC"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cmul_contract_blocked_matches_lane_on_card(cuda_device, monkeypatch,
+                                                    a, k, b, w, form, bf16):
+    """The blocked design against the lane design bit for bit (each output
+    the same fixed-order chain of fmaf over k, then the scale and the DC
+    bias), and against the plain version: the forward's form (q a
+    transposed view, the DC bias) and dC's (p the strided gᵀ view, conj
+    q), complex64 and bf16 planes; three runs bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(a * k + b + w)
+    p, q, bias = _k1_operands(gen, cuda_device, a, k, b, w, form == "dC",
+                              bf16)
+    kw = (dict(p_scale=1.0 / b, bias=bias, bias_scale=64.0)
+          if form == "forward" else dict(p_scale=0.1, conj_q=True))
+    _k1_design(monkeypatch, "blocked")
+    runs = [sk.cmul_contract(p, q, **kw) for _ in range(3)]
+    _k1_design(monkeypatch, "lane")
+    lane = sk.cmul_contract(p, q, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(runs[0]), _bits(r)) for r in runs[1:])
+    assert torch.equal(_bits(runs[0]), _bits(lane))
+    want = sk.cmul_contract_plain(p, q, **kw)
+    assert rel(runs[0].cpu(), want.cpu()) < (1e-5 if bf16 else TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["fft", "coord"])
+def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
+    """One train step of the benchmark's M = 50 net at 1024^2 b16: the fft
+    step's 17 K1 calls (``kernel.cmul_contract``), 15 to 17 of them on
+    the blocked design (``k1.blocked``); the coord step calls no K1."""
+    from spectralae_torch.core import profiling
+    from spectralae_torch.core import types as ttypes
+    from spectralae_torch.train import modern
+    rng = np.random.default_rng(0)
+    params = ttypes.params_from_numpy(
+        [(rng.uniform(-1, 1, (m, d, 5, 5)), rng.uniform(-1, 1, m))
+         for m, d in [(50, 3)] + [(50, 50)] * 4 + [(3, 50)]],
+        device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = 255 * torch.rand(16, 3, 1024, 1024, device=cuda_device,
+                         generator=gen)
+    profiling.enable()
+    try:
+        modern.train_step(params, ttypes.init_opt_state(params), x,
+                          (2, 2, 2, -2, -2, -2), domain=domain)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.disable()
+    kernels = sum(v for n, v in counters.items() if n.startswith("kernel."))
+    if domain == "fft":
+        assert counters["kernel.cmul_contract"] == kernels == 17
+        assert 15 <= counters["k1.blocked"] <= 17
+    else:
+        assert kernels == 0 and "k1.blocked" not in counters
 
 
 K2_CARD = [  # (B, D, M, H, W, nk, nl): widths 32^2..512^2, D = 10 at 3x3
