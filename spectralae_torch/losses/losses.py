@@ -10,12 +10,17 @@ pushes kernels apart:
 ``½·Σ_pairs log‖c_md − c_m'd'‖²`` (plus ``Σ log|b_m − b_m'|`` for biases),
 restricted to pairs with *both* indices different (a reference quirk, line
 724).  Both forms are provided: the explicit vectorized gradient and the
-scalar loss for autograd.
+scalar loss for autograd.  :func:`stage_diversity` is the batched train
+step's form (``train/modern.py``, ``maxdiff``): one stage at a time, by two
+matrix products instead of the pairwise differences.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..core import profiling
+from ..ops.dft import ieee_f32, tensor_cache
 
 
 def mse_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,3 +95,53 @@ def diversity_loss(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                                    bdiff)),
                         torch.zeros_like(bdiff))
     return 0.25 * torch.sum(logs) + 0.5 * torch.sum(blogs)
+
+
+@tensor_cache
+def _pair_weights(a: int, b: int, device: torch.device) -> torch.Tensor:
+    """:func:`_pair_mask` of ``[A,B]`` kernels as an ``[A·B, A·B]`` float32
+    matrix, kept on ``device``."""
+    with torch.inference_mode(False):
+        return _pair_mask(a, b, device).reshape(a * b, a * b).float()
+
+
+def kernel_repulsion(c: torch.Tensor) -> torch.Tensor:
+    """The kernels' half of :func:`diversity_gradients` for one stage,
+    ``g_i = Σ_j w_ij·(k_i − k_j)`` with ``w_ij = mask_ij / ‖k_i − k_j‖²``,
+    in the Gram form: ``‖k_i − k_j‖² = |k_i|² + |k_j|² − 2·k_i·k_j`` by one
+    matrix product, then ``g_i = k_i·Σ_j w_ij − Σ_j w_ij·k_j`` by another.
+    Two ``[A·B, A·B]`` float32 arrays (25 MB at 50 × 50) where the
+    pairwise form builds ``[A,B,A,B,Nk,Nl]`` differences (625 MB).
+
+    c: ``[A,B,Nk,Nl]``, any float type; the products run in IEEE float32
+    (TF32 off) and the result is float32.
+
+    Cancellation: the Gram distance carries an absolute error of about
+    ``2ε·(|k_i|² + |k_j|²)`` (ε = 2⁻²⁴), so a pair's weight is off by that
+    over ``‖k_i − k_j‖²`` relative: 1e-7 for kernels as far apart as they
+    are long, and growing as ``|k|² / ‖k_i − k_j‖²`` where two kernels
+    nearly coincide.  A pair whose distance lies within
+    ``8ε·(|k_i|² + |k_j|²)`` of zero is taken as identical and adds
+    nothing, as the pairwise form's zero difference does.
+    """
+    a, b = c.shape[0], c.shape[1]
+    k = c.reshape(a * b, -1).float()
+    with ieee_f32():
+        sq = torch.sum(k * k, dim=1)
+        norms = sq[:, None] + sq[None, :]
+        den = torch.addmm(norms, k, k.T, alpha=-2.0)
+        w = torch.where(den > 8 * torch.finfo(torch.float32).eps * norms,
+                        _pair_weights(a, b, c.device) / den,
+                        torch.zeros_like(den))
+        g = torch.addmm(k * w.sum(dim=1, keepdim=True), w, k, alpha=-1.0)
+    return g.reshape(c.shape)
+
+
+def stage_diversity(c: torch.Tensor | None, b: torch.Tensor):
+    """The repulsion gradients of one stage, ``(cd, bd)``: its kernels'
+    (:func:`kernel_repulsion`; None where ``c`` is None, for a tied
+    decoder stage, whose kernels' term is its encoder's transposed) and
+    its biases' (``Σ_{j≠i} 1/(b_i − b_j)``).  The span ``diversity``."""
+    with profiling.span("diversity"):
+        cd = None if c is None else kernel_repulsion(c)
+        return cd, _inverse_off_diagonal(b.float())

@@ -7,7 +7,10 @@ autograd through the full forward in either domain — through the
 hand-written kernels' backward passes on the card
 (:class:`~spectralae_torch.ops.spectral_kernels.SpectralConvFused`,
 :class:`~spectralae_torch.ops.coord_kernels.ConvValid`) — and the
-reference's normalized-gradient inertia optimizer.
+reference's normalized-gradient inertia optimizer.  Two of the reference's
+objectives ride on the step (``sym``, ``maxdiff``): the 'p' tie of each
+decoder stage to its encoder's transposed kernels, and the 'm'
+kernel-diversity objective.
 
 Every step is functional, as in the JAX package: it returns new parameter
 and optimizer-state tensors and updates none of those it was given, so a
@@ -25,7 +28,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..core import profiling
-from ..core.types import AEParams, OptState
+from ..core.types import AEParams, ConvStage, OptState
+from ..losses.losses import stage_diversity
 from ..model import autoencoder as model
 from ..ops.spectral_kernels import check_compute_dtype
 from ..optim.update import tree_update
@@ -35,13 +39,16 @@ class TrainStepResult(NamedTuple):
     params: AEParams
     opt: Any            # OptState, or an Optimizer's state
     loss: torch.Tensor  # 0-d, on the device; reading it synchronises
+    #: with ``maxdiff``, the diversity term each stage's gradient lost,
+    #: ``w1·g_div`` (zeros on a stage ``train_pair`` leaves out); else None
+    div: AEParams | None = None
 
 
 def reconstruction_loss(params: AEParams, x: torch.Tensor, scales, *,
                         domain: str = "fft", tap_mode: str = "centered",
                         scale_by_dm: bool = True, act=None,
                         compute_dtype=None, remat: bool = False,
-                        stage_conv=None) -> torch.Tensor:
+                        stage_conv=None, sym: bool = False) -> torch.Tensor:
     """½·mean squared reconstruction error over the batch.
 
     ``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision
@@ -52,14 +59,15 @@ def reconstruction_loss(params: AEParams, x: torch.Tensor, scales, *,
     ``act`` applies only in the coordinate domain (the spectral forward is
     linear by construction; the reference's activation is identity there
     too, backproplib.cu:38-44).  ``remat`` checkpoints per-stage blocks and
-    ``stage_conv`` runs each stage's conv (see the forwards' docstrings).
+    ``stage_conv`` runs each stage's conv and ``sym`` ties each decoder
+    stage to its encoder's ``cᵀ`` (see the forwards' docstrings).
     """
     check_compute_dtype(compute_dtype)
     x32 = x.to(torch.float32)
     if domain == "fft":
         out = model.forward_fft(params, x, scales, scale_by_dm=scale_by_dm,
                                 compute_dtype=compute_dtype, remat=remat,
-                                stage_conv=stage_conv)
+                                stage_conv=stage_conv, sym=sym)
     else:
         if compute_dtype is not None:
             params = AEParams.from_leaves([t.to(compute_dtype)
@@ -67,21 +75,26 @@ def reconstruction_loss(params: AEParams, x: torch.Tensor, scales, *,
             x = x.to(compute_dtype)
         out = model.forward_coord(params, x, scales, tap_mode=tap_mode,
                                   scale_by_dm=scale_by_dm, act=act,
-                                  remat=remat, stage_conv=stage_conv)[-1]
+                                  remat=remat, stage_conv=stage_conv,
+                                  sym=sym)[-1]
     return 0.5 * torch.mean((out.to(torch.float32) - x32) ** 2)
 
 
 def _loss_and_grads(params: AEParams, x: torch.Tensor, scales, **loss_kw):
     """``(loss, grads)`` of :func:`reconstruction_loss` at ``params``; the
     parameters are differentiated through fresh leaves, never modified.
-    The spans ``forward`` and ``backward``."""
+    A leaf the forward does not read (a tied decoder's ``c``) gets a zero
+    gradient.  The spans ``forward`` and ``backward``."""
     leaves = [t.detach().requires_grad_() for t in params.leaves()]
     with profiling.span("forward"):
         loss = reconstruction_loss(AEParams.from_leaves(leaves), x, scales,
                                    **loss_kw)
     with profiling.span("backward"):
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), AEParams.from_leaves(list(grads))
+        grads = torch.autograd.grad(loss, leaves,
+                                    allow_unused=loss_kw["sym"])
+    grads = [torch.zeros_like(w) if g is None else g
+             for w, g in zip(leaves, grads)]
+    return loss.detach(), AEParams.from_leaves(grads)
 
 
 def _accumulated_loss_and_grads(params, x, scales, accum_steps, **loss_kw):
@@ -132,6 +145,65 @@ def _grads(params, x, scales, accum_steps, train_pair, loss_kw):
     return loss, grads
 
 
+def _fold(grads: AEParams) -> AEParams:
+    """The 'p' tie's gradients (``backprop_gpu_cc``, backproplib.cu:533,
+    as :func:`spectralae_torch.train.coord._apply_update` folds them):
+    each pair's kernels ``½(dc + dfᵀ)``, its decoder's the transpose of
+    that, and both its biases' gradients halved.  The span ``tie``."""
+    with profiling.span("tie"):
+        n = grads.n_stages
+        stages = list(grads.stages)
+        for p in range(n // 2):
+            enc, dec = grads.pair(p)
+            gc = 0.5 * (enc.c + dec.c.transpose(0, 1))
+            stages[p] = ConvStage(c=gc, b=0.5 * enc.b)
+            stages[n - 1 - p] = ConvStage(c=gc.transpose(0, 1),
+                                          b=0.5 * dec.b)
+    return AEParams(stages=tuple(stages))
+
+
+def _combine(params: AEParams, grads: AEParams, train_pair: int,
+             sym: bool, w0: float, w1: float):
+    """The 'm' objective (fft_backproplib.cu:1252): each kept stage's
+    gradient becomes ``w0·g − w1·g_div``, ``g_div`` the repulsion of its
+    kernels and of its biases at the weights going into the step
+    (:func:`~spectralae_torch.losses.losses.stage_diversity`).  With
+    ``sym`` a tied decoder's kernels take their encoder's term, transposed.
+    Returns the combined gradients and the ``w1·g_div`` taken off them."""
+    n = params.n_stages
+    gs, ds = list(grads.stages), []
+    for i, (st, g) in enumerate(zip(params.stages, grads.stages)):
+        if train_pair >= 0 and i not in (train_pair, n - 1 - train_pair):
+            ds.append(ConvStage(c=torch.zeros_like(g.c),
+                                b=torch.zeros_like(g.b)))
+            continue
+        tied = sym and i >= n // 2
+        cd, bd = stage_diversity(None if tied else st.c, st.b)
+        db = w1 * bd
+        if tied:
+            enc_g, enc_d = gs[n - 1 - i], ds[n - 1 - i]
+            gs[i] = ConvStage(c=enc_g.c.transpose(0, 1), b=w0 * g.b - db)
+            ds.append(ConvStage(c=enc_d.c.transpose(0, 1), b=db))
+        else:
+            dc = w1 * cd
+            gs[i] = ConvStage(c=w0 * g.c - dc, b=w0 * g.b - db)
+            ds.append(ConvStage(c=dc, b=db))
+    return AEParams(stages=tuple(gs)), AEParams(stages=tuple(ds))
+
+
+def _retie(params: AEParams) -> AEParams:
+    """Each decoder stage's kernels set to its encoder's transposed
+    (``f ← cᵀ``, backproplib.cu:622), contiguous; biases stay.  The span
+    ``tie``."""
+    with profiling.span("tie"):
+        for p in range(params.n_pairs):
+            enc, dec = params.pair(p)
+            params = params.replace_pair(
+                p, enc, ConvStage(c=enc.c.transpose(0, 1).contiguous(),
+                                  b=dec.b))
+    return params
+
+
 def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
                scales: tuple, *, lr: float = 0.2, alpha: float = 0.9,
                domain: str = "fft", tap_mode: str = "centered",
@@ -139,7 +211,8 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
                active: bool = False, act=None,
                compute_dtype=None, remat: bool = False,
                accum_steps: int = 1, axis_name=None,
-               stage_conv=None) -> TrainStepResult:
+               stage_conv=None, sym: bool = False, maxdiff: bool = False,
+               w0: float = 1.0, w1: float = 10.0) -> TrainStepResult:
     """One batched train step with the reference's inertia optimizer.
 
     Args:
@@ -158,15 +231,35 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
         model axis's (:func:`spectralae_torch.dist.model_axis.stage_conv`)
         ``params`` and ``opt`` are a rank's slices, and so is the step's
         result.
+      sym: the reference's 'p' tie (autoencoder.cpp:343-355,
+        ``backprop_gpu_cc``): the forward reads each decoder's kernels as
+        its encoder's ``cᵀ``, the gradients are folded (:func:`_fold`),
+        and after the update each decoder's kernels are set to its
+        encoder's ``cᵀ`` (:func:`_retie`), so what the update made of them
+        is dropped.  The parameters keep every stage's leaves.
+      maxdiff: the reference's 'm' kernel-diversity objective, ``g ←
+        w0·g − w1·g_div`` on every stage ``train_pair`` keeps
+        (:func:`_combine`, after the fold); the result's ``div`` holds the
+        ``w1·g_div`` it took off.
+
+    With ``sym`` or ``maxdiff``, ``stage_conv`` and ``axis_name`` raise
+    ValueError.  With both off the step is the untied reconstruction step.
 
     The loss returned is that of the parameters going *into* the step.
     The step is the span ``train_step`` (:func:`profiling.step
     <spectralae_torch.core.profiling.step>`), its optimizer ``update``.
     """
+    if (sym or maxdiff) and (stage_conv is not None
+                             or axis_name is not None):
+        raise ValueError("sym and maxdiff train one device's whole net: "
+                         "the model axis (stage_conv) and the data axis "
+                         "(axis_name) of a tied or diverse net are not "
+                         "supported")
     loss_kw = dict(domain=domain, tap_mode=tap_mode,
                    scale_by_dm=scale_by_dm, act=act,
                    compute_dtype=compute_dtype, remat=remat,
-                   stage_conv=stage_conv)
+                   stage_conv=stage_conv, sym=sym)
+    div = None
     with profiling.step(x):
         loss, grads = _grads(params, x, scales, accum_steps, train_pair,
                              loss_kw)
@@ -175,13 +268,19 @@ def train_step(params: AEParams, opt: OptState, x: torch.Tensor,
             loss, *leaves = collectives.pmean([loss, *grads.leaves()],
                                               axis_name)
             grads = AEParams.from_leaves(leaves)
+        if sym:
+            grads = _fold(grads)
+        if maxdiff:
+            grads, div = _combine(params, grads, train_pair, sym, w0, w1)
         with profiling.span("update"), torch.no_grad():
             new_params, new_mom, new_pg = tree_update(
                 params, grads, opt.mom, opt.prev_grad, lr, alpha,
                 active=active)
+            if sym:
+                new_params = _retie(new_params)
     return TrainStepResult(params=new_params,
                            opt=OptState(mom=new_mom, prev_grad=new_pg),
-                           loss=loss)
+                           loss=loss, div=div)
 
 
 # ------------------------------------------------ torch.optim optimizers
@@ -298,24 +397,39 @@ def make_optim_train_step(optimizer: Optimizer, *, domain: str = "fft",
                           tap_mode: str = "centered",
                           scale_by_dm: bool = True, train_pair: int = -1,
                           act=None, compute_dtype=None,
-                          remat: bool = False, accum_steps: int = 1):
+                          remat: bool = False, accum_steps: int = 1,
+                          sym: bool = False, maxdiff: bool = False,
+                          w0: float = 1.0, w1: float = 10.0):
     """A train step around an :class:`Optimizer` — the counterpart of the
     JAX package's ``make_optax_train_step``.
+
+    ``sym`` and ``maxdiff`` as in :func:`train_step`: the fold, then the
+    combination, then the optimizer's update, then each decoder's kernels
+    set to its encoder's ``cᵀ``.
 
     Returns ``step(params, opt_state, x, scales) -> TrainStepResult``;
     initialize ``opt_state = optimizer.init(params)``.
     """
     loss_kw = dict(domain=domain, tap_mode=tap_mode,
                    scale_by_dm=scale_by_dm, act=act,
-                   compute_dtype=compute_dtype, remat=remat)
+                   compute_dtype=compute_dtype, remat=remat, sym=sym)
 
     def step(params, opt_state, x, scales) -> TrainStepResult:
+        div = None
         with profiling.step(x):
             loss, grads = _grads(params, x, scales, accum_steps, train_pair,
                                  loss_kw)
+            if sym:
+                grads = _fold(grads)
+            if maxdiff:
+                grads, div = _combine(params, grads, train_pair, sym, w0,
+                                      w1)
             with profiling.span("update"):
                 new_params, new_state = optimizer.update(params, grads,
                                                          opt_state)
-        return TrainStepResult(params=new_params, opt=new_state, loss=loss)
+                if sym:
+                    new_params = _retie(new_params)
+        return TrainStepResult(params=new_params, opt=new_state, loss=loss,
+                               div=div)
 
     return step

@@ -17,6 +17,7 @@ versions running on the CPU.
 """
 
 import collections
+import functools
 import json
 import statistics
 
@@ -243,3 +244,30 @@ def test_cli_trace_writes_spans_and_a_rate_per_interval(tmp_path, capsys):
     rates = [r["steps_per_sec"] for r in recs]
     assert rates[0] is None and all(r > 0 for r in rates[1:])
     assert len(rates) == 3
+
+
+@pytest.mark.parametrize("domain", ["fft", "coord"])
+def test_a_tied_diverse_step_records_its_spans(domain):
+    """The tied, kernel-diverse step (``sym``, ``maxdiff``): one
+    ``diversity`` span a stage (the pair's kernels once, at the encoder),
+    two ``tie`` spans (the fold and the re-tie), each inside its step, and
+    in the fft domain one ``kernel_spectra`` span and one
+    ``kernel_spectra.shared`` read a pair instead of a spectrum a stage."""
+    step = functools.partial(modern.train_step, domain=domain, sym=True,
+                             maxdiff=True)
+    snap = _profiled(domain, 2, step)
+    spans = snap["spans"]
+    for ordinal in range(2):
+        names = collections.Counter(s["name"] for s in spans
+                                    if s["step"] == ordinal)
+        assert names["diversity"] == len(DEPTHS)
+        assert names["tie"] == 2
+        want = len(DEPTHS) // 2 if domain == "fft" else 0
+        assert names["kernel_spectra"] == want
+    updates = [i for i, s in enumerate(spans) if s["name"] == "update"]
+    retie = [s for s in spans if s["name"] == "tie"][1::2]
+    assert [s["parent"] for s in retie] == updates
+    shared = len(DEPTHS) // 2 * 2 if domain == "fft" else 0
+    assert snap["counters"].get("kernel_spectra.shared", 0) == shared
+    assert not any(k.startswith("kernel.kernel_spectra")
+                   for k in snap["counters"])

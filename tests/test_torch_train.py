@@ -389,6 +389,31 @@ def test_cli_train_torch_optimizer_sidecar(tmp_path, capsys):
     assert "does not read" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("argv", [
+    ["--domain", "fft"],
+    ["--domain", "coord"],
+    ["--domain", "fft", "--optimizer", "adam", "--lr", "0.01"]],
+    ids=["fft", "coord", "fft-adam"])
+def test_cli_train_step_tied_and_diverse(tmp_path, capsys, argv):
+    """``train --mode step --sym --maxdiff``: a falling loss, and each
+    decoder stage's kernels in the checkpoint its encoder's transposed; a
+    resumed run keeps the tie."""
+    ck_dir = tmp_path / "ck"
+    common = ["train", "--device", "cpu", "--nx", "16", "--layers", "2",
+              "--batch", "2", "--log-every", "1", "--mode", "step",
+              "--sym", "--maxdiff", "--ckpt", str(ck_dir)] + argv
+    tcli(common + ["--steps", "4"])
+    losses = [r["loss"] for r in _records(capsys.readouterr().out)]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    tcli(common + ["--steps", "5", "--resume", str(ck_dir)])
+    params = tckpt.load(ck_dir)[0]
+    for p in range(params.n_pairs):
+        enc, dec = params.pair(p)
+        assert torch.equal(dec.c, enc.c.transpose(0, 1))
+        assert dec.c.is_contiguous()
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "stream", "--domain", "coord", "--train-pair", "7"],
      "out of range"),

@@ -227,6 +227,8 @@ def _np(r) -> dict:
     """A burst, step or stream result as a dict of numpy arrays."""
     out = {}
     for k, v in r._asdict().items():
+        if v is None:       # a step's div without maxdiff
+            continue
         if torch.is_tensor(v):
             out[k] = v.numpy()
         elif k == "params":
