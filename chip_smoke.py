@@ -31,11 +31,18 @@ Phases (any failure raises and exits non-zero):
    launches take K1's blocked design; each K1 and K2 line names the
    launch plan the wrapper took (``k1_plan``: the lane or the blocked
    design, ``k2_plan``) and each launch
-   is run twice and held bit for bit; then the whole forward and the
+   is run twice and held bit for bit; the spectral pooling's remap
+   (``spectral_resize``) at each launch of a fft train step of the default
+   net at both sizes and of the benchmark's two fft steps, forward and
+   adjoint, bit for bit against its plain version (``resize_plain``) and
+   itself, timed beside it, the gathers' autograd gradient it replaced and
+   the bound, and its host microseconds a call beside the gathers'; then
+   the whole forward and the
    whole train step in both domains at both sizes, in float32 and with
    bf16 operands (``compute_dtype``): host time, device time and the
    kernels that take it, with the shape of each kernel launch of one 256^2
-   step recorded.
+   step recorded (a fft forward launches the resize 6 times, a fft step
+   11 times).
 3a. The probe kernels (``csrc/probes.cu``) through their scripts:
    ``scripts/torch_probe_mosaic_features.py`` (P1, three exact probes) and
    ``scripts/torch_probe_fused_dft.py`` (P2, ``--check`` on the card, then
@@ -104,8 +111,8 @@ Phases (any failure raises and exits non-zero):
    artifact behind an ``InferenceServer`` over HTTP, three 8-frame
    requests, and the symbolic one called at SERVE_BATCHES: each response
    held against the same artifact loaded on the CPU (where the operators
-   run their plain versions), each call launching K1 and K2 exactly once
-   per operator node of its graph.  A forward traced on the CPU
+   run their plain versions), each call launching K1, K2 and the resize
+   exactly once per operator node of its graph.  A forward traced on the CPU
    (``--platforms cpu,cuda``) runs on the card, launches the kernels and
    agrees with the card-traced one (TOL_TRACE); a cpu-only artifact is
    refused on the card.  The phase's wall time is printed.
@@ -202,9 +209,10 @@ axis's steps and forwards included, and
 omega_pallas, omega_fused, omega_itergrid: one 100-iteration burst of each
 engine at the headline input; probe_mosaic and probe_dft, the probe
 scripts; bench, phase 9's rows and their costs), its largest error, and its time, plain time, bound and library
-time: K1, K1 with bf16 operands and K2 per 256^2 batch-8 train step
-(forward and backward; the rows of phase 3 at the shapes of the launches
-one such step made, summed), K3 per precompute of a burst, K4, B5a and
+time: K1, K1 with bf16 operands, K2 and the resize per 256^2 batch-8
+train step (forward and backward; the rows of phase 3 at the shapes of the
+launches one such step made, summed; the resize's also by step at every
+size phase 3 ran, and its host microseconds a call), K3 per precompute of a burst, K4, B5a and
 B5b per launch at 256^2 batch-8 frames (at the --pallas-fft route's
 "high" tier, every tier beside it; K4's row slabs beside it), B5c-e
 per launch in the 4096^2 transform (B5e by tier), K5-K7 per launch and K8 per 10-iteration launch
@@ -285,6 +293,11 @@ TRAIN_STEPS, RESUME_STEPS = 20, 5
 # frames' spectra need none); K2 for the 2 routed forward convs (3->10,
 # 10->3; their data grads go to F.conv2d unless PALLAS_DATA_GRAD is set)
 K1_PER_FFT_STEP, K2_PER_COORD_STEP = 17, 2
+# the spectral pooling's remap (``spectral_resize``) in the default net's
+# fft step: 6 resizes forward, 5 adjoints back (the frames' spectra need
+# none); 6 in a fft forward.  Its results copy bins: bit for bit the
+# gathers' (``resize_plain``)
+RS_PER_FFT_STEP, RS_PER_FFT_FORWARD = 11, 6
 # the stream phase: frames of the first run and of the resumed one
 STREAM_STEPS, STREAM_RESUME = 32, 16
 # the interactive loop (phase 7): one key a frame after the frame (the
@@ -382,10 +395,11 @@ def reset_counts() -> None:
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import probe_kernels as pk
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     sk.LAUNCHES = sk.LAUNCHES_BF16 = 0
-    ck.LAUNCHES = 0
+    ck.LAUNCHES = rk.LAUNCHES = 0
     for counter in (wk.LAUNCHES, fk.LAUNCHES, bk.LAUNCHES, pk.LAUNCHES):
         counter.update(dict.fromkeys(counter, 0))
 
@@ -396,9 +410,11 @@ def counts() -> dict:
     from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import fft_kernels as fk
     from spectralae_torch.ops import probe_kernels as pk
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     return {"k1": sk.LAUNCHES, "k1bf": sk.LAUNCHES_BF16, "k2": ck.LAUNCHES,
+            "rs": rk.LAUNCHES,
             "k3": wk.LAUNCHES["corr_pair_windows"],
             "k4": wk.LAUNCHES["anchor_windows"],
             "b5a": fk.LAUNCHES["rfft_y_mixed"],
@@ -618,14 +634,21 @@ def guard_plains(plains, fallbacks: list):
             setattr(mod, name, fn)
 
 
+def rs_key(x, nx, ny, nxs, nys, adjoint) -> tuple:
+    """What sets the work of one resize launch: the input's shape, the
+    sizes and the direction."""
+    return tuple(x.shape), (nx, ny, nxs, nys), bool(adjoint)
+
+
 @contextlib.contextmanager
 def launch_log():
     """Record the key of every kernel launch made inside the block, by
     kernel, calling through to the wrappers (which count the launches)."""
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
-    log = {"k1": [], "k2": []}
-    k1, k2 = sk.cmul_contract, ck._valid_corr
+    log = {"k1": [], "k2": [], "rs": []}
+    k1, k2, rs = sk.cmul_contract, ck._valid_corr, rk.spectral_resize
 
     def k1_spy(p, q, **kw):
         log["k1"].append(k1_key(p, q, kw.get("conj_q", False),
@@ -635,11 +658,17 @@ def launch_log():
     def k2_spy(xpad, w):
         log["k2"].append(k2_key(xpad, w))
         return k2(xpad, w)
+
+    def rs_spy(x, nx, ny, nxs, nys, adjoint=False):
+        log["rs"].append(rs_key(x, nx, ny, nxs, nys, adjoint))
+        return rs(x, nx, ny, nxs, nys, adjoint)
     sk.cmul_contract, ck._valid_corr = k1_spy, k2_spy
+    rk.spectral_resize = rs_spy
     try:
         yield log
     finally:
         sk.cmul_contract, ck._valid_corr = k1, k2
+        rk.spectral_resize = rs
 
 
 @contextlib.contextmanager
@@ -928,14 +957,141 @@ def k2_shape(gen, n: int, batch: int, d: int, m: int) -> tuple[dict, float]:
     return rows, max(abs_err, *(r["abs"] for r in rows.values()))
 
 
+def pool_resizes(nx: int, layers: int, depth: int = 10):
+    """(channels, (nx, ny, nxs, nys)) of each resize of a fft step of the
+    default net, or of the net whose stages are ``depth`` channels wide:
+    the encoder pools each stage's input, the decoder each stage's
+    output."""
+    from spectralae_torch.core.config import Config, LayerParams
+    from spectralae_torch.core.types import initial_spec
+    cfg = Config(nx=nx, ny=nx, layer=LayerParams(depth=depth))
+    spec = initial_spec(cfg)
+    for _ in range(layers - 1):
+        spec = spec.add_pair(cfg.layer)
+    out, n, half = [], nx, len(spec.stages) // 2
+    for i, s in enumerate(spec.stages):
+        if abs(s.scale) > 1:
+            m = n // s.scale if s.scale > 0 else n * -s.scale
+            out.append((s.d if i < half else s.m, (n, n, m, m)))
+            n = m
+    return out
+
+
+def rs_step(gen, nx: int, batch: int, depth: int = 10) -> tuple[dict, dict]:
+    """The resize kernel at each launch of one fft train step on ``nx``^2
+    frames: each resize forward, and each adjoint but the frames' (which
+    need no gradient).  Each launch is held against the plain version
+    (``resize_plain``: two gathers and a mask multiply) and against itself
+    run again, both bit for bit, and timed beside it and the bound (every
+    kept input bin read once, every output bin written once); the adjoint's
+    library call is the gradient the port took before the kernel (autograd
+    through the gathers: a mask multiply, two ``index_add`` into
+    zero-filled buffers).  Returns the rows by launch key (each with its
+    part of the step and its bytes) and the step's sums."""
+    from spectralae_torch.ops import resize_kernels as rk
+    from spectralae_torch.ops import spectral
+    tag = f"{nx}x{nx} b{batch}" + ("" if depth == 10 else f" M={depth}")
+    rows = {}
+    for i, (ch, dims) in enumerate(pool_resizes(nx, 3, depth)):
+        for adjoint in (False, True)[:2 if i else 1]:
+            h_in, w_in, h_out, w_out = rk.resize_dims(*dims, adjoint)
+            x = torch.randn(batch, ch, h_in, w_in, dtype=torch.complex64,
+                            device="cuda", generator=gen)
+            got = rk.spectral_resize(x, *dims, adjoint=adjoint)
+            again = rk.spectral_resize(x, *dims, adjoint=adjoint)
+            want = spectral.resize_plain(x, *dims, adjoint)
+            label = (f"resize {'adjoint' if adjoint else 'forward'} {tag} "
+                     f"[{ch}, {h_in}, {w_in}] -> [{h_out}, {w_out}]")
+            check(torch.equal(got, want), f"{label}: not the plain "
+                  "version's bit for bit")
+            check(torch.equal(torch.view_as_real(got).view(torch.int32),
+                              torch.view_as_real(again).view(torch.int32)),
+                  f"{label} does not repeat bit for bit")
+            library = True
+            if adjoint:
+                big = torch.randn(batch, ch, h_out, w_out,
+                                  dtype=torch.complex64, device="cuda",
+                                  generator=gen, requires_grad=True)
+                fwd = spectral.resize_plain(big, *dims)
+
+                def library(fwd=fwd, big=big, x=x):
+                    return torch.autograd.grad(fwd, big, x,
+                                               retain_graph=True)
+            rows_map, cols_map = spectral._remap_maps(*dims, adjoint)
+            kept = int((rows_map >= 0).sum()) * int((cols_map >= 0).sum())
+            nbytes = 8.0 * batch * ch * (kept + h_out * w_out)
+            row = measure(
+                label, got, want,
+                lambda x=x, dims=dims, a=adjoint: rk.spectral_resize(
+                    x, *dims, adjoint=a),
+                lambda x=x, dims=dims, a=adjoint: spectral.resize_plain(
+                    x, *dims, a),
+                bound_ms(0.0, nbytes), 0.0, library=library,
+                extra=f"; bit for bit; {nbytes / 1e6:.1f} MB")
+            row.update(part="bwd" if adjoint else "fwd", bytes=nbytes,
+                       tb_per_s=nbytes / row["ms"] / 1e9)
+            rows[rs_key(x, *dims, adjoint)] = row
+            del x, got, again, want, library
+    step = {k: sum(r[k] for r in rows.values())
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
+    step["tb_per_s"] = step["bytes"] / step["ms"] / 1e9
+    step["roofline_pct"] = 100 * step["bound_ms"] / step["ms"]
+    print(f"resize, a fft step at {tag} ({len(rows)} launches): kernel "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, the "
+          f"gathers and index_add gradients {step['library_ms']:.4f} ms, "
+          f"bound {step['bound_ms']:.4f} ms ({step['roofline_pct']:.1f} %, "
+          f"{step['tb_per_s']:.2f} TB/s)", flush=True)
+    return rows, step
+
+
+def rs_host_us(gen) -> dict:
+    """Host microseconds a call of the resize's routes at the 256^2 b8
+    step's smallest pooling ([8, 10, 64, 33] -> [32, 17], a few device
+    microseconds, so the loop is paced by the host): the route with a
+    gradient (the autograd Function), without one (the wrapper), and the
+    plain gathers, forward and forward plus backward; the median of three
+    loops of 300 calls."""
+    from spectralae_torch.ops import spectral
+    x = torch.randn(8, 10, 64, 33, dtype=torch.complex64, device="cuda",
+                    generator=gen)
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn(8, 10, 32, 17, dtype=torch.complex64, device="cuda",
+                    generator=gen)
+
+    def both(fn):
+        return lambda: torch.autograd.grad(fn(xg, 64, 64, 32, 32), xg, g)
+    calls = {
+        "route_fwd": lambda: spectral.spectral_resize(xg, 64, 64, 32, 32),
+        "route_nograd": lambda: spectral.spectral_resize(x, 64, 64, 32, 32),
+        "plain_fwd": lambda: spectral.resize_plain(xg, 64, 64, 32, 32),
+        "route_fwd_bwd": both(spectral.spectral_resize),
+        "plain_fwd_bwd": both(spectral.resize_plain)}
+    out = {}
+    for name, fn in calls.items():
+        loops = []
+        for _ in range(3):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(300):
+                fn()
+            torch.cuda.synchronize()
+            loops.append((time.perf_counter() - t0) / 300 * 1e6)
+        out[name] = sorted(loops)[1]
+    print("resize host us a call at [8, 10, 64, 33] -> [32, 17]: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()), flush=True)
+    return out
+
+
 def phase_kernels(gen: torch.Generator) -> tuple[dict, dict]:
     """Every stage shape at both sizes; returns each kernel's timed rows by
     launch key and its largest absolute error.  Also B2, the unbatched
     form, once."""
     from spectralae_torch.ops import spectral
     from spectralae_torch.ops import spectral_kernels as sk
-    timed = {"k1": {}, "k1bf": {}, "k2": {}}
-    errs = {"k1": 0.0, "k1bf": 0.0, "k2": 0.0}
+    timed = {"k1": {}, "k1bf": {}, "k2": {}, "rs": {}}
+    errs = {"k1": 0.0, "k1bf": 0.0, "k2": 0.0, "rs": 0.0}
     for nx, batch in ((256, 8), (1024, 4)):
         for n, d, m in sorted(set(stage_shapes(nx, 3))):
             for kern, fn in (("k1", k1_shape), ("k2", k2_shape)):
@@ -955,6 +1111,16 @@ def phase_kernels(gen: torch.Generator) -> tuple[dict, dict]:
             for kern, bf16 in (("k1", False), ("k1bf", True)):
                 _, err = k1_shape(gen, n, batch, d, m, bf16=bf16)
                 errs[kern] = max(errs[kern], err)
+    # the resize at every launch of a fft step: the default net at both
+    # sizes (the 256^2 b8 rows feed the per-step sums), then the
+    # benchmark's fft steps; its host cost a call
+    timed["rs_steps"] = {}
+    for nx, batch, depth in ((256, 8, 10), (1024, 4, 10)) + BENCH_FFT_STEPS:
+        rows, timed["rs_steps"][f"{nx}x{nx} b{batch} M={depth}"] = rs_step(
+            gen, nx, batch, depth)
+        timed["rs"].update(rows)
+        errs["rs"] = max(errs["rs"], *(r["abs"] for r in rows.values()))
+    timed["rs_host_us"] = rs_host_us(gen)
     # B2, the unbatched spectral_conv_pallas: K1 at batch 1, at stage 0's
     # shape of a 256^2 frame (no path of the port calls it)
     n, d, m = stage_shapes(256, 3)[0]
@@ -1058,8 +1224,10 @@ def _breakdown(label: str, fn, extra: str = "",
 
 def phase_forward() -> None:
     """Host and device time of whole forwards, and where the device time
-    goes (kernels by name)."""
+    goes (kernels by name); a fft forward launches the resize at each of
+    its 6 poolings, a coord forward none."""
     from spectralae_torch.model import autoencoder as model
+    from spectralae_torch.ops import resize_kernels as rk
     for nx, batch in ((256, 8), (1024, 4)):
         params, spec = _net(nx)
         x = torch.rand(batch, 3, nx, nx, device="cuda") * 255
@@ -1072,18 +1240,27 @@ def phase_forward() -> None:
                     return model.forward_coord(params, x, spec.scales,
                                                tap_mode="ref_gpu")[-1]
             with torch.inference_mode():
-                _breakdown(f"forward {domain} {nx}x{nx} b{batch}", fwd)
+                before = rk.LAUNCHES
+                fwd()
+                torch.cuda.synchronize()
+                grew = rk.LAUNCHES - before
+                want = RS_PER_FFT_FORWARD if domain == "fft" else 0
+                check(grew == want, f"forward {domain}: launched the resize "
+                      f"{grew}x; expected {want}")
+                _breakdown(f"forward {domain} {nx}x{nx} b{batch}", fwd,
+                           f", launches resize {grew}")
 
 
 def phase_train_step() -> dict:
     """The same for whole train steps (forward, backward and the inertia
     update), in float32 and with bf16 operands (``compute_dtype``), with
     the kernels' launches per step and the peak memory.  Returns the keys
-    of the launches of one 256^2 batch-8 step: K1's from the fft domain
-    (``k1``, and ``k1bf`` from the bf16 step) and K2's from the coord
-    domain."""
+    of the launches of one 256^2 batch-8 step: K1's and the resize's from
+    the fft domain (``k1`` and ``rs``, and ``k1bf`` from the bf16 step) and
+    K2's from the coord domain."""
     from spectralae_torch.core.types import init_opt_state
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.train.modern import train_step
     launched = {}
@@ -1097,34 +1274,38 @@ def phase_train_step() -> dict:
                 return train_step(params, opt, x, spec.scales, domain=domain,
                                   compute_dtype=cd)
             tag = "" if cd is None else " bf16"
-            before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES)
+            before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES,
+                      rk.LAUNCHES)
             with launch_log() as log:
                 step()
             torch.cuda.synchronize()
             grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
-                    ck.LAUNCHES - before[2])
-            want = [0, 0, K2_PER_COORD_STEP]
+                    ck.LAUNCHES - before[2], rk.LAUNCHES - before[3])
+            want = [0, 0, K2_PER_COORD_STEP, 0]
             if domain == "fft":
-                want = [0, 0, 0]
+                want = [0, 0, 0, RS_PER_FFT_STEP]
                 want[0 if cd is None else 1] = K1_PER_FFT_STEP
             check(grew == tuple(want), f"train step {domain}{tag}: "
                   f"launched K1 {grew[0]}x, K1 bf16 {grew[1]}x, K2 "
-                  f"{grew[2]}x; expected {want}")
+                  f"{grew[2]}x, the resize {grew[3]}x; expected {want}")
             check(grew[0] + grew[1] == len(log["k1"])
-                  and grew[2] == len(log["k2"]),
+                  and grew[2] == len(log["k2"]) and grew[3] == len(log["rs"]),
                   f"train step {domain}{tag}: counted {grew}, logged "
-                  f"{len(log['k1'])} and {len(log['k2'])} launches")
+                  f"{len(log['k1'])}, {len(log['k2'])} and "
+                  f"{len(log['rs'])} launches")
             if nx == 256 and not (domain == "coord" and cd is not None):
                 kern = ("k2" if domain == "coord"
                         else "k1" if cd is None else "k1bf")
                 launched[kern] = log["k2" if kern == "k2" else "k1"]
+                if kern == "k1":
+                    launched["rs"] = log["rs"]
             torch.cuda.reset_peak_memory_stats()
             step()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**20
             _breakdown(f"train step {domain}{tag} {nx}x{nx} b{batch}", step,
                        f", launches K1 {grew[0]} K1 bf16 {grew[1]} K2 "
-                       f"{grew[2]}, peak {peak:.1f} MiB")
+                       f"{grew[2]} resize {grew[3]}, peak {peak:.1f} MiB")
         # the data grad of the 10->3 stage through K2 adds one launch
         route, ck.PALLAS_DATA_GRAD = ck.PALLAS_DATA_GRAD, True
         try:
@@ -2364,11 +2545,13 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
     paths."""
     from spectralae_torch.io import checkpoint as ckpt
     from spectralae_torch.ops import fft_kernels as fk
+    from spectralae_torch.ops import spectral
     from spectralae_torch.ops import window_kernels as wk
     from spectralae_torch.train import fft_corr
     fallbacks = []
     # no plain version of a kernel may run on the card
-    plains = [(wk, "anchor_windows_plain"), (fft_corr, "anchor_windows_plain")]
+    plains = [(wk, "anchor_windows_plain"), (fft_corr, "anchor_windows_plain"),
+              (spectral, "resize_plain")]
     plains += [(fk, name) for name in (
         "rfft_y_mixed_plain", "fft_x_mixed_plain", "_fft_yc_plain",
         "_bfly_lanes_plain", "_bfly_rows_plain")]
@@ -2379,22 +2562,25 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
     ck_dir, ck_fft = tmp / "stream", tmp / "stream_fft"
     resume = STREAM_STEPS + STREAM_RESUME
     fft_resume = STREAM_FFT_STEPS + STREAM_FFT_RESUME
-    one_fft = {"k4": 1, "b5a": 1, "b5b": 1}
-    # label, argv, first step, frames, launches per frame, what to check:
+    one_fft = {"k4": 1, "b5a": 1, "b5b": 1, "rs": 1}
+    # label, argv, first step, frames, launches per frame (the resize
+    # pools each trained pair's input: pair n_l's n_l + 1 times, after K1
+    # at the n_l stages before it), what to check:
     # "first" (the mse falls, the checkpoint holds the last step),
     # "resumed" (starts far below its first run), "falls"
     stream_runs = (
         ("stream", stream + ["--steps", str(STREAM_STEPS), "--ckpt",
-                             str(ck_dir)], 0, STREAM_STEPS, {"k4": 1},
-         "first"),
+                             str(ck_dir)], 0, STREAM_STEPS,
+         {"k4": 1, "rs": 1}, "first"),
         ("stream resumed", stream + ["--steps", str(resume), "--resume",
                                      str(ck_dir), "--ckpt", str(ck_dir)],
-         STREAM_STEPS, STREAM_RESUME, {"k4": 1}, "resumed"),
+         STREAM_STEPS, STREAM_RESUME, {"k4": 1, "rs": 1}, "resumed"),
         ("stream --bf16", stream + ["--steps", "16", "--bf16"], 0, 16,
-         {"k4": 1}, "falls"),
+         {"k4": 1, "rs": 1}, "falls"),
         ("stream --train-pair all --pair-sweep frame",
          stream + ["--steps", "4", "--stream-k", "4", "--train-pair", "all",
-                   "--pair-sweep", "frame"], 0, 4, {"k4": 3, "k1": 3}, None))
+                   "--pair-sweep", "frame"], 0, 4,
+         {"k4": 3, "k1": 3, "rs": 6}, None))
     fft_runs = (
         ("stream --pallas-fft", fft + ["--steps", str(STREAM_FFT_STEPS),
                                        "--ckpt", str(ck_fft)], 0,
@@ -2408,7 +2594,7 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
         ("stream --pallas-fft --train-pair all --pair-sweep frame",
          fft + ["--steps", "4", "--stream-k", "4", "--train-pair", "all",
                 "--pair-sweep", "frame"], 0, 4,
-         {k: 3 for k in ("k4", "k1", "b5a", "b5b")}, None))
+         {"k4": 3, "k1": 3, "b5a": 3, "b5b": 3, "rs": 6}, None))
 
     def drive(runs) -> dict:
         reset_counts()
@@ -2455,7 +2641,7 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
         recs = _cli_records(common + ["--mode", "burst", "--steps", "3"])
         got = grown(before)
         want = dict.fromkeys(got, 0)
-        want.update(k1=18, k3=6)
+        want.update(k1=18, k3=6, rs=18)
         check(got == want, f"burst: launches {got}, expected {want}")
         check([r["step"] for r in recs] == [0, 1, 2]
               and all(math.isfinite(r["mseN"]) for r in recs)
@@ -2463,8 +2649,8 @@ def phase_stream_training(tmp: Path) -> tuple[dict, dict, dict]:
               f"burst: {[(r['step'], r['mse0'], r['mseN']) for r in recs]}")
         print(f"train burst 256x256 b8 steps 0-2: entry mse "
               f"{recs[0]['mse0']:.6g} -> {recs[-1]['mse0']:.6g}; launches "
-              f"{got} (K1 6 per step through forward_fft, K3 2 per burst "
-              "precompute)", flush=True)
+              f"{got} (K1 and the resize 6 per step through forward_fft, "
+              "K3 2 per burst precompute)", flush=True)
         burst_launches = counts()
         try:
             _cli_records(common + ["--mode", "burst", "--steps", "1",
@@ -2560,7 +2746,8 @@ def op_nodes(path: Path) -> dict:
     names = [str(n.target) for n in program.graph.nodes
              if n.op == "call_function"]
     return {"k1": names.count("spectralae_torch.cmul_contract.default"),
-            "k2": names.count("spectralae_torch.conv_valid.default")}
+            "k2": names.count("spectralae_torch.conv_valid.default"),
+            "rs": names.count("spectralae_torch.spectral_resize.default")}
 
 
 def _frames256(seed: int, batch: int) -> np.ndarray:
@@ -2572,9 +2759,10 @@ def _frames256(seed: int, batch: int) -> np.ndarray:
 def _launched_as_graph(label: str, before: dict, nodes: dict) -> None:
     """The launches since ``before`` are exactly one per operator node."""
     g = grown(before)
-    check(g["k1"] == nodes["k1"] and g["k2"] == nodes["k2"],
-          f"{label}: launched K1 {g['k1']}x and K2 {g['k2']}x, its graph "
-          f"holds {nodes['k1']} and {nodes['k2']} operator nodes")
+    check(all(g[k] == n for k, n in nodes.items()),
+          f"{label}: launched K1 {g['k1']}x, K2 {g['k2']}x and the resize "
+          f"{g['rs']}x, its graph holds {nodes['k1']}, {nodes['k2']} and "
+          f"{nodes['rs']} operator nodes")
 
 
 def _opchecks(gen: torch.Generator) -> None:
@@ -2845,25 +3033,27 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
     each kernel's launches per step in the first run of its domain."""
     from spectralae_torch.io import checkpoint as ckpt
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
     common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
               "--seed", "0", "--log-every", "1"]
     reset_counts()
     per_step_seen = {}
     for domain in ("fft", "coord"):
-        per_step = ((K1_PER_FFT_STEP, 0) if domain == "fft"
-                    else (0, K2_PER_COORD_STEP))
+        per_step = ((K1_PER_FFT_STEP, 0, RS_PER_FFT_STEP) if domain == "fft"
+                    else (0, K2_PER_COORD_STEP, 0))
         ck_dir = tmp / f"train_{domain}"
         argv = common + ["--domain", domain, "--ckpt", str(ck_dir),
                          "--ckpt-every", "10"]
         for steps, extra in ((TRAIN_STEPS, []),
                              (TRAIN_STEPS + RESUME_STEPS,
                               ["--resume", str(ck_dir)])):
-            before = (sk.LAUNCHES, ck.LAUNCHES)
+            before = (sk.LAUNCHES, ck.LAUNCHES, rk.LAUNCHES)
             t0 = time.perf_counter()
             recs = _cli_records(argv + ["--steps", str(steps)] + extra)
             wall = time.perf_counter() - t0
-            grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1])
+            grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1],
+                    rk.LAUNCHES - before[2])
             losses = [r["loss"] for r in recs]
             first = 0 if not extra else TRAIN_STEPS
             check([r["step"] for r in recs] == list(range(first, steps)),
@@ -2871,17 +3061,17 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
             check(all(math.isfinite(v) for v in losses),
                   f"train {domain}: non-finite loss {losses}")
             n = steps - first
-            check(grew == (per_step[0] * n, per_step[1] * n),
-                  f"train {domain}: {n} steps launched K1 {grew[0]}x and K2 "
-                  f"{grew[1]}x, expected {per_step[0] * n} and "
-                  f"{per_step[1] * n}")
+            check(grew == tuple(k * n for k in per_step),
+                  f"train {domain}: {n} steps launched K1 {grew[0]}x, K2 "
+                  f"{grew[1]}x and the resize {grew[2]}x, expected "
+                  f"{per_step} a step")
             _, _, opt, extra_ck = ckpt.load(ck_dir)
             check(extra_ck["step"] == steps and opt is not None,
                   f"train {domain}: checkpoint at step {extra_ck['step']}")
             print(f"train {domain} 256x256 b8 steps {first}-{steps - 1}"
                   f"{' (resumed)' if extra else ''}: loss {losses[0]:.6g} "
                   f"-> {losses[-1]:.6g}; launches K1 +{grew[0]} K2 "
-                  f"+{grew[1]} ({per_step[0] or per_step[1]} per step); "
+                  f"+{grew[1]} resize +{grew[2]} ({per_step} per step); "
                   f"{wall:.2f} s wall", flush=True)
             if not extra:
                 check(losses[-1] < losses[0],
@@ -2889,6 +3079,8 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
                 loss0 = losses[0]
                 kern, i = ("k1", 0) if domain == "fft" else ("k2", 1)
                 per_step_seen[kern] = grew[i] / n
+                if domain == "fft":
+                    per_step_seen["rs"] = grew[2] / n
             else:
                 check(losses[0] < 0.1 * loss0,
                       f"train {domain}: the resumed run's first loss "
@@ -2907,14 +3099,15 @@ def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
     upcast operands in the coord domain).  Returns the launches of the
     phase and each kernel's launches per step."""
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import resize_kernels as rk
     from spectralae_torch.ops import spectral_kernels as sk
     reset_counts()
     per_step_seen = {}
     for act, domain in itertools.product(("identity", "leaky_relu"),
                                          ("fft", "coord")):
-        want = ((0, K1_PER_FFT_STEP, 0) if domain == "fft"
-                else (0, 0, K2_PER_COORD_STEP))
-        before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES)
+        want = ((0, K1_PER_FFT_STEP, 0, RS_PER_FFT_STEP) if domain == "fft"
+                else (0, 0, K2_PER_COORD_STEP, 0))
+        before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES, rk.LAUNCHES)
         t0 = time.perf_counter()
         recs = _cli_records(["train", "--nx", "256", "--layers", "3",
                              "--batch", "8", "--seed", "0", "--log-every",
@@ -2923,7 +3116,7 @@ def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
                              "--ckpt", str(tmp / f"bf16_{domain}_{act}")])
         wall = time.perf_counter() - t0
         grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
-                ck.LAUNCHES - before[2])
+                ck.LAUNCHES - before[2], rk.LAUNCHES - before[3])
         losses = [r["loss"] for r in recs]
         tag = f"train {domain} --bf16 --activation {act}"
         check([r["step"] for r in recs] == list(range(TRAIN_STEPS)),
@@ -2932,13 +3125,14 @@ def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
               f"{tag}: non-finite loss {losses}")
         check(grew == tuple(w * TRAIN_STEPS for w in want),
               f"{tag}: {TRAIN_STEPS} steps launched K1 {grew[0]}x, K1 bf16 "
-              f"{grew[1]}x, K2 {grew[2]}x; expected {want} per step")
+              f"{grew[1]}x, K2 {grew[2]}x, the resize {grew[3]}x; expected "
+              f"{want} per step")
         check(losses[-1] < losses[0],
               f"{tag}: the loss did not fall: {losses}")
         print(f"{tag} 256x256 b8 steps 0-{TRAIN_STEPS - 1}: loss "
               f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches K1 "
-              f"+{grew[0]} K1 bf16 +{grew[1]} K2 +{grew[2]} "
-              f"({max(want)} per step); {wall:.2f} s wall", flush=True)
+              f"+{grew[0]} K1 bf16 +{grew[1]} K2 +{grew[2]} resize "
+              f"+{grew[3]} ({want} per step); {wall:.2f} s wall", flush=True)
         kern, i = ("k1bf", 1) if domain == "fft" else ("k2", 2)
         per_step_seen[kern] = grew[i] / TRAIN_STEPS
     return counts(), per_step_seen
@@ -3011,11 +3205,14 @@ def phase_train_vs_cpu(tmp: Path) -> None:
 
 def run_launches(keys: str, frames: int, dump_every: int,
                  stages: int) -> dict:
-    """K1, K2 and K3 launches a ``run`` of ``frames`` frames with the key
-    script ``keys`` makes on the card: a fft frame runs one K1 per stage
-    (and as many again where a view dump recomputes the tape: no training
-    and no 'g'), a fft burst two K3, a coordinate frame two K2 (the 3->10
-    and 10->3 convs; the coord step's transposes run on cuDNN)."""
+    """K1, K2, K3 and resize launches a ``run`` of ``frames`` frames with
+    the key script ``keys`` makes on the card: a fft frame runs one K1 per
+    stage (and as many again where a view dump recomputes the tape: no
+    training and no 'g'), and one resize with each (every stage of the
+    default net and every pair 'n' adds pools at scale 2; the burst trains
+    on the forward's tape and pools nothing), a fft burst two K3, a
+    coordinate frame two K2 (the 3->10 and 10->3 convs; the coord step's
+    transposes run on cuDNN)."""
     fft, sel, fft_l = True, False, False
     want = dict(k1=0, k2=0, k3=0)
     for i in range(frames):
@@ -3039,15 +3236,18 @@ def run_launches(keys: str, frames: int, dump_every: int,
             stages += 2
         elif key == "d" and stages > 2:
             stages -= 2
+    want["rs"] = want["k1"]
     return want
 
 
 def _k123_plains() -> list:
+    """The plain versions of K1, K2, K3 and the resize."""
     from spectralae_torch.ops import coord_kernels as ck
+    from spectralae_torch.ops import spectral
     from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.ops import window_kernels as wk
     return [(sk, "cmul_contract_plain"), (ck, "conv_valid_plain"),
-            (wk, "corr_pair_windows_plain")]
+            (wk, "corr_pair_windows_plain"), (spectral, "resize_plain")]
 
 
 def _run_cli(tmp: Path) -> dict:
@@ -3970,10 +4170,11 @@ def phase_dist(gen: torch.Generator) -> tuple[dict, dict, float]:
               "two calls each)", flush=True)
     # twice each: the corr burst's precompute (K3 twice), the fused burst
     # and the stream's two frames (K4 once a precompute), the use_pallas
-    # body (K5 once, K7 an iteration), the train step (K1 17 times)
+    # body (K5 once, K7 an iteration), the train step (K1 17 times, the
+    # resize 11)
     want_launches = dict.fromkeys(nccl, 0)
-    want_launches.update(k1=2 * K1_PER_FFT_STEP, k3=2 * 2, k4=2 * 3,
-                         k5=2, k7=2 * DIST_ITERS)
+    want_launches.update(k1=2 * K1_PER_FFT_STEP, rs=2 * RS_PER_FFT_STEP,
+                         k3=2 * 2, k4=2 * 3, k5=2, k7=2 * DIST_ITERS)
     check(nccl == want_launches, f"NCCL world size 1: launches {nccl}")
     print(f"dist NCCL world size 1: {sum(collectives.CALLS.values())} "
           f"collectives, {sum(collectives.ELEMENTS.values())} floats; "
@@ -4235,15 +4436,16 @@ def main() -> int:
     by_path.update(omega_paths)
     by_path.update(probe_paths)
     # every kernel that a path runs was launched in that path's run
-    uses = {"serve": ("k1", "k2"), "train": ("k1", "k2"),
-            "train_bf16": ("k1bf", "k2"),
+    uses = {"serve": ("k1", "k2", "rs"), "train": ("k1", "k2", "rs"),
+            "train_bf16": ("k1bf", "k2", "rs"),
             "probe_mosaic": tuple(k for k, _, _ in P1_ROWS),
             "probe_dft": ("p2",),
-            "stream": ("k1", "k4"), "stream_fft": ("k4", "b5a", "b5b"),
-            "burst": ("k1", "k3"), "omega_pallas": ("k5", "k6"),
-            "run": ("k1", "k2", "k3"), "stream_coord": ("k2",),
+            "stream": ("k1", "k4", "rs"),
+            "stream_fft": ("k4", "b5a", "b5b", "rs"),
+            "burst": ("k1", "k3", "rs"), "omega_pallas": ("k5", "k6"),
+            "run": ("k1", "k2", "k3", "rs"), "stream_coord": ("k2",),
             "omega_fused": ("k5", "k7"), "omega_itergrid": ("k8",),
-            "dist": ("k1", "k2", "k3", "k4", "k5", "k7"),
+            "dist": ("k1", "k2", "k3", "k4", "k5", "k7", "rs"),
             "bench": BENCH_KERNELS}
     for path, keys in uses.items():
         check(all(by_path[path][k] > 0 for k in keys),
@@ -4258,6 +4460,10 @@ def main() -> int:
              "spectralae/ops/pallas_kernels.py:48"),
             ("k2", "conv_valid", "spectralae_torch/csrc/conv_valid.cu",
              "spectralae/ops/pallas_conv.py:110"),
+            ("rs", "spectral_resize",
+             "spectralae_torch/csrc/spectral_resize.cu",
+             "none: XLA's gathers (spectralae/ops/spectral.py "
+             "spectral_resize)"),
             ("k3", "corr_pair_windows",
              "spectralae_torch/csrc/corr_windows.cu",
              "spectralae/ops/pallas_windows.py:125"),
@@ -4280,6 +4486,11 @@ def main() -> int:
                 "launches_per_step": per_step_seen[key],
                 "fwd_ms": s["fwd_ms"], "fwd_plain_ms": s["fwd_plain_ms"],
                 "bwd_ms": s["bwd_ms"], "bwd_plain_ms": s["bwd_plain_ms"]})
+            if key == "rs":
+                # every launch of a fft step at each size, the benchmark's
+                # included, and the host's cost a call
+                row["by_step"] = timed["rs_steps"]
+                row["host_us"] = timed["rs_host_us"]
         else:
             variants = ("xx", "eg") if key == "k3" else ("f32",)
             rs = [windows[(key, 256, v)] for v in variants]

@@ -124,6 +124,8 @@ _SIGNATURES = {
     "ydft_energy_launch": (_P,) * 5 + (_I,) * 6 + (_P,),
     # tier, out[4]
     "ydft_sweep_attrs": (_I, _P),
+    # in, out, rows, planes, h_in, w_in, h_out, w_out, k, stream
+    "spectral_resize_launch": (_P, _P, _P, _L) + (_I,) * 5 + (_P,),
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"omega_scratch_floats": ctypes.c_longlong,

@@ -7,9 +7,11 @@ and calls it without tracing and without the model source, on a device
 chosen at load time among the artifact's ``platforms``.
 
 The hand-written kernels are nodes of the traced graph: K1 as the operator
-``spectralae_torch::cmul_contract`` on the fft path, K2 as
+``spectralae_torch::cmul_contract`` and the pooling's remap as
+``spectralae_torch::spectral_resize`` on the fft path, K2 as
 ``spectralae_torch::conv_valid`` on the coord path at its kernel shapes
 (:mod:`spectralae_torch.ops.spectral_kernels`,
+:mod:`spectralae_torch.ops.resize_kernels`,
 :mod:`spectralae_torch.ops.coord_kernels`).  Each operator's CPU kernel is
 its plain version and its CUDA kernel the launch, so one program runs on
 either device — the port's counterpart of JAX's multi-platform lowering.
@@ -214,7 +216,8 @@ class ServingModel:
                 f"{path} was exported for platforms {manifest['platforms']}, "
                 f"not {device.type} (re-export with --platforms naming it)")
         # the program calls the kernels' operators: register them first
-        from ..ops import coord_kernels, spectral_kernels  # noqa: F401
+        from ..ops import (coord_kernels, resize_kernels,  # noqa: F401
+                           spectral_kernels)
         program = torch.export.load(path / f"{manifest['what']}.pt2")
         program = move_to_device_pass(program, device)
         return cls(program, manifest, device)

@@ -149,6 +149,56 @@ def lag_basis(nx: int, ny: int, hx: int, hy: int):
             np.asarray(w[:, None] * np.sin(ay), np.float32))
 
 
+@tensor_cache
+def _spectrum_bases_on(nk: int, nl: int, nx: int, ny: int,
+                       device: torch.device):
+    """:func:`_axis_bases` as :func:`kernel_spectrum`'s products read them,
+    kept on ``device`` (built outside inference mode): ``ey`` ``[nl,
+    2·nyr]`` float32, the column phases ``e^{-iθy}`` as (re, im) pairs;
+    ``bx`` ``[2·nx, nk]`` float32, the row phases' cosines over their sines;
+    ``exh`` ``[nk, nx]`` complex64, ``e^{+iθx}``, the rows' adjoint."""
+    cx, sx, cy, sy, _ = _axis_bases(nk, nl, nx, ny)
+    ey = np.stack([cy, -sy], axis=-1).reshape(nl, -1)
+    bx = np.ascontiguousarray(np.concatenate([cx, sx], axis=1).T)
+    exh = (cx + 1j * sx).astype(np.complex64)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device) for a in (ey, bx, exh))
+
+
+def _spectrum(cb: torch.Tensor, ey: torch.Tensor, bx: torch.Tensor,
+              nx: int) -> torch.Tensor:
+    """The spectra ``[B, Nx, Nyr]`` of kernels ``cb`` ``[B, Nk, Nl]``, as
+    two real products: the columns ``T = c·e^{-iθy}`` (its (re, im) pairs),
+    then the rows' cosines and sines against them at once, ``A = cos·T`` and
+    ``S = sin·T``, and ``C = A − i·S``.  Each bin is summed as the JAX
+    package's einsums sum it, ``Σ cos·Tr + Σ sin·Ti`` and ``Σ cos·Ti −
+    Σ sin·Tr``: the corr burst's anchor mismatch is this rounding's noise,
+    and a data-parallel burst's distance from the single process follows
+    it (``chip_smoke.py`` holds that distance)."""
+    t = cb @ ey                                     # [B, Nk, 2·Nyr]
+    q = torch.bmm(bx.expand(cb.shape[0], 2 * nx, bx.shape[1]), t)
+    q = torch.view_as_complex(q.unflatten(-1, (-1, 2)))
+    return torch.sub(q[:, :nx], q[:, nx:], alpha=1j)
+
+
+class _KernelSpectrum(torch.autograd.Function):
+    """:func:`_spectrum` with its adjoint as the backward: the rows'
+    ``e^{+iθx}`` against the gradient in one batched complex product, then
+    the columns' pairs, two launches where autograd through the forward's
+    slices would fill and copy ``[B, 2·Nx, Nyr]`` buffers."""
+
+    @staticmethod
+    def forward(ctx, cb, ey, bx, exh):
+        ctx.save_for_backward(ey, exh)
+        return _spectrum(cb, ey, bx, exh.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        ey, exh = ctx.saved_tensors
+        gt = torch.bmm(exh.expand(g.shape[0], *exh.shape), g)
+        return torch.view_as_real(gt).flatten(-2) @ ey.T, None, None, None
+
+
 def kernel_spectrum(c: torch.Tensor, nx: int, ny: int,
                     precision=None) -> torch.Tensor:
     """``rfft2(kernel_pad(c))`` as two per-axis products.
@@ -158,21 +208,22 @@ def kernel_spectrum(c: torch.Tensor, nx: int, ny: int,
     ``"highest"``; the fused corr precompute passes ``"high"``).  Every
     value runs the products in IEEE float32 with TF32 off, which is at
     least as exact as any tier the hint names.
+
+    Two batched products and a complex subtract (:func:`_spectrum`), for
+    few operations on the host; where autograd needs the kernels' gradient,
+    the adjoint's two products (:class:`_KernelSpectrum`).
     """
     if precision is not None:
         with ieee_f32():
             return kernel_spectrum(c, nx, ny)
     nk, nl = c.shape[-2], c.shape[-1]
-    cx, sx, cy, sy, _ = _bases_on(nk, nl, nx, ny, c.device)
-    # columns first: T = c · e^{-iθy}   [..., Nk, Nyr]
-    tr = torch.einsum("...kl,ly->...ky", c, cy)
-    ti = -torch.einsum("...kl,ly->...ky", c, sy)
-    # rows: C = e^{-iθx} · T            [..., Nx, Nyr]
-    re = (torch.einsum("kx,...ky->...xy", cx, tr)
-          + torch.einsum("kx,...ky->...xy", sx, ti))
-    im = (torch.einsum("kx,...ky->...xy", cx, ti)
-          - torch.einsum("kx,...ky->...xy", sx, tr))
-    return torch.complex(re, im)
+    ey, bx, exh = _spectrum_bases_on(nk, nl, nx, ny, c.device)
+    cb = c.reshape(-1, nk, nl)
+    if c.requires_grad and torch.is_grad_enabled():
+        out = _KernelSpectrum.apply(cb, ey, bx, exh)
+    else:
+        out = _spectrum(cb, ey, bx, nx)
+    return out.reshape(c.shape[:-2] + out.shape[-2:])
 
 
 def kernel_project(D: torch.Tensor, nk: int, nl: int, nx: int,

@@ -1,10 +1,11 @@
 """Momentum-space (frequency-domain) ops on the rfft2 half-spectrum layout.
 
 Port of :mod:`spectralae.ops.spectral`.  The transforms are ``torch.fft``
-(cuFFT on the card, pocketfft on the CPU); the gather/mask/einsum ops are
-plain tensor code, and the pointwise complex conv routes onto the
-hand-written kernel K1 (:mod:`spectralae_torch.ops.spectral_kernels`) for
-batched CUDA spectra.
+(cuFFT on the card, pocketfft on the CPU); the mask/einsum ops are plain
+tensor code, the pointwise complex conv routes onto the hand-written kernel
+K1 (:mod:`spectralae_torch.ops.spectral_kernels`) for batched CUDA
+spectra, and the pooling's resize onto the remap kernel
+(:mod:`spectralae_torch.ops.resize_kernels`) for CUDA spectra.
 
 Spectrum layout: ``[..., Nx, Ny//2+1]`` complex64 — identical to cuFFT R2C
 (fft_backproplib.cu:775).  All index quirks of the reference's ``resize``
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import profiling
+from . import resize_kernels
 from .dft import kernel_route, tensor_cache
 
 
@@ -89,20 +91,60 @@ def _resize_maps(nx: int, ny: int, nxs: int, nys: int):
     return rows, row_mask, cols, col_mask
 
 
+@functools.lru_cache(maxsize=None)
+def _remap_maps(nx: int, ny: int, nxs: int, nys: int,
+                adjoint: bool) -> tuple[np.ndarray, np.ndarray]:
+    """The row and column maps of :func:`spectral_resize` as one remap
+    (int32, ``-1`` where the output is zero), or, with ``adjoint``, of its
+    adjoint: the inverse maps, from ``[nxs, nys//2+1]`` back to
+    ``[nx, ny//2+1]``, ``-1`` where no output bin reads the input bin.
+
+    Where :func:`_resize_maps`' mask is 1 its maps are one to one, so the
+    inverse exists (``test_resize_maps_invert_where_the_mask_is_one``)."""
+    rows, row_mask, cols, col_mask = _resize_maps(nx, ny, nxs, nys)
+    maps = (np.where(row_mask > 0, rows, -1).astype(np.int32),
+            np.where(col_mask > 0, cols, -1).astype(np.int32))
+    if not adjoint:
+        return maps
+    inverse = []
+    for m, n in zip(maps, (nx, ny // 2 + 1)):
+        kept = np.flatnonzero(m >= 0)
+        inv = np.full(n, -1, np.int32)
+        inv[m[kept]] = kept
+        inverse.append(inv)
+    return tuple(inverse)
+
+
 @tensor_cache
 def _resize_tensors(nx: int, ny: int, nxs: int, nys: int,
-                    device: torch.device):
-    """:func:`_resize_maps` as index/mask tensors, kept on ``device``.
+                    device: torch.device, adjoint: bool = False):
+    """:func:`_remap_maps` as the plain version's gather indices (0 where
+    the map is -1) and float32 mask, kept on ``device``.
 
     Built outside inference mode: a tensor made under
     ``torch.inference_mode()`` (a serving forward may fill the cache) could
     never be saved for a later backward."""
-    rows, row_mask, cols, col_mask = _resize_maps(nx, ny, nxs, nys)
-    mask = row_mask[:, None] * col_mask[None, :]
+    rows, cols = _remap_maps(nx, ny, nxs, nys, adjoint)
+    mask = ((rows >= 0)[:, None] & (cols >= 0)[None, :]).astype(np.float32)
     with torch.inference_mode(False):
-        return (torch.as_tensor(rows, dtype=torch.long, device=device),
-                torch.as_tensor(cols, dtype=torch.long, device=device),
+        return (torch.as_tensor(np.maximum(rows, 0), dtype=torch.long,
+                                device=device),
+                torch.as_tensor(np.maximum(cols, 0), dtype=torch.long,
+                                device=device),
                 torch.as_tensor(mask, device=device))
+
+
+def resize_plain(X: torch.Tensor, nx: int, ny: int, nxs: int, nys: int,
+                 adjoint: bool = False) -> torch.Tensor:
+    """The resize (``[..., nx, ny//2+1]`` → ``[..., nxs, nys//2+1]``), or
+    with ``adjoint`` its adjoint (back), as plain tensor code: two
+    ``index_select`` gathers on :func:`_remap_maps` and a mask multiply.
+    The plain version of the kernel
+    (:func:`spectralae_torch.ops.resize_kernels.spectral_resize`); autograd
+    through it gives the gathers' ``index_add`` gradient."""
+    rows, cols, mask = _resize_tensors(nx, ny, nxs, nys, X.device, adjoint)
+    out = X.index_select(-2, rows).index_select(-1, cols)
+    return out * mask
 
 
 def spectral_resize(X: torch.Tensor, nx: int, ny: int, nxs: int,
@@ -113,10 +155,20 @@ def spectral_resize(X: torch.Tensor, nx: int, ny: int, nxs: int,
     (fft_backproplib.cu:154-155), so spatial amplitudes scale by ``scale²``
     across a down/up round trip leg (and cancel over a symmetric net).
     Reference: ``resize`` fft_backproplib.cu:87-157 via ``pool_fft`` 975-1002.
+
+    CUDA spectra (and either device while ``torch.export`` traces or a
+    :data:`~spectralae_torch._kernels.HOOK` is set: :func:`dft.kernel_route
+    <spectralae_torch.ops.dft.kernel_route>`) take the hand-written remap
+    kernel, forward and adjoint
+    (:class:`spectralae_torch.ops.resize_kernels.SpectralResize`, or the
+    kernel's wrapper alone where no gradient is taken); everything else
+    :func:`resize_plain`.  The two agree bit for bit.
     """
-    rows, cols, mask = _resize_tensors(nx, ny, nxs, nys, X.device)
-    out = X.index_select(-2, rows).index_select(-1, cols)
-    return out * mask
+    if kernel_route(X):
+        if X.requires_grad and torch.is_grad_enabled():
+            return resize_kernels.SpectralResize.apply(X, nx, ny, nxs, nys)
+        return resize_kernels.spectral_resize(X, nx, ny, nxs, nys)
+    return resize_plain(X, nx, ny, nxs, nys)
 
 
 def spectral_pool(X: torch.Tensor, nx: int, ny: int,
@@ -125,7 +177,7 @@ def spectral_pool(X: torch.Tensor, nx: int, ny: int,
 
     ``scale>1``: downsample by crop; ``scale<-1``: upsample by zero-pad.
     Returns the resized spectrum and the new spatial dims.  A resize is the
-    span ``pool``, its backward (the gathers' ``index_add``) ``pool.grad``.
+    span ``pool``, its backward (the adjoint resize) ``pool.grad``.
     """
     if scale == 1 or scale == -1 or scale == 0:
         return X, nx, ny

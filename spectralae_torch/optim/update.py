@@ -63,13 +63,27 @@ def tree_update(params: AEParams, grads: AEParams, moms: AEParams,
                 prev_grads: AEParams, lr: float, alpha: float, *,
                 active: bool = False):
     """Apply the update to every tensor of the parameter tape; returns
-    ``(params', moms', prev_grads')``."""
-    out = [normalized_momentum_update(w, g, m, pg, lr, alpha, active=active)
-           for w, g, m, pg in zip(params.leaves(), grads.leaves(),
-                                  moms.leaves(), prev_grads.leaves())]
-    return (AEParams.from_leaves([o.w for o in out]),
-            AEParams.from_leaves([o.mom for o in out]),
-            AEParams.from_leaves([o.prev_grad for o in out]))
+    ``(params', moms', prev_grads')``.
+
+    The fixed-rate update runs each of its elementwise operations on every
+    leaf at once (``torch._foreach_*``: one launch an operation on the
+    card, not one a leaf), in :func:`normalized_momentum_update`'s order,
+    so each value is the same bit for bit."""
+    if active:
+        out = [normalized_momentum_update(w, g, m, pg, lr, alpha,
+                                          active=True)
+               for w, g, m, pg in zip(params.leaves(), grads.leaves(),
+                                      moms.leaves(), prev_grads.leaves())]
+        return (AEParams.from_leaves([o.w for o in out]),
+                AEParams.from_leaves([o.mom for o in out]),
+                AEParams.from_leaves([o.prev_grad for o in out]))
+    gs = grads.leaves()
+    dw = torch._foreach_mul(gs, (1.0 - alpha) * lr)
+    torch._foreach_div_(dw, torch._foreach_clamp_min(torch._foreach_abs(gs),
+                                                     GRAD_CLIP))
+    torch._foreach_add_(dw, torch._foreach_mul(moms.leaves(), alpha))
+    return (AEParams.from_leaves(torch._foreach_sub(params.leaves(), dw)),
+            AEParams.from_leaves(dw), grads)
 
 
 def burst_inertia(w: torch.Tensor, g: torch.Tensor, mom: torch.Tensor,

@@ -39,6 +39,7 @@ from spectralae_torch.io.server import InferenceServer
 from spectralae_torch.model import autoencoder as tmodel
 from spectralae_torch.ops import coord_kernels as ck
 from spectralae_torch.ops import dft, spectral
+from spectralae_torch.ops import resize_kernels as rk
 from spectralae_torch.ops import spectral_kernels as sk
 
 torch.set_num_threads(1)
@@ -48,6 +49,7 @@ ROOT = Path(__file__).resolve().parent.parent
 CFG = Config(nx=32, ny=32, d=3,
              layer=LayerParams(depth=4, lk=1, ll=1, scale=2, rmax=1.0))
 K1_OP, K2_OP = "spectralae_torch.cmul_contract", "spectralae_torch.conv_valid"
+RESIZE_OP = "spectralae_torch.spectral_resize"
 
 
 def _jax():
@@ -279,11 +281,18 @@ def test_http_dynamic_batching_on_a_pt2(small_net, tmp_path):
 def test_traced_graph_holds_the_kernel_operators(small_net, tmp_path, what,
                                                  domain, op):
     """One node per stage: K1 in every fft stage, K2 in every coord stage
-    of a K2 kernel shape (M·D ≤ 64, 3×3 taps), on a CPU trace too."""
+    of a K2 kernel shape (M·D ≤ 64, 3×3 taps), on a CPU trace too; and one
+    resize node a spectral pooling, before an encoder stage's K1 and after
+    a decoder stage's."""
     _, spec, params = small_net
     path = export_model(params, spec, tmp_path, what=what, domain=domain)
     stages = params.n_stages if what == "forward" else params.n_stages // 2
-    assert _op_nodes(path, what) == [op] * stages
+    want = []
+    for i, scale in enumerate(spec.scales[:stages]):
+        pool = [RESIZE_OP] if domain == "fft" and abs(scale) > 1 else []
+        want += pool + [op] if i < params.n_stages // 2 else [op] + pool
+    assert RESIZE_OP in want or domain == "coord"
+    assert _op_nodes(path, what) == want
 
 
 def _cplx(gen, *shape):
@@ -311,6 +320,12 @@ def _opcheck_cases():
         "k2": (ck.conv_valid_op, (x, w)),
         "k2_bf16": (ck.conv_valid_op, (x.bfloat16().float(),
                                        w.bfloat16().float())),
+        "resize_crop": (rk.spectral_resize_op, (_cplx(gen, 2, 3, 18, 10),
+                                                18, 18, 9, 9, False)),
+        "resize_crop_adjoint": (rk.spectral_resize_op, (
+            _cplx(gen, 2, 3, 9, 5), 18, 18, 9, 9, True)),
+        "resize_pad": (rk.spectral_resize_op, (_cplx(gen, 3, 9, 5),
+                                               9, 9, 18, 18, False)),
     }
 
 
@@ -320,7 +335,7 @@ def test_opcheck_passes_on_the_cpu(case):
     assert set(torch.library.opcheck(op, args).values()) == {"SUCCESS"}
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "resize"])
 def test_operator_only_while_tracing(kernel, monkeypatch):
     """Eager code calls the operator's kernel for the device directly,
     without the dispatcher; a graph that ``torch.compile`` traces holds
@@ -332,6 +347,13 @@ def test_operator_only_while_tracing(kernel, monkeypatch):
 
         def fn(p, q):
             return sk.cmul_contract(p, q, p_scale=0.5, conj_q=True)
+    elif kernel == "resize":
+        mod, table = rk, "_SPECTRAL_RESIZE_KERNELS"
+        op = rk.spectral_resize_op
+        args = (_cplx(gen, 2, 3, 16, 9),)
+
+        def fn(X):
+            return rk.spectral_resize(X, 16, 16, 8, 8)
     else:
         mod, table, op = ck, "_CONV_VALID_KERNELS", ck.conv_valid_op
         args = (torch.randn(2, 3, 12, 10, generator=gen),
@@ -370,6 +392,7 @@ def test_eager_forward_after_an_export_still_matches_jax(small_net,
     # empty, so that the traces are the first to ask for these tensors
     spectral._resize_tensors.cache_clear()
     dft._bases_on.cache_clear()
+    dft._spectrum_bases_on.cache_clear()
     for domain in ("fft", "coord"):
         export_model(params, spec, tmp_path / domain, domain=domain,
                      batch=None)
@@ -387,13 +410,19 @@ def test_eager_forward_after_an_export_still_matches_jax(small_net,
 
 
 def test_tensor_cache_keeps_no_tensor_made_under_a_trace():
-    """A trace that is the first to ask for the resize maps and the DFT
-    bases (no eager call before it) builds them afresh and stores nothing:
-    the next eager call gets real tensors.  ``export_model`` fills the
-    caches first, so its programs hold each as one constant, with no copy
-    made at every call."""
+    """A trace that is the first to ask for the DFT bases (no eager call
+    before it) builds them afresh and stores nothing: the next eager call
+    gets real tensors.  ``export_model`` fills the caches first, so its
+    programs hold each as one constant, with no copy made at every call.
+    The resize's maps (``spectral._resize_tensors``, the CUDA kernel's
+    ``resize_kernels._row_map``) are built only by the resize operator's
+    real kernels, never under the trace, which reaches the operator's
+    fake: the program's first call on the CPU builds them, real."""
     spectral._resize_tensors.cache_clear()
+    rk._row_map.cache_clear()
     dft._bases_on.cache_clear()
+    dft._spectrum_bases_on.cache_clear()
+    built = []
 
     class Pool(torch.nn.Module):
         def forward(self, x):
@@ -401,12 +430,26 @@ def test_tensor_cache_keeps_no_tensor_made_under_a_trace():
             return X * dft.kernel_spectrum(torch.ones(3, 3), 8, 8)
 
     x = torch.randn(2, 16, 16)
-    with torch.no_grad():
-        torch.export.export(Pool(), (x,))
-    rows = spectral._resize_tensors(16, 16, 8, 8, x.device)[0]
-    bases = dft._bases_on(3, 3, 8, 8, x.device)[0]
-    assert type(rows) is torch.Tensor and type(bases) is torch.Tensor
+    maps = spectral._resize_tensors
+    spectral._resize_tensors = lambda *a: built.append(a) or maps(*a)
+    try:
+        with torch.no_grad():
+            program = torch.export.export(Pool(), (x,))
+        assert not built
+        got = program.module()(x)
+    finally:
+        spectral._resize_tensors = maps
+    assert built == [(16, 16, 8, 8, x.device, False)]
+    rows = spectral._resize_tensors(16, 16, 8, 8, x.device, False)[0]
+    bases = dft._spectrum_bases_on(3, 3, 8, 8, x.device)
+    assert type(rows) is torch.Tensor
+    assert all(type(b) is torch.Tensor for b in bases)
     assert rows.tolist() == [0, 1, 2, 3, 8, 13, 14, 15]
+    assert torch.equal(got, Pool()(x))
+    row_map = rk._row_map(16, 16, 8, 8, True, x.device)
+    assert type(row_map) is torch.Tensor
+    assert row_map.tolist() == [0, 1, 2, 3, -1, -1, -1, -1, 4, -1, -1, -1,
+                                -1, 5, 6, 7]
 
 
 @pytest.mark.parametrize("domain", ["fft", "coord"])
@@ -487,20 +530,24 @@ def cuda_device():
 def test_pt2_on_the_card_equals_eager_and_launches(cuda_device, tmp_path,
                                                    domain):
     """A symbolic-batch artifact traced and served on the card equals the
-    eager forward on the card, and each call launches the kernel once per
-    operator node."""
+    eager forward on the card, and each call launches each kernel once per
+    operator node (K1 and the resize in the fft domain, K2 in the
+    coord)."""
     spec = initial_spec(CFG)
     params = init_params(torch.Generator().manual_seed(0), spec, 1.0)
     params = params.from_leaves([t.to(cuda_device) for t in params.leaves()])
     path = export_model(params, spec, tmp_path, domain=domain)
-    nodes = len(_op_nodes(path))
+    nodes = _op_nodes(path)
     m = ServingModel.load(path, device=cuda_device)
     x = torch.from_numpy(_frames(3, 3)).to(cuda_device)
-    counter = (sk, "LAUNCHES") if domain == "fft" else (ck, "LAUNCHES")
-    before = getattr(*counter)
+    counters = ({K1_OP: (sk, "LAUNCHES"), RESIZE_OP: (rk, "LAUNCHES")}
+                if domain == "fft" else {K2_OP: (ck, "LAUNCHES")})
+    assert set(nodes) == set(counters)
+    before = {op: getattr(*c) for op, c in counters.items()}
     got = m(x)
     torch.cuda.synchronize()
-    assert getattr(*counter) - before == nodes > 0
+    for op, c in counters.items():
+        assert getattr(*c) - before[op] == nodes.count(op) > 0
     with torch.no_grad():
         if domain == "fft":
             want = tmodel.forward_fft(params, x, spec.scales)

@@ -196,6 +196,37 @@ def test_cmul_contract_kernel_matches_plain_on_card(cuda_device, a, k, b, n):
     assert rel(got.cpu(), want.cpu()) < TOL
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n", [(10, 3, 512), (50, 50, 256),
+                                   (3, 50, 512), (4, 3, 15)])
+def test_kernel_spectrum_matches_float64_on_card(cuda_device, m, d, n):
+    """The kernel spectra on the card (cuBLAS's real and complex products,
+    TF32 off) against the phases' sum in float64, values and autograd's
+    gradient, at stage shapes of the benchmark's fft cells and an odd
+    grid."""
+    from spectralae_torch.ops import dft
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    c = torch.randn(m, d, 5, 5, device=cuda_device, generator=gen)
+    G = torch.randn(m, d, n, n // 2 + 1, dtype=torch.complex64,
+                    device=cuda_device, generator=gen)
+    cx, sx, cy, sy, _ = (torch.as_tensor(a, dtype=torch.float64,
+                                         device=cuda_device)
+                         for a in dft._axis_bases(5, 5, n, n))
+    c64 = c.double().requires_grad_()
+    want = torch.einsum("kx,...kl,ly->...xy", torch.complex(cx, -sx),
+                        c64.to(torch.complex128), torch.complex(cy, -sy))
+    want_g, = torch.autograd.grad(want, c64, G.to(torch.complex128))
+    ct = c.clone().requires_grad_()
+    with dft.ieee_f32():
+        got = dft.kernel_spectrum(ct, n, n)
+        got_g, = torch.autograd.grad(got, ct, G)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.dtype == torch.complex64
+    assert rel(got.detach().cpu(), want.detach().cpu()) < TOL
+    # the gradient sums over every bin of the grid: the DFT chains' 1e-5
+    assert rel(got_g.cpu(), want_g.cpu()) < 1e-5
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,m,n", [(8, 3, 10, 128), (8, 10, 3, 128),
                                      (2, 2, 20, 37)])
@@ -678,7 +709,8 @@ def test_cmul_contract_blocked_matches_lane_on_card(cuda_device, monkeypatch,
 def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
     """One train step of the benchmark's M = 50 net at 1024^2 b16: the fft
     step's 17 K1 calls (``kernel.cmul_contract``), 15 to 17 of them on
-    the blocked design (``k1.blocked``); the coord step calls no K1."""
+    the blocked design (``k1.blocked``), and its 11 resizes (6 forward, 5
+    adjoint: ``kernel.spectral_resize``); the coord step calls neither."""
     from spectralae_torch.core import profiling
     from spectralae_torch.core import types as ttypes
     from spectralae_torch.train import modern
@@ -699,7 +731,9 @@ def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
         profiling.disable()
     kernels = sum(v for n, v in counters.items() if n.startswith("kernel."))
     if domain == "fft":
-        assert counters["kernel.cmul_contract"] == kernels == 17
+        assert counters["kernel.cmul_contract"] == 17
+        assert counters["kernel.spectral_resize"] == 11
+        assert kernels == 28
         assert 15 <= counters["k1.blocked"] <= 17
     else:
         assert kernels == 0 and "k1.blocked" not in counters

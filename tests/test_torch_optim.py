@@ -98,6 +98,25 @@ def test_tree_update_matches_jax(active):
                                        rtol=ELEM_TOL, atol=0)
 
 
+@pytest.mark.parametrize("lr,alpha", [(0.2, 0.9), (0.3, 0.8), (1.0, 0.0)])
+def test_tree_update_equals_the_per_leaf_update_bit_for_bit(lr, alpha):
+    """The fixed-rate update, all leaves an operation at once, gives each
+    leaf what :func:`normalized_momentum_update` gives it, bit for bit,
+    hands the gradients on as ``prev_grad`` and leaves its arguments
+    alone."""
+    ported = [ttypes.params_from_numpy(t) for t in _tapes(5)]
+    before = [[t.clone() for t in p.leaves()] for p in ported]
+    new_w, new_mom, new_pg = tupd.tree_update(*ported, lr, alpha)
+    for i, (w, g, m, pg) in enumerate(zip(*(p.leaves() for p in ported))):
+        want = tupd.normalized_momentum_update(w, g, m, pg, lr, alpha)
+        assert torch.equal(new_w.leaves()[i], want.w)
+        assert torch.equal(new_mom.leaves()[i], want.mom)
+        assert new_pg.leaves()[i] is g
+    for p, b in zip(ported, before):
+        for t, t0 in zip(p.leaves(), b):
+            assert torch.equal(t, t0)
+
+
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_burst_inertia_matches_jax(with_scale):
     w, g, mom, _ = update_inputs(2)

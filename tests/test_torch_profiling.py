@@ -164,7 +164,8 @@ def test_each_pool_grad_lies_inside_backward(domain):
                 <= g["host_end_ns"] <= back["host_end_ns"]
 
 
-@pytest.mark.parametrize("domain,calls", [("fft", {"cmul_contract": 17}),
+@pytest.mark.parametrize("domain,calls", [("fft", {"cmul_contract": 17,
+                                                   "spectral_resize": 11}),
                                           ("coord", {"_valid_corr": 2})])
 def test_kernel_counters_match_the_roofline_tally(domain, calls):
     params, opt, x = _net()

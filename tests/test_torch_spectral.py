@@ -61,15 +61,78 @@ def test_resize_maps_are_the_jax_maps(nx, ny, nxs, nys):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("nx,ny,scale", [
+POOL_CASES = [
     (16, 16, 2), (18, 18, 2), (20, 12, 2), (24, 24, 3),   # down, even/odd
-    (8, 8, -2), (9, 9, -2), (6, 10, -3), (16, 16, 1)])    # up, identity
+    (8, 8, -2), (9, 9, -2), (6, 10, -3), (16, 16, 1)]     # up, identity
+
+
+def pooled(nx, ny, scale):
+    if abs(scale) <= 1:
+        return nx, ny
+    return (nx // scale, ny // scale) if scale > 0 else (nx * -scale,
+                                                         ny * -scale)
+
+
+@pytest.mark.parametrize("nx,ny,scale", POOL_CASES)
 def test_spectral_pool_matches_jax_exactly(nx, ny, scale):
     X = spectra(np.random.default_rng(1), 2, 3, nx, ny)
     got, gx, gy = tspec.spectral_pool(torch.from_numpy(X), nx, ny, scale)
     want, wx, wy = jspec.spectral_pool(jnp.asarray(X), nx, ny, scale)
     assert (gx, gy) == (wx, wy)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nx,ny,scale", POOL_CASES)
+def test_resize_maps_invert_where_the_mask_is_one(nx, ny, scale):
+    """The resize's row and column maps are one to one where its mask is
+    1 (JAX's masks and maps), so the adjoint is the remap on the inverse
+    maps: ``inverse[map[i]] == i`` at every kept bin, and -1 at every input
+    bin that no output bin reads."""
+    nxs, nys = pooled(nx, ny, scale)
+    jmaps = jspec._resize_maps(nx, ny, nxs, nys)
+    fwd = tspec._remap_maps(nx, ny, nxs, nys, False)
+    inv = tspec._remap_maps(nx, ny, nxs, nys, True)
+    for m, mask, f, i, n in zip(jmaps[::2], jmaps[1::2], fwd, inv,
+                                (nx, ny // 2 + 1)):
+        kept = np.flatnonzero(np.asarray(mask) > 0)
+        m = np.asarray(m)
+        assert len(set(m[kept].tolist())) == len(kept)      # one to one
+        np.testing.assert_array_equal(f, np.where(np.asarray(mask) > 0, m,
+                                                  -1))
+        assert len(i) == n
+        np.testing.assert_array_equal(i[m[kept]], kept)
+        assert (np.delete(i, m[kept]) == -1).all()
+
+
+@pytest.mark.parametrize("nx,ny,scale", POOL_CASES)
+def test_resize_route_equals_the_gathers_bit_for_bit(nx, ny, scale):
+    """The kernel's route forced onto the CPU (a hook sees every kernel
+    wrapper's call): its forward equals the plain gathers' (the resize
+    before the kernel), and its gradient autograd's through them."""
+    from spectralae_torch import _kernels
+    nxs, nys = pooled(nx, ny, scale)
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(spectra(rng, 2, 3, nx, ny)).requires_grad_(True)
+    g = torch.from_numpy(spectra(rng, 2, 3, nxs, nys))
+    want = tspec.resize_plain(X, nx, ny, nxs, nys)
+    want_grad, = torch.autograd.grad(want, X, g)
+    seen = []
+
+    def hook(fn, args, kwargs):
+        seen.append(fn.__name__)
+        return fn(*args, **kwargs)
+    _kernels.HOOK = hook
+    try:
+        got = tspec.spectral_resize(X, nx, ny, nxs, nys)
+        got_grad, = torch.autograd.grad(got, X, g)
+    finally:
+        _kernels.HOOK = None
+    assert seen == ["spectral_resize"] * 2
+    assert torch.equal(got, want) and torch.equal(got_grad, want_grad)
+    np.testing.assert_array_equal(
+        got.detach().numpy(),
+        np.asarray(jspec.spectral_resize(jnp.asarray(X.detach().numpy()),
+                                         nx, ny, nxs, nys)))
 
 
 @pytest.mark.parametrize("nk,nl,nx,ny", [(5, 5, 16, 16), (3, 5, 12, 10),
@@ -111,6 +174,34 @@ def test_dft_products_match_jax(nk, nl, nx, ny):
     for got_b, want_b in zip(tdft._axis_bases(nk, nl, nx, ny),
                              jdft._axis_bases(nk, nl, nx, ny)):
         np.testing.assert_array_equal(got_b, want_b)
+
+
+@pytest.mark.parametrize("lead,nk,nl,nx,ny", [
+    ((), 5, 5, 16, 16), ((3,), 3, 3, 12, 9), ((4, 3), 5, 5, 16, 16),
+    ((2, 3), 3, 5, 8, 15)])
+def test_kernel_spectrum_and_its_gradient_match_float64(lead, nk, nl, nx,
+                                                        ny):
+    """The two products of ``kernel_spectrum`` (a real column product read
+    as complex, a batched complex row product) against the phases' sum in
+    float64: the spectra, contiguous, and autograd's gradient of the
+    kernels."""
+    rng = np.random.default_rng(5)
+    c = real(rng, *lead, nk, nl)
+    G = spectra(rng, *lead, nx, ny)
+    cx, sx, cy, sy, _ = (torch.from_numpy(a).double()
+                         for a in tdft._axis_bases(nk, nl, nx, ny))
+    c64 = torch.from_numpy(c).double().requires_grad_()
+    want = torch.einsum("kx,...kl,ly->...xy", torch.complex(cx, -sx),
+                        c64.to(torch.complex128), torch.complex(cy, -sy))
+    want_g, = torch.autograd.grad(want, c64,
+                                  torch.from_numpy(G).to(torch.complex128))
+    ct = torch.from_numpy(c).requires_grad_()
+    got = tdft.kernel_spectrum(ct, nx, ny)
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert got.is_contiguous()
+    assert rel(got.detach(), want.detach()) < FFT_TOL
+    got_g, = torch.autograd.grad(got, ct, torch.from_numpy(G))
+    assert rel(got_g, want_g) < FFT_TOL
 
 
 @pytest.mark.parametrize("scale_by_dm", [True, False])
