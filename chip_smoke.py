@@ -244,6 +244,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark.costs import (FP32_FLOP_PER_S, HBM_BYTES_PER_S, bound_ms,
+                             k1_bound, k2_bound)
+
 # norm-relative tolerances, each with its reason
 TOL_K1 = 1e-6      # same float32 products, summed in another order
 TOL_K2 = 1e-6      # the same, over D*nk*nl taps
@@ -283,9 +286,6 @@ TOL_LONG_W, TOL_LONG_MSE_FACTOR = 0.3, 3.0
 # (frame size, batch, channel width) of the benchmark's fft train steps
 BENCH_FFT_STEPS = ((1024, 16, 50), (1024, 64, 10))
 REPS = 20          # timed launches per measurement, after 3 warm-up ones
-# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 # the training phase: steps of the first run, then of the resumed one
 TRAIN_STEPS, RESUME_STEPS = 20, 5
 # hand-written kernel launches in one train step of the default net: K1 for
@@ -390,40 +390,23 @@ def check(ok: bool, msg: str) -> None:
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch counter to 0."""
-    from spectralae_torch.ops import burst_kernels as bk
-    from spectralae_torch.ops import coord_kernels as ck
-    from spectralae_torch.ops import fft_kernels as fk
-    from spectralae_torch.ops import probe_kernels as pk
-    from spectralae_torch.ops import resize_kernels as rk
-    from spectralae_torch.ops import spectral_kernels as sk
-    from spectralae_torch.ops import window_kernels as wk
-    sk.LAUNCHES = sk.LAUNCHES_BF16 = 0
-    ck.LAUNCHES = rk.LAUNCHES = 0
-    for counter in (wk.LAUNCHES, fk.LAUNCHES, bk.LAUNCHES, pk.LAUNCHES):
-        counter.update(dict.fromkeys(counter, 0))
+    """Set every kernel's launch count to 0."""
+    from spectralae_torch import _kernels
+    _kernels.LAUNCHES.clear()
 
 
 def counts() -> dict:
-    """Every kernel's launch counter, by kernel key."""
-    from spectralae_torch.ops import burst_kernels as bk
-    from spectralae_torch.ops import coord_kernels as ck
-    from spectralae_torch.ops import fft_kernels as fk
-    from spectralae_torch.ops import probe_kernels as pk
-    from spectralae_torch.ops import resize_kernels as rk
+    """Every kernel's launch count, by kernel key."""
+    from spectralae_torch._kernels import LAUNCHES as n
     from spectralae_torch.ops import spectral_kernels as sk
-    from spectralae_torch.ops import window_kernels as wk
-    return {"k1": sk.LAUNCHES, "k1bf": sk.LAUNCHES_BF16, "k2": ck.LAUNCHES,
-            "rs": rk.LAUNCHES,
-            "k3": wk.LAUNCHES["corr_pair_windows"],
-            "k4": wk.LAUNCHES["anchor_windows"],
-            "b5a": fk.LAUNCHES["rfft_y_mixed"],
-            "b5b": fk.LAUNCHES["fft_x_mixed"],
-            "b5c": fk.LAUNCHES["bfly_lanes"],
-            "b5d": fk.LAUNCHES["bfly_rows"], "b5e": fk.LAUNCHES["fft_yc"],
-            **{key: bk.LAUNCHES[name] for key, name, _ in OMEGA_ROWS},
-            **{key: pk.LAUNCHES[name] for key, name, _ in P1_ROWS},
-            "p2": pk.LAUNCHES["ydft_energy"]}
+    return {"k1": sk.k1_launches(), "k1bf": sk.k1_launches(True),
+            "k2": n["conv_valid"], "rs": n["spectral_resize"],
+            "k3": n["corr_pair_windows"], "k4": n["anchor_windows"],
+            "b5a": n["rfft_y_mixed"], "b5b": n["fft_x_mixed"],
+            "b5c": n["bfly_lanes"], "b5d": n["bfly_rows"],
+            "b5e": n["fft_yc"],
+            **{key: n[name] for key, name, _ in OMEGA_ROWS + P1_ROWS},
+            "p2": n["ydft_energy"]}
 
 
 def grown(before: dict) -> dict:
@@ -524,31 +507,6 @@ def _sources(rows) -> str:
     """Where the ``ms`` of summed rows came from: "profile", "events", or
     both joined by "+"."""
     return "+".join(sorted({r["ms_source"] for r in rows}))
-
-
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k1_bound(a: int, k: int, b: int, w: int, bias: bool = False,
-             op_bytes: int = 8):
-    """[A,K,W] x [K,B,W] -> [A,B,W] complex64: each operand read once
-    (``op_bytes`` a complex element: 8, or 4 for bf16 operands), the output
-    written once; 8 flops per complex multiply-add."""
-    return bound_ms(8.0 * a * k * b * w,
-                    op_bytes * w * (a * k + k * b) + 8.0 * w * a * b
-                    + (4 * b if bias else 0))
-
-
-def k2_bound(b: int, d: int, m: int, hp: int, wp: int, nk: int, nl: int):
-    """Valid correlation [B,D,Hp,Wp] x [M,D,nk,nl] -> [B,M,H,W] float32."""
-    h, wo = hp - nk + 1, wp - nl + 1
-    return bound_ms(2.0 * b * m * d * nk * nl * h * wo,
-                    4.0 * (b * d * hp * wp + m * d * nk * nl + b * m * h * wo))
 
 
 def measure(label: str, got, want, kernel, plain, bound, tol: float, *,
@@ -1227,7 +1185,6 @@ def phase_forward() -> None:
     goes (kernels by name); a fft forward launches the resize at each of
     its 6 poolings, a coord forward none."""
     from spectralae_torch.model import autoencoder as model
-    from spectralae_torch.ops import resize_kernels as rk
     for nx, batch in ((256, 8), (1024, 4)):
         params, spec = _net(nx)
         x = torch.rand(batch, 3, nx, nx, device="cuda") * 255
@@ -1240,10 +1197,10 @@ def phase_forward() -> None:
                     return model.forward_coord(params, x, spec.scales,
                                                tap_mode="ref_gpu")[-1]
             with torch.inference_mode():
-                before = rk.LAUNCHES
+                before = counts()
                 fwd()
                 torch.cuda.synchronize()
-                grew = rk.LAUNCHES - before
+                grew = grown(before)["rs"]
                 want = RS_PER_FFT_FORWARD if domain == "fft" else 0
                 check(grew == want, f"forward {domain}: launched the resize "
                       f"{grew}x; expected {want}")
@@ -1260,8 +1217,6 @@ def phase_train_step() -> dict:
     K2's from the coord domain."""
     from spectralae_torch.core.types import init_opt_state
     from spectralae_torch.ops import coord_kernels as ck
-    from spectralae_torch.ops import resize_kernels as rk
-    from spectralae_torch.ops import spectral_kernels as sk
     from spectralae_torch.train.modern import train_step
     launched = {}
     for nx, batch in ((256, 8), (1024, 4)):
@@ -1274,13 +1229,12 @@ def phase_train_step() -> dict:
                 return train_step(params, opt, x, spec.scales, domain=domain,
                                   compute_dtype=cd)
             tag = "" if cd is None else " bf16"
-            before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES,
-                      rk.LAUNCHES)
+            before = counts()
             with launch_log() as log:
                 step()
             torch.cuda.synchronize()
-            grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
-                    ck.LAUNCHES - before[2], rk.LAUNCHES - before[3])
+            g = grown(before)
+            grew = (g["k1"], g["k1bf"], g["k2"], g["rs"])
             want = [0, 0, K2_PER_COORD_STEP, 0]
             if domain == "fft":
                 want = [0, 0, 0, RS_PER_FFT_STEP]
@@ -1309,10 +1263,10 @@ def phase_train_step() -> dict:
         # the data grad of the 10->3 stage through K2 adds one launch
         route, ck.PALLAS_DATA_GRAD = ck.PALLAS_DATA_GRAD, True
         try:
-            before = ck.LAUNCHES
+            before = counts()
             train_step(params, opt, x, spec.scales, domain="coord")
             torch.cuda.synchronize()
-            grew = ck.LAUNCHES - before
+            grew = grown(before)["k2"]
         finally:
             ck.PALLAS_DATA_GRAD = route
         print(f"train step coord {nx}x{nx} b{batch} with PALLAS_DATA_GRAD: "
@@ -3032,9 +2986,6 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
     one step's launches per step.  Returns the launches of the phase, and
     each kernel's launches per step in the first run of its domain."""
     from spectralae_torch.io import checkpoint as ckpt
-    from spectralae_torch.ops import coord_kernels as ck
-    from spectralae_torch.ops import resize_kernels as rk
-    from spectralae_torch.ops import spectral_kernels as sk
     common = ["train", "--nx", "256", "--layers", "3", "--batch", "8",
               "--seed", "0", "--log-every", "1"]
     reset_counts()
@@ -3048,12 +2999,12 @@ def phase_training(tmp: Path) -> tuple[dict, dict]:
         for steps, extra in ((TRAIN_STEPS, []),
                              (TRAIN_STEPS + RESUME_STEPS,
                               ["--resume", str(ck_dir)])):
-            before = (sk.LAUNCHES, ck.LAUNCHES, rk.LAUNCHES)
+            before = counts()
             t0 = time.perf_counter()
             recs = _cli_records(argv + ["--steps", str(steps)] + extra)
             wall = time.perf_counter() - t0
-            grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1],
-                    rk.LAUNCHES - before[2])
+            g = grown(before)
+            grew = (g["k1"], g["k2"], g["rs"])
             losses = [r["loss"] for r in recs]
             first = 0 if not extra else TRAIN_STEPS
             check([r["step"] for r in recs] == list(range(first, steps)),
@@ -3098,16 +3049,13 @@ def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
     with bf16 operands in the fft domain, none with complex64; K2 on its
     upcast operands in the coord domain).  Returns the launches of the
     phase and each kernel's launches per step."""
-    from spectralae_torch.ops import coord_kernels as ck
-    from spectralae_torch.ops import resize_kernels as rk
-    from spectralae_torch.ops import spectral_kernels as sk
     reset_counts()
     per_step_seen = {}
     for act, domain in itertools.product(("identity", "leaky_relu"),
                                          ("fft", "coord")):
         want = ((0, K1_PER_FFT_STEP, 0, RS_PER_FFT_STEP) if domain == "fft"
                 else (0, 0, K2_PER_COORD_STEP, 0))
-        before = (sk.LAUNCHES, sk.LAUNCHES_BF16, ck.LAUNCHES, rk.LAUNCHES)
+        before = counts()
         t0 = time.perf_counter()
         recs = _cli_records(["train", "--nx", "256", "--layers", "3",
                              "--batch", "8", "--seed", "0", "--log-every",
@@ -3115,8 +3063,8 @@ def phase_training_bf16(tmp: Path) -> tuple[dict, dict]:
                              str(TRAIN_STEPS), "--activation", act,
                              "--ckpt", str(tmp / f"bf16_{domain}_{act}")])
         wall = time.perf_counter() - t0
-        grew = (sk.LAUNCHES - before[0], sk.LAUNCHES_BF16 - before[1],
-                ck.LAUNCHES - before[2], rk.LAUNCHES - before[3])
+        g = grown(before)
+        grew = (g["k1"], g["k1bf"], g["k2"], g["rs"])
         losses = [r["loss"] for r in recs]
         tag = f"train {domain} --bf16 --activation {act}"
         check([r["step"] for r in recs] == list(range(TRAIN_STEPS)),

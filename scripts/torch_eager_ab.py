@@ -17,8 +17,8 @@ state; ``--processes`` runs each checkout in a process of its own a
 round instead, which shows how far the host's pace moves between
 processes.  The kernels are built once into one build directory (the
 library's name hashes its sources).  In one process, a checkout whose
-kernel modules call their operators through ``call_operator`` is also
-taken as ``<NAME>+operators``: every K1 and K2 launch through the
+kernel modules register their operators through ``_kernels.operator`` is
+also taken as ``<NAME>+operators``: every K1 and K2 launch through the
 ``torch.library`` dispatcher, as ``torch.export`` records them.  Two
 checkouts that both register the operators cannot share a process.
 
@@ -82,21 +82,24 @@ def load(checkout: Path, alias: str) -> dict:
 
 
 def has_operators(m: dict) -> bool:
-    return hasattr(m["spectral_kernels"], "call_operator")
+    return hasattr(m["_kernels"], "operator")
 
 
 @contextlib.contextmanager
 def through_operators(m: dict):
-    """Every K1 and K2 launch of the checkout ``m`` through its operator."""
-    mods = (m["spectral_kernels"], m["coord_kernels"])
-    real = [mod.call_operator for mod in mods]
-    for mod in mods:
-        mod.call_operator = lambda op, kernels, *args: op(*args)
+    """Every K1 and K2 launch of the checkout ``m`` through its operator:
+    the eager calls' kernels by device (``_kernels.operator``) replaced by
+    the operator itself."""
+    calls = (m["spectral_kernels"]._cmul_contract,
+             m["coord_kernels"]._conv_valid)
+    real = [dict(call.kernels) for call in calls]
+    for call in calls:
+        call.kernels.update(cpu=call.op, cuda=call.op)
     try:
         yield
     finally:
-        for mod, fn in zip(mods, real):
-            mod.call_operator = fn
+        for call, kernels in zip(calls, real):
+            call.kernels.update(kernels)
 
 
 def host_ms(fn, reps: int = REPS, loops: int = 3) -> tuple[float, float]:

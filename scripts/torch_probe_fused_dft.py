@@ -39,14 +39,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# the card's peaks: the memory rate and the float32 rate outside the tensor
+# cores (the tensor cores' bf16 rate: fft_kernels.design_tc_ms)
+from benchmark.costs import FP32_FLOP_PER_S, HBM_BYTES_PER_S  # noqa: E402
 from spectralae_torch.ops import fft_kernels as fk  # noqa: E402
 from spectralae_torch.ops import probe_kernels as pk  # noqa: E402
-
-# the card's peaks (NVIDIA's H100 SXM data sheet): the memory rate and the
-# float32 rate outside the tensor cores (the tensor cores' bf16 rate:
-# fft_kernels.design_tc_ms)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 
 
 def work(shape) -> dict:

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``), and the
+one seam through which Python reaches them.
 
 Every ``.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process,
 all started together, for ``sm_90a`` (Hopper); one more ``nvcc`` links the
@@ -13,15 +14,20 @@ The output lands in ``build/spectralae_torch/`` at the checkout root, named
 by a hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  The library is loaded with :mod:`ctypes`; each C
 entry point takes its pointers and the CUDA stream as ``void*`` and returns
-``cudaGetLastError()`` after its launches, which :func:`check` turns into an
-exception (``omega_scratch_floats`` and ``ydft_energy_blocks``, host-side
-size queries, launch nothing;
-``dft_leaf_attrs``, ``ydft_sweep_attrs`` and ``omega_tc_attrs`` read the
-runtime's attributes of the tensor-core kernels).
+``cudaGetLastError()`` after its launches.  :func:`launch` is the one way
+the kernel modules (``ops/*_kernels.py``) call an entry point: on the
+tensors' card, on its current stream, the error checked and the launch
+counted under its name in :data:`LAUNCHES`.  ``omega_scratch_floats`` and
+``ydft_energy_blocks`` (host-side size queries) and ``dft_leaf_attrs``,
+``ydft_sweep_attrs`` and ``omega_tc_attrs`` (the runtime's attributes of
+the tensor-core kernels) launch nothing and are called on :func:`lib`.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.  The kernels' plain PyTorch versions run only for CPU tensors, and
-that choice is made by the wrappers, never here.
+that choice is made by the wrappers, never here.  :func:`kernel_route`
+says which tensors take a kernel's route; :func:`operator` registers a
+kernel as a ``torch.library`` operator, so that a traced graph holds it as
+one node.
 
 :func:`opaque` marks each kernel's wrapper (the function that launches the
 kernel on a CUDA tensor and runs its plain version on a CPU one), so that
@@ -31,6 +37,7 @@ a caller may see each of its calls as one unit on either device
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -40,6 +47,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from .core import profiling
 
@@ -241,6 +250,61 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+#: kernel launches since import, by launch name: one per call of
+#: :func:`launch`, whose C entry point may run more than one grid
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launch(entry: str, name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device`` (a CUDA device), raise on the error it returns, and count
+    the launch under ``name`` in :data:`LAUNCHES`.  The launch runs on
+    ``device``: the current device is switched for it only where it is
+    another (the switch and back cost about 5 host microseconds).  Names
+    tell apart what an entry point does for several kernels (K1's designs
+    and operand types, the butterfly rounds along lanes and rows)."""
+    fn = getattr(lib(), entry)
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream(device))
+    check(err, name)
+    LAUNCHES[name] += 1
+
+
+def operator(name: str, schema: str, cpu, cuda, fake):
+    """Register the kernel ``spectralae_torch::<name>`` as a
+    ``torch.library.custom_op`` with its CPU kernel ``cpu`` (the plain
+    version), its CUDA kernel ``cuda`` (the launch) and its fake version
+    ``fake``, and return the function that calls it.
+
+    While a graph is traced (``torch.export``, ``torch.compile``) that
+    function calls the operator, so the graph holds it as one node.  In
+    eager code it calls the kernel for the device of its first argument
+    directly: the same body without the dispatcher's cost, paid on every
+    launch of the eager paths.  The function carries the operator as
+    ``op`` and its kernels by device type as ``kernels``."""
+    op = torch.library.custom_op(f"spectralae_torch::{name}", cpu,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda", cuda)
+    op.register_fake(fake)
+    kernels = {"cpu": cpu, "cuda": cuda}
+
+    def call(*args):
+        if torch.compiler.is_compiling():
+            return op(*args)
+        return kernels[args[0].device.type](*args)
+    call.op, call.kernels = op, kernels
+    return call
+
+
 #: None, or a callable ``hook(fn, args, kwargs)`` that every call of a
 #: kernel's wrapper (:func:`opaque`) goes through instead, returning what
 #: the call returns.  Process-wide, not thread-local: autograd runs a CUDA
@@ -249,9 +313,41 @@ def check(err: int, name: str) -> None:
 HOOK = None
 
 
-def hooked() -> bool:
-    """Whether a :data:`HOOK` is set."""
-    return HOOK is not None
+def kernel_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes a hand-written kernel's route (K1 in
+    :func:`spectralae_torch.ops.spectral.spectral_conv`, K2 in
+    :func:`spectralae_torch.ops.coord.conv2d`, the resize in
+    :func:`spectralae_torch.ops.spectral.spectral_resize`): a CUDA tensor,
+    or a tensor on either device while ``torch.export`` traces — the graph
+    then holds the kernel's operator, which runs the kernel on the card and
+    its plain version on the CPU (the port's counterpart of JAX's
+    multi-platform lowering) — or while a :data:`HOOK` sees every kernel
+    wrapper's call, so that it meets the same kernel calls on either
+    device."""
+    return x.is_cuda or torch.compiler.is_exporting() or HOOK is not None
+
+
+def tensor_cache(fn):
+    """A cache for a function that builds constant tensors, which stores
+    nothing while ``torch.export`` traces: a tensor made under the trace's
+    fake mode holds no data, and a cache that kept one would hand it to
+    every later eager call in the process.  A tensor cached before the
+    trace is returned to it as it is, and the trace records it as one
+    constant of the program (:func:`spectralae_torch.io.export.export_model`
+    fills the caches by an eager call first); one built during the trace
+    is recorded as a copy made at every call."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def get(*args):
+        out = cache.get(args)
+        if out is None:
+            out = fn(*args)
+            if not torch.compiler.is_exporting():
+                cache[args] = out
+        return out
+    get.cache_clear = cache.clear
+    return get
 
 
 #: how deep this thread is inside kernel wrappers' calls the recorder counts

@@ -922,7 +922,7 @@ def _k1_check() -> dict:
     p, q = (torch.complex(torch.randn(shape, generator=gen),
                           torch.randn(shape, generator=gen))
             for shape in ((8, 3, 4096), (3, 10, 4096)))
-    before = sk.LAUNCHES
+    before = sk.k1_launches()
     t0 = time.perf_counter()
     # the operator itself, as a loaded .pt2 calls it (the eager wrapper
     # would skip the dispatcher)
@@ -932,7 +932,7 @@ def _k1_check() -> dict:
     want = sk.cmul_contract_plain(p, q)
     rel = float(torch.linalg.vector_norm(got - want)
                 / torch.linalg.vector_norm(want))
-    launched = sk.LAUNCHES - before
+    launched = sk.k1_launches() - before
     return {"ok": rel <= 1e-6 and launched == 1, "rel": rel,
             "launches": launched, "round_trip_s": round(seconds, 3)}
 

@@ -231,7 +231,7 @@ def op_cost(fn, *args, **kwargs) -> tuple[float | None, float | None]:
     "bytes accessed" does (module docstring).  A hand-written kernel's
     wrapper counts as one opaque call: 0 flops, its operand and result
     bytes (:func:`spectralae_torch._kernels.opaque`), and the K1 and K2
-    routes (:func:`spectralae_torch.ops.dft.kernel_route`) take the kernels
+    routes (:func:`spectralae_torch._kernels.kernel_route`) take the kernels
     on the CPU too while the count runs — so a row's count is the same on
     the card and on the CPU.  Every iteration of a Python loop is counted:
     scale nothing by a trip count.  Returns (None, None) on any failure — a

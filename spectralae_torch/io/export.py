@@ -147,7 +147,7 @@ def export_model(params: AEParams, spec: NetSpec, path: str | Path, *,
     module = _Traced(params, spec, what, domain, tap_mode)
     with torch.no_grad():
         # one eager call first fills the caches of constant tensors (the
-        # resize maps, the DFT bases: ops.dft.tensor_cache), so that the
+        # resize maps, the DFT bases: _kernels.tensor_cache), so that the
         # trace records each as a constant, not as a copy made every call
         module(x)
         program = torch.export.export(module, (x,), dynamic_shapes=dynamic)

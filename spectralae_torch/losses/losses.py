@@ -19,8 +19,9 @@ from __future__ import annotations
 
 import torch
 
+from .._kernels import tensor_cache
 from ..core import profiling
-from ..ops.dft import ieee_f32, tensor_cache
+from ..ops.dft import ieee_f32
 
 
 def mse_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,9 @@ stacks c (rows ``m·D+d``) over f (rows ``d·M+m``); ``wv [W]`` the Hermitian
 weights.  All live in ``csrc/omega_burst.cu``, whose header note says what
 bounds them and how.  Each has a plain PyTorch version here, which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
-raise.  :data:`LAUNCHES` counts one launch per call of a kernel's C entry
-point, and each launch is one grid: K5, K6 and K7 sum their tiles'
-partials in a fixed order inside it, K8 (a cooperative launch) between
-grid barriers every iteration.
+raise.  Each launch is one grid: K5, K6 and K7 sum their tiles' partials
+in a fixed order inside it, K8 (a cooperative launch) between grid
+barriers every iteration.
 
 ``mxu_bf16`` rounds the operands of the four basis products to bf16 and
 sums in float32 (the JAX ``mxu_dtype=bfloat16``); every other product is
@@ -44,10 +43,6 @@ import torch
 from .. import _kernels
 from . import dft, fft_kernels
 from ..optim.update import burst_inertia
-
-#: kernel launches since import (or the last reset), by kernel
-LAUNCHES = {"grad_project": 0, "respectra_conv": 0, "fused_step": 0,
-            "itergrid": 0}
 
 # the shapes the kernels take (csrc/omega_burst.cu: kMaxD, kMaxP ·
 # kMaxChunks, kMaxRows)
@@ -326,7 +321,7 @@ _TICKETS: dict = {}
 def _tickets(W: int, device) -> torch.Tensor:
     tiles = -(-W // TC_TILE)
     n = -(-tiles // TC_GROUP) + 1     # one a group, one for the groups
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    key = (device, _kernels.stream(device))
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         with torch.inference_mode(False):
@@ -370,10 +365,6 @@ def _ptrs(tensors) -> list:
     return [t.data_ptr() for t in tensors]
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _o_out(out, planes, nb, D, W):
     if out is None:
         return torch.empty((2, nb * D, W), dtype=torch.float32,
@@ -408,14 +399,12 @@ def grad_project(planes, basis, wv, cf, b, *, norm: float, scale: float,
                                     wv, cf, b)]
     out = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = _scratch(0, nb, M, D, P, W, dev)
-        err = _kernels.lib().omega_grad_project_launch(
-            *_ptrs(ins), out.data_ptr(), dbdp.data_ptr(), scratch.data_ptr(),
-            _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
-            float(scale), int(mxu_bf16), _stream())
-    _kernels.check(err, "grad_project")
-    LAUNCHES["grad_project"] += 1
+    scratch = _scratch(0, nb, M, D, P, W, dev)
+    _kernels.launch(
+        "omega_grad_project_launch", "grad_project", dev, *_ptrs(ins),
+        out.data_ptr(), dbdp.data_ptr(), scratch.data_ptr(),
+        _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
+        float(scale), int(mxu_bf16))
     return out[:rows * P].view(rows, P), dbdp[:M], dbdp[M:]
 
 
@@ -444,14 +433,12 @@ def respectra_conv(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
     ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16),
                                     wv, cf, b, p)]
     mse = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = _scratch(1, nb, M, D, P, W, dev)
-        err = _kernels.lib().omega_respectra_launch(
-            *_ptrs(ins), O.data_ptr(), mse.data_ptr(), scratch.data_ptr(),
-            _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
-            float(inv_m), float(inv_d), int(mxu_bf16), _stream())
-    _kernels.check(err, "respectra_conv")
-    LAUNCHES["respectra_conv"] += 1
+    scratch = _scratch(1, nb, M, D, P, W, dev)
+    _kernels.launch(
+        "omega_respectra_launch", "respectra_conv", dev, *_ptrs(ins),
+        O.data_ptr(), mse.data_ptr(), scratch.data_ptr(),
+        _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
+        float(inv_m), float(inv_d), int(mxu_bf16))
     return O, mse[0]
 
 
@@ -479,15 +466,12 @@ def fused_step(planes, basis, wv, cf, b, p, *, norm: float, inv_m: float,
                                     wv, cf, b, p)]
     res = torch.empty(rows * P + 1, dtype=torch.float32, device=dev)
     dbdp = torch.empty(M + D, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = _scratch(0, nb, M, D, P, W, dev)
-        err = _kernels.lib().omega_fused_step_launch(
-            *_ptrs(ins), O.data_ptr(), res.data_ptr(), dbdp.data_ptr(),
-            scratch.data_ptr(), _tickets(W, dev).data_ptr(), nb, M, D, P, W,
-            float(norm), float(inv_m), float(inv_d), float(scale),
-            int(mxu_bf16), _stream())
-    _kernels.check(err, "fused_step")
-    LAUNCHES["fused_step"] += 1
+    scratch = _scratch(0, nb, M, D, P, W, dev)
+    _kernels.launch(
+        "omega_fused_step_launch", "fused_step", dev, *_ptrs(ins),
+        O.data_ptr(), res.data_ptr(), dbdp.data_ptr(), scratch.data_ptr(),
+        _tickets(W, dev).data_ptr(), nb, M, D, P, W, float(norm),
+        float(inv_m), float(inv_d), float(scale), int(mxu_bf16))
     return (O, res[rows * P], res[:rows * P].view(rows, P), dbdp[:M],
             dbdp[M:])
 
@@ -524,15 +508,12 @@ def itergrid(planes, basis, wv, cf, b, p, mcf, mb, mp, *, iters: int,
     ins = [t.contiguous() for t in (planes, _tiles(basis, mxu_bf16), wv)]
     new = torch.empty_like(state)
     mse = torch.empty(iters + 1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = _scratch(2, nb, M, D, P, W, dev)
-        err = _kernels.lib().omega_itergrid_launch(
-            *_ptrs(ins), state.data_ptr(), new.data_ptr(), mse.data_ptr(),
-            scratch.data_ptr(), nb, M, D, P, W, int(iters), float(norm),
-            float(inv_m), float(inv_d), float(scale), float(lr_eff),
-            float(alpha), int(mxu_bf16), _stream())
-    _kernels.check(err, "itergrid")
-    LAUNCHES["itergrid"] += 1
+    scratch = _scratch(2, nb, M, D, P, W, dev)
+    _kernels.launch(
+        "omega_itergrid_launch", "itergrid", dev, *_ptrs(ins),
+        state.data_ptr(), new.data_ptr(), mse.data_ptr(), scratch.data_ptr(),
+        nb, M, D, P, W, int(iters), float(norm), float(inv_m), float(inv_d),
+        float(scale), float(lr_eff), float(alpha), int(mxu_bf16))
     parts = torch.split(new, [n, M, D, n, M, D])
     return (parts[0].view(rows, P), parts[1], parts[2],
             parts[3].view(rows, P), parts[4], parts[5], mse)

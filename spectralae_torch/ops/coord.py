@@ -18,9 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .._kernels import kernel_route
 from ..core import profiling
 from ..core.config import TapMode, tap_anchor
-from .dft import ieee_f32, kernel_route
+from .dft import ieee_f32
 
 
 def _conv_padding(nk: int, nl: int,
@@ -52,9 +53,9 @@ def _kernel_shape(c_shape) -> bool:
 
 def _auto_conv_kernel(x: torch.Tensor, c_shape) -> bool:
     """Routing predicate for :func:`conv2d`: the hand-written kernel K2 for
-    a :func:`_kernel_shape` on its route (:func:`dft.kernel_route
-    <spectralae_torch.ops.dft.kernel_route>`: CUDA tensors, or either
-    device while ``torch.export`` traces)."""
+    a :func:`_kernel_shape` on its route
+    (:func:`~spectralae_torch._kernels.kernel_route`: CUDA tensors, or
+    either device while ``torch.export`` traces)."""
     return kernel_route(x) and _kernel_shape(c_shape)
 
 

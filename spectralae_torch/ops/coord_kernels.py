@@ -17,12 +17,10 @@ pixels, is left to the library (cuDNN's backward-filter conv), as the JAX
 package leaves it to ``lax``.
 
 The kernel is the PyTorch operator ``spectralae_torch::conv_valid``
-(:func:`conv_valid_op`, made with ``torch.library.custom_op``), so a traced
-graph holds it as one node; eager code calls the operator's kernel for its
-device directly (:func:`spectralae_torch.ops.dft.call_operator`).  Its CPU
-kernel is :func:`conv_valid_plain`, its CUDA kernel the launch — never the
-plain version there.
-:data:`LAUNCHES` counts kernel launches.
+(:data:`conv_valid_op`, registered by
+:func:`spectralae_torch._kernels.operator`), so a traced graph holds it as
+one node.  Its CPU kernel is :func:`conv_valid_plain`, its CUDA kernel the
+launch — never the plain version there.
 
 bf16 operands are upcast to float32 in the wrapper, as
 ``conv_valid_pallas`` upcasts them (pallas_conv.py:150-151): the kernel
@@ -39,10 +37,6 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .dft import call_operator
-
-#: kernel launches of :func:`conv_valid` since import (or the last reset)
-LAUNCHES = 0
 
 #: route the data grad of :class:`ConvValid` through this kernel (True) or
 #: through ``F.conv2d`` (False, the JAX package's default, chosen on its
@@ -149,10 +143,10 @@ def _check_valid(xpad: torch.Tensor, w: torch.Tensor) -> None:
 @_kernels.opaque
 def _valid_corr(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One valid correlation of float32 operands (checked by
-    :func:`_check_valid`), through the operator (:func:`conv_valid_op`, by
-    :func:`~spectralae_torch.ops.dft.call_operator`): the plain version for
-    CPU tensors, a launch of the kernel for CUDA tensors."""
-    return call_operator(conv_valid_op, _CONV_VALID_KERNELS, xpad, w)
+    :func:`_check_valid`), through the operator (:data:`conv_valid_op`):
+    the plain version for CPU tensors, a launch of the kernel for CUDA
+    tensors."""
+    return _conv_valid(xpad, w)
 
 
 def _conv_valid_cpu(xpad, w):
@@ -168,8 +162,7 @@ def _conv_valid_fake(xpad, w):
 
 
 def _conv_valid_cuda(xpad, w):
-    """One launch of the kernel by :func:`k2_plan`, counted."""
-    global LAUNCHES
+    """One launch of the kernel by :func:`k2_plan`."""
     if not (xpad.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv_valid needs contiguous operands")
     b, d, hp, wp = xpad.shape
@@ -179,26 +172,21 @@ def _conv_valid_cuda(xpad, w):
     vec = int(wp % 4 == 0 and xpad.data_ptr() % 16 == 0)
     out = torch.empty((b, m, hp - nk + 1, wp - nl + 1), dtype=torch.float32,
                       device=xpad.device)
-    with torch.cuda.device(xpad.device):
-        err = _kernels.lib().conv_valid_launch(
-            xpad.data_ptr(), w.data_ptr(), out.data_ptr(), b, d, hp, wp, m,
-            nk, nl, plan.tx, plan.ty, plan.mb, vec,
-            torch.cuda.current_stream().cuda_stream)
-    _kernels.check(err, "conv_valid")
-    LAUNCHES += 1
+    _kernels.launch("conv_valid_launch", "conv_valid", xpad.device,
+                    xpad.data_ptr(), w.data_ptr(), out.data_ptr(), b, d, hp,
+                    wp, m, nk, nl, plan.tx, plan.ty, plan.mb, vec)
     return out
 
 
-#: K2 as a PyTorch operator on float32 ``[B,D,Hp,Wp] × [M,D,nk,nl]``, the
-#: node a traced graph records: its CPU kernel is :func:`conv_valid_plain`,
-#: its CUDA kernel the launch, and its fake version gives the
-#: ``[B, M, Hp-nk+1, Wp-nl+1]`` float32 result.
-conv_valid_op = torch.library.custom_op(
-    "spectralae_torch::conv_valid", _conv_valid_cpu, mutates_args=(),
-    device_types="cpu", schema="(Tensor xpad, Tensor w) -> Tensor")
-conv_valid_op.register_kernel("cuda", _conv_valid_cuda)
-conv_valid_op.register_fake(_conv_valid_fake)
-_CONV_VALID_KERNELS = {"cpu": _conv_valid_cpu, "cuda": _conv_valid_cuda}
+#: K2's eager call on float32 ``[B,D,Hp,Wp] × [M,D,nk,nl]``
+#: (:func:`spectralae_torch._kernels.operator`): its CPU kernel is
+#: :func:`conv_valid_plain`, its CUDA kernel the launch, and its fake
+#: version gives the ``[B, M, Hp-nk+1, Wp-nl+1]`` float32 result.
+_conv_valid = _kernels.operator("conv_valid", "(Tensor xpad, Tensor w) -> "
+                                "Tensor", _conv_valid_cpu, _conv_valid_cuda,
+                                _conv_valid_fake)
+#: K2 as a PyTorch operator, the node a traced graph records
+conv_valid_op = _conv_valid.op
 
 
 class ConvValid(torch.autograd.Function):
@@ -241,7 +229,7 @@ def conv_valid(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     ``w`` holds the *already tap-flipped* correlation weights.  float32 or
     bfloat16 (upcast to float32; the result is float32); contiguous on the
-    card.  Through the operator (:func:`conv_valid_op`): CPU tensors take
+    card.  Through the operator (:data:`conv_valid_op`): CPU tensors take
     :func:`conv_valid_plain`; CUDA tensors launch the kernel.
     """
     _check_valid(xpad, w)

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _kernels
+from .._kernels import tensor_cache
 
 
 @contextlib.contextmanager
@@ -46,56 +46,6 @@ def ieee_f32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = before
-
-
-def kernel_route(x: torch.Tensor) -> bool:
-    """Whether ``x`` takes a hand-written kernel's route (K1 in
-    :func:`spectralae_torch.ops.spectral.spectral_conv`, K2 in
-    :func:`spectralae_torch.ops.coord.conv2d`): a CUDA tensor, or a tensor
-    on either device while ``torch.export`` traces — the graph then holds
-    the kernel's operator, which runs the kernel on the card and its plain
-    version on the CPU (the port's counterpart of JAX's multi-platform
-    lowering) — or while a hook sees every kernel wrapper's call
-    (:data:`spectralae_torch._kernels.HOOK`), so that it meets the same
-    kernel calls on either device."""
-    return (x.is_cuda or torch.compiler.is_exporting()
-            or _kernels.hooked())
-
-
-def call_operator(op, kernels: dict, *args):
-    """Call a kernel's operator ``op`` (a ``torch.library.custom_op``).
-
-    While a graph is traced (``torch.export``, ``torch.compile``) the call
-    goes through ``op``, so the graph holds it as one node.  In eager code
-    it calls ``kernels[device type of args[0]]``, the function ``op``
-    dispatches to on that device, directly: the same body without the
-    dispatcher's cost, paid on every launch of the eager paths."""
-    if torch.compiler.is_compiling():
-        return op(*args)
-    return kernels[args[0].device.type](*args)
-
-
-def tensor_cache(fn):
-    """A cache for a function that builds constant tensors, which stores
-    nothing while ``torch.export`` traces: a tensor made under the trace's
-    fake mode holds no data, and a cache that kept one would hand it to
-    every later eager call in the process.  A tensor cached before the
-    trace is returned to it as it is, and the trace records it as one
-    constant of the program (:func:`spectralae_torch.io.export.export_model`
-    fills the caches by an eager call first); one built during the trace
-    is recorded as a copy made at every call."""
-    cache = {}
-
-    @functools.wraps(fn)
-    def get(*args):
-        out = cache.get(args)
-        if out is None:
-            out = fn(*args)
-            if not torch.compiler.is_exporting():
-                cache[args] = out
-        return out
-    get.cache_clear = cache.clear
-    return get
 
 
 @functools.lru_cache(maxsize=None)

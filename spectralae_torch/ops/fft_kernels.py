@@ -31,7 +31,6 @@ round along lanes or rows.  Each has a plain PyTorch version here
 the same bases, so even the lanes past Nyquist that some radix blocks carry
 hold the kernel's values.  The wrappers run the plain version for CPU
 tensors; for CUDA tensors they launch the kernel or raise.
-:data:`LAUNCHES` counts launches by kernel.
 
 ``precision`` is the JAX dot tier and says which bf16 operand pieces feed
 the leaves' tensor-core products on the card (``csrc/wgmma.cuh``):
@@ -55,10 +54,6 @@ import torch
 
 from .. import _kernels
 from . import dft
-
-#: kernel launches since import (or the last reset), by kernel
-LAUNCHES = {"rfft_y_mixed": 0, "fft_x_mixed": 0, "bfly_lanes": 0,
-            "bfly_rows": 0, "fft_yc": 0}
 
 _LANE = 128
 
@@ -469,26 +464,6 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _launch(entry: str, key: str, xr, xi, kind: str, n: int, outs,
-            *ints, precision=None) -> None:
-    """Launch a B5 kernel on ``xr``'s card.  ``precision``: the leaves'
-    tier (their bases' tiles go before the outputs, the tier number after
-    the sizes); None for a butterfly round."""
-    dev = xr.device
-    tiles = ()
-    if precision is not None:
-        tiles = (_leaf_tiles_on(kind, n, precision, dev).data_ptr(),)
-        ints += (_TIERS[precision],) + LEAF_TILE
-    with torch.cuda.device(dev):
-        err = getattr(_kernels.lib(), entry)(
-            xr.data_ptr(), None if xi is None else xi.data_ptr(),
-            _consts_on(kind, n, dev).data_ptr(), *tiles, outs[0].data_ptr(),
-            outs[1].data_ptr(), *ints,
-            torch.cuda.current_stream().cuda_stream)
-    _kernels.check(err, entry)
-    LAUNCHES[key] += 1
-
-
 @_kernels.opaque
 def _bfly_lanes(xr, xi, n: int):
     """One DIF radix-4 round along lanes (B5c): ``[BD, R, n] → [BD, 4, R,
@@ -498,10 +473,13 @@ def _bfly_lanes(xr, xi, n: int):
     BD, R = xr.shape[0], xr.shape[1]
     xr = _f32(xr)
     xi = None if xi is None else _f32(xi)
-    outs = [torch.empty((BD, 4, R, n // 4), dtype=torch.float32,
-                        device=xr.device) for _ in range(2)]
-    _launch("bfly_round_launch", "bfly_lanes", xr, xi, "bfly", n, outs, BD,
-            R, n, 1)
+    dev = xr.device
+    outs = [torch.empty((BD, 4, R, n // 4), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    _kernels.launch("bfly_round_launch", "bfly_lanes", dev, xr.data_ptr(),
+                    None if xi is None else xi.data_ptr(),
+                    _consts_on("bfly", n, dev).data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr(), BD, R, n, 1)
     return tuple(outs)
 
 
@@ -512,10 +490,12 @@ def _bfly_rows(yr, yi, n: int):
     if not _on_card(yr, "_bfly_rows"):
         return _bfly_rows_plain(yr, yi, n)
     BD, L = yr.shape[0], yr.shape[-1]
-    outs = [torch.empty((BD, 4, n // 4, L), dtype=torch.float32,
-                        device=yr.device) for _ in range(2)]
-    _launch("bfly_round_launch", "bfly_rows", _f32(yr), _f32(yi), "bfly", n,
-            outs, BD, L, n, 0)
+    yr, yi, dev = _f32(yr), _f32(yi), yr.device
+    outs = [torch.empty((BD, 4, n // 4, L), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    _kernels.launch("bfly_round_launch", "bfly_rows", dev, yr.data_ptr(),
+                    yi.data_ptr(), _consts_on("bfly", n, dev).data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), BD, L, n, 0)
     return tuple(outs)
 
 
@@ -529,13 +509,18 @@ def _y_leaf(xr, xi, precision=None):
         return (rfft_y_mixed_plain(xr) if xi is None
                 else _fft_yc_plain(xr, xi))
     BD, R, n = xr.shape
-    k1p = _k1p(n)
+    k1p, t, dev = _k1p(n), tier(precision), xr.device
     xr = _f32(xr)
     xi = None if xi is None else _f32(xi)
-    outs = [torch.empty((BD, 4, R, k1p), dtype=torch.float32,
-                        device=xr.device) for _ in range(2)]
-    _launch("rfft_y_leaf_launch", key, xr, xi, "y", n, outs, BD, R, n, k1p,
-            precision=tier(precision))
+    outs = [torch.empty((BD, 4, R, k1p), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    # the bases' tiles go before the outputs, the tier after the sizes
+    _kernels.launch("rfft_y_leaf_launch", key, dev, xr.data_ptr(),
+                    None if xi is None else xi.data_ptr(),
+                    _consts_on("y", n, dev).data_ptr(),
+                    _leaf_tiles_on("y", n, t, dev).data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), BD, R, n, k1p,
+                    _TIERS[t], *LEAF_TILE)
     return tuple(outs)
 
 
@@ -635,11 +620,13 @@ def _x_leaf(yr, yi, out_dtype, precision):
         return fft_x_mixed_plain(yr, yi, out_dtype)
     BD, nx, L = yr.shape
     out = torch.float32 if out_dtype is None else out_dtype
-    outs = [torch.empty((BD, nx, L), dtype=out, device=yr.device)
-            for _ in range(2)]
-    _launch("fft_x_leaf_launch", "fft_x_mixed", _f32(yr), _f32(yi), "x",
-            nx, outs, BD, nx, L, int(out == torch.bfloat16),
-            precision=tier(precision))
+    yr, yi, dev, t = _f32(yr), _f32(yi), yr.device, tier(precision)
+    outs = [torch.empty((BD, nx, L), dtype=out, device=dev) for _ in range(2)]
+    _kernels.launch("fft_x_leaf_launch", "fft_x_mixed", dev, yr.data_ptr(),
+                    yi.data_ptr(), _consts_on("x", nx, dev).data_ptr(),
+                    _leaf_tiles_on("x", nx, t, dev).data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), BD, nx, L,
+                    int(out == torch.bfloat16), _TIERS[t], *LEAF_TILE)
     return tuple(outs)
 
 

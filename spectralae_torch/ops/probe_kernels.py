@@ -9,8 +9,8 @@ shaped.  The scripts ``scripts/torch_probe_mosaic_features.py`` and
 
 Every wrapper runs its kernel's plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors — never the plain version there.
-:data:`LAUNCHES` counts kernel launches by kernel; one ``ydft_energy``
-launch is two grids (the sweep, then the ordered sum of its partials).
+One ``ydft_energy`` launch is two grids (the sweep, then the ordered sum
+of its partials).
 """
 
 from __future__ import annotations
@@ -23,10 +23,6 @@ import torch
 from .. import _kernels
 from .fft_kernels import SWEEP_TILE, _TIERS, split_dot, tile_pieces
 from .spectral import _hermitian_weights
-
-#: kernel launches since import (or the last reset), by kernel
-LAUNCHES = {"lane_strided": 0, "sublane_strided": 0, "middle_store": 0,
-            "ydft_energy": 0}
 
 #: ``precision`` values :func:`ydft_energy` takes (the JAX tiers): which
 #: bf16 pieces of ``x`` and the bases feed the tensor cores on the card
@@ -47,10 +43,6 @@ def _check(x: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor on the card")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ------------------------------------------------------ P1: the probes
@@ -81,12 +73,9 @@ def lane_strided(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, len(range(1, cols, 4))), dtype=x.dtype,
                       device=x.device)
     if out.shape[1]:
-        with torch.cuda.device(x.device):
-            err = _kernels.lib().probe_lane_strided_launch(
-                x.data_ptr(), out.data_ptr(), rows, cols, out.shape[1],
-                _stream())
-        _kernels.check(err, "lane_strided")
-        LAUNCHES["lane_strided"] += 1
+        _kernels.launch("probe_lane_strided_launch", "lane_strided",
+                        x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+                        out.shape[1])
     return out
 
 
@@ -100,11 +89,9 @@ def sublane_strided(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((len(range(1, rows, 4)), cols), dtype=x.dtype,
                       device=x.device)
     if out.shape[0]:
-        with torch.cuda.device(x.device):
-            err = _kernels.lib().probe_sublane_strided_launch(
-                x.data_ptr(), out.data_ptr(), out.shape[0], cols, _stream())
-        _kernels.check(err, "sublane_strided")
-        LAUNCHES["sublane_strided"] += 1
+        _kernels.launch("probe_sublane_strided_launch", "sublane_strided",
+                        x.device, x.data_ptr(), out.data_ptr(), out.shape[0],
+                        cols)
     return out
 
 
@@ -115,11 +102,8 @@ def middle_store(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return middle_store_plain(x)
     out = torch.empty((MIDDLE_K, *x.shape), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernels.lib().probe_middle_store_launch(
-            x.data_ptr(), out.data_ptr(), x.numel(), MIDDLE_K, _stream())
-    _kernels.check(err, "middle_store")
-    LAUNCHES["middle_store"] += 1
+    _kernels.launch("probe_middle_store_launch", "middle_store", x.device,
+                    x.data_ptr(), out.data_ptr(), x.numel(), MIDDLE_K)
     return out
 
 
@@ -213,17 +197,13 @@ def ydft_energy(x: torch.Tensor, *, y_chunk: int = 512,
     rows, nyr = d * nx, ny // 2 + 1
     w = _bases(nx, ny, x.device)[2]
     tiles = _ydft_tiles_on(ny, tier, x.device)
-    lib = _kernels.lib()
-    scratch = torch.empty(lib.ydft_energy_blocks(rows, nyr),
+    scratch = torch.empty(_kernels.lib().ydft_energy_blocks(rows, nyr),
                           dtype=torch.float32, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.ydft_energy_launch(
-            x.data_ptr(), tiles.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), rows, ny, nyr, _TIERS[tier], *SWEEP_TILE,
-            _stream())
-    _kernels.check(err, "ydft_energy")
-    LAUNCHES["ydft_energy"] += 1
+    _kernels.launch("ydft_energy_launch", "ydft_energy", x.device,
+                    x.data_ptr(), tiles.data_ptr(), w.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), rows, ny, nyr,
+                    _TIERS[tier], *SWEEP_TILE)
     return out
 
 

@@ -15,26 +15,17 @@ pass; the source's header note says what bounds it and how it is shaped.
 :class:`SpectralResize` is the differentiable resize: its backward is the
 same kernel on the inverse maps, launched only where the input needs a
 gradient.  The kernel is the PyTorch operator
-``spectralae_torch::spectral_resize`` (:data:`spectral_resize_op`), so a
-traced graph holds it as one node a resize; eager code calls the
-operator's kernel for its device directly
-(:func:`spectralae_torch.ops.dft.call_operator`).  Its CPU kernel is the
-plain version, its CUDA kernel the launch.  :data:`LAUNCHES` counts the
-launches.
+``spectralae_torch::spectral_resize`` (:data:`spectral_resize_op`,
+registered by :func:`spectralae_torch._kernels.operator`), so a traced
+graph holds it as one node a resize.  Its CPU kernel is the plain version,
+its CUDA kernel the launch.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from .. import _kernels
-from .dft import call_operator, tensor_cache
-
-#: kernel launches of :func:`spectral_resize` since import (or the last
-#: reset)
-LAUNCHES = 0
 
 
 def resize_dims(nx: int, ny: int, nxs: int, nys: int,
@@ -48,7 +39,7 @@ def resize_dims(nx: int, ny: int, nxs: int, nys: int,
     return (*small, *big) if adjoint else (*big, *small)
 
 
-@tensor_cache
+@_kernels.tensor_cache
 def _row_map(nx: int, ny: int, nxs: int, nys: int, adjoint: bool,
              device: torch.device) -> torch.Tensor:
     """The remap's row map, int32 with -1 for a zero row, kept on
@@ -66,8 +57,7 @@ def spectral_resize(x: torch.Tensor, nx: int, ny: int, nxs: int, nys: int,
     where ``nxs <= nx``, else a zero-pad), or with ``adjoint`` its adjoint
     ``[..., nxs, nys//2+1]`` → ``[..., nx, ny//2+1]``: one remap.  Checks
     the input's planes and calls the operator
-    ``spectralae_torch::spectral_resize`` through
-    :func:`~spectralae_torch.ops.dft.call_operator`: CPU tensors take
+    ``spectralae_torch::spectral_resize``: CPU tensors take
     :func:`~spectralae_torch.ops.spectral.resize_plain`, CUDA tensors
     (complex64) launch the kernel.  The result carries no gradient:
     :class:`SpectralResize` does."""
@@ -75,8 +65,8 @@ def spectral_resize(x: torch.Tensor, nx: int, ny: int, nxs: int, nys: int,
     if x.shape[-2:] != (h_in, w_in):
         raise ValueError(f"spectral_resize takes [..., {h_in}, {w_in}] "
                          f"spectra here, got {tuple(x.shape)}")
-    return call_operator(spectral_resize_op, _SPECTRAL_RESIZE_KERNELS, x,
-                         int(nx), int(ny), int(nxs), int(nys), bool(adjoint))
+    return _spectral_resize(x, int(nx), int(ny), int(nxs), int(nys),
+                            bool(adjoint))
 
 
 def _spectral_resize_cpu(x, nx, ny, nxs, nys, adjoint):
@@ -95,7 +85,6 @@ def _spectral_resize_cuda(x, nx, ny, nxs, nys, adjoint):
     output from ``torch.empty`` (the kernel writes every bin).  The column
     map is the identity up to ``min(w_in, w_out) - 1``
     (``test_resize_dims_and_column_form``); the kernel computes it."""
-    global LAUNCHES
     if x.dtype != torch.complex64:
         raise TypeError(f"the resize kernel takes complex64, got {x.dtype}")
     h_in, w_in, h_out, w_out = resize_dims(nx, ny, nxs, nys, adjoint)
@@ -108,32 +97,21 @@ def _spectral_resize_cuda(x, nx, ny, nxs, nys, adjoint):
     planes = x.numel() // (h_in * w_in)
     if planes == 0:
         return out
-    dev = x.get_device()
-    # the launch goes to the current device: switch only where x is not
-    # on it (the switch and back cost about 5 host microseconds a call)
-    with (contextlib.nullcontext() if dev == torch._C._cuda_getDevice()
-          else torch.cuda.device(dev)):
-        err = _kernels.lib().spectral_resize_launch(
-            x.data_ptr(), out.data_ptr(), rows.data_ptr(), planes, h_in,
-            w_in, h_out, w_out, min(w_in, w_out) - 1,
-            torch._C._cuda_getCurrentRawStream(dev))
-    _kernels.check(err, "spectral_resize")
-    LAUNCHES += 1
+    _kernels.launch("spectral_resize_launch", "spectral_resize", x.device,
+                    x.data_ptr(), out.data_ptr(), rows.data_ptr(), planes,
+                    h_in, w_in, h_out, w_out, min(w_in, w_out) - 1)
     return out
 
 
-#: the resize as a PyTorch operator, the node a traced graph records: its
-#: CPU kernel is the plain version, its CUDA kernel the launch.  Call it
-#: through :func:`spectral_resize`, which checks the input.
-spectral_resize_op = torch.library.custom_op(
-    "spectralae_torch::spectral_resize", _spectral_resize_cpu,
-    mutates_args=(), device_types="cpu",
-    schema="(Tensor x, int nx, int ny, int nxs, int nys, bool adjoint) "
-           "-> Tensor")
-spectral_resize_op.register_kernel("cuda", _spectral_resize_cuda)
-spectral_resize_op.register_fake(_spectral_resize_fake)
-_SPECTRAL_RESIZE_KERNELS = {"cpu": _spectral_resize_cpu,
-                            "cuda": _spectral_resize_cuda}
+#: the resize's eager call (:func:`spectralae_torch._kernels.operator`):
+#: its CPU kernel is the plain version, its CUDA kernel the launch.  Call
+#: it through :func:`spectral_resize`, which checks the input.
+_spectral_resize = _kernels.operator(
+    "spectral_resize", "(Tensor x, int nx, int ny, int nxs, int nys, "
+    "bool adjoint) -> Tensor", _spectral_resize_cpu, _spectral_resize_cuda,
+    _spectral_resize_fake)
+#: the resize as a PyTorch operator, the node a traced graph records
+spectral_resize_op = _spectral_resize.op
 
 
 class SpectralResize(torch.autograd.Function):

@@ -20,9 +20,9 @@ import functools
 import numpy as np
 import torch
 
+from .._kernels import kernel_route, tensor_cache
 from ..core import profiling
 from . import resize_kernels
-from .dft import kernel_route, tensor_cache
 
 
 def rfft2(x: torch.Tensor) -> torch.Tensor:
@@ -157,9 +157,9 @@ def spectral_resize(X: torch.Tensor, nx: int, ny: int, nxs: int,
     Reference: ``resize`` fft_backproplib.cu:87-157 via ``pool_fft`` 975-1002.
 
     CUDA spectra (and either device while ``torch.export`` traces or a
-    :data:`~spectralae_torch._kernels.HOOK` is set: :func:`dft.kernel_route
-    <spectralae_torch.ops.dft.kernel_route>`) take the hand-written remap
-    kernel, forward and adjoint
+    :data:`~spectralae_torch._kernels.HOOK` is set:
+    :func:`~spectralae_torch._kernels.kernel_route`) take the hand-written
+    remap kernel, forward and adjoint
     (:class:`spectralae_torch.ops.resize_kernels.SpectralResize`, or the
     kernel's wrapper alone where no gradient is taken); everything else
     :func:`resize_plain`.  The two agree bit for bit.
@@ -204,8 +204,8 @@ def spectral_conv(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor | None,
     (:func:`spectralae_torch.ops.spectral_kernels.spectral_conv_fused`);
     everything else through :func:`spectral_conv_einsum`, as the JAX
     package routes its Pallas kernel.  While ``torch.export`` traces, batched
-    spectra on either device take K1's operator (:func:`dft.kernel_route
-    <spectralae_torch.ops.dft.kernel_route>`).
+    spectra on either device take K1's operator
+    (:func:`~spectralae_torch._kernels.kernel_route`).
 
     Args:
       X: ``[B, D, Nx, Nyr]`` complex input spectra.

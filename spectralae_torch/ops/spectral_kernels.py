@@ -14,13 +14,11 @@ and one for the kernel spectra, with ``q`` conjugated (PyTorch's gradient of
 a complex-linear map is the conjugate of JAX's cotangent).
 
 The kernel is the PyTorch operator ``spectralae_torch::cmul_contract``
-(:func:`cmul_contract_op`, made with ``torch.library.custom_op``), so a
-traced graph (``torch.export``, ``torch.compile``) holds it as one node;
-eager code calls the operator's kernel for its device directly
-(:func:`spectralae_torch.ops.dft.call_operator`).  Its CPU kernel is the
-plain PyTorch version; its CUDA kernel launches the hand-written kernel —
-never the plain version, and never a library kernel in its place.  :data:`LAUNCHES` counts kernel launches with complex64
-operands, :data:`LAUNCHES_BF16` those with bf16 operands.
+(:data:`cmul_contract_op`, registered by
+:func:`spectralae_torch._kernels.operator`), so a traced graph
+(``torch.export``, ``torch.compile``) holds it as one node.  Its CPU kernel
+is the plain PyTorch version; its CUDA kernel launches the hand-written
+kernel — never the plain version, and never a library kernel in its place.
 
 ``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision path
 (``_conv_fwd_impl``/``_conv_bwd``, pallas_kernels.py:100-151): every
@@ -40,13 +38,6 @@ from typing import NamedTuple
 import torch
 
 from .. import _kernels
-from ..core import profiling
-from .dft import call_operator
-
-#: kernel launches of :func:`cmul_contract` since import (or the last
-#: reset): complex64 operands, and bf16 operands (the second instantiation)
-LAUNCHES = 0
-LAUNCHES_BF16 = 0
 
 NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
 # K1's lane design (csrc/cmul_contract.cu): a warp's 32 lanes along the
@@ -321,15 +312,13 @@ def cmul_contract(p: torch.Tensor, q: torch.Tensor, *,
     and its backward the ``[B, M, W]`` cotangent transposed, with no copy.
     ``conj_q`` contracts with ``conj(q)``.  Checks the operands and calls
     the operator ``spectralae_torch::cmul_contract``
-    (:func:`cmul_contract_op`, through
-    :func:`~spectralae_torch.ops.dft.call_operator`): CPU tensors take
+    (:data:`cmul_contract_op`): CPU tensors take
     :func:`cmul_contract_plain`, CUDA tensors launch the kernel.  The
     result carries no gradient: :class:`SpectralConvFused` does.
     """
     _check_contract(p, q, bias)
-    return call_operator(cmul_contract_op, _CMUL_CONTRACT_KERNELS, p, q,
-                         float(p_scale), bool(conj_q), bias,
-                         float(bias_scale))
+    return _cmul_contract(p, q, float(p_scale), bool(conj_q), bias,
+                          float(bias_scale))
 
 
 def _cmul_contract_cpu(p, q, p_scale, conj_q, bias, bias_scale):
@@ -347,9 +336,7 @@ def _cmul_contract_fake(p, q, p_scale, conj_q, bias, bias_scale):
 def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
     """One launch of the kernel: the operands' layout checked, the launch
     plan (:func:`k1_vec`, :func:`k1_plan`) chosen from their strides and
-    addresses, and the launch counted (a launch of the blocked design also
-    under the recorder's ``k1.blocked``)."""
-    global LAUNCHES, LAUNCHES_BF16
+    addresses, and the launch counted under its entry point's name."""
     bf16 = p.dtype == torch.bfloat16
     if bf16:
         # strides in (re, im) pairs, the kernel's element
@@ -379,48 +366,42 @@ def _cmul_contract_cuda(p, q, p_scale, conj_q, bias, bias_scale):
     plan = k1_plan(a, k, b, w, k1_vec(w, strides,
                                       (p.data_ptr(), q.data_ptr()), wide),
                    4 if bf16 else 8)
-    blocked = isinstance(plan, K1BlockedPlan)
-    lib = _kernels.lib()
-    if blocked:
-        launch = (lib.cmul_contract_blocked_bf16_launch if bf16
-                  else lib.cmul_contract_blocked_launch)
+    if isinstance(plan, K1BlockedPlan):
+        entry = ("cmul_contract_blocked_bf16_launch" if bf16
+                 else "cmul_contract_blocked_launch")
         shape = (plan.vec, plan.na, plan.nb, plan.kc, plan.stages, plan.grid,
                  plan.smem)
     else:
-        launch = (lib.cmul_contract_bf16_launch if bf16
-                  else lib.cmul_contract_launch)
+        entry = "cmul_contract_bf16_launch" if bf16 else "cmul_contract_launch"
         shape = (plan.vec, plan.group, plan.rows)
     out = torch.empty((a, b, w), dtype=torch.complex64, device=p.device)
-    with torch.cuda.device(p.device):
-        err = launch(
-            p.data_ptr(), q.data_ptr(), out.data_ptr(), a, k, b, w,
-            *strides, int(conj_q), float(p_scale),
-            None if bias is None else bias.data_ptr(), float(bias_scale),
-            *shape, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(err, "cmul_contract")
-    if bf16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
-    if blocked:
-        profiling.count("k1.blocked")
+    _kernels.launch(
+        entry, entry.removesuffix("_launch"), p.device, p.data_ptr(),
+        q.data_ptr(), out.data_ptr(), a, k, b, w, *strides, int(conj_q),
+        float(p_scale), None if bias is None else bias.data_ptr(),
+        float(bias_scale), *shape)
     return out
 
 
-#: K1 as a PyTorch operator, the node a traced graph records: its CPU
+#: K1's eager call (:func:`spectralae_torch._kernels.operator`): its CPU
 #: kernel is :func:`cmul_contract_plain`, its CUDA kernel the launch, and
 #: its fake version gives the ``[A, B, W]`` complex64 result of either
 #: operand type.  Call it through :func:`cmul_contract`, which checks the
 #: operands.
-cmul_contract_op = torch.library.custom_op(
-    "spectralae_torch::cmul_contract", _cmul_contract_cpu, mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor p, Tensor q, float p_scale, bool conj_q, Tensor? bias, "
-           "float bias_scale) -> Tensor")
-cmul_contract_op.register_kernel("cuda", _cmul_contract_cuda)
-cmul_contract_op.register_fake(_cmul_contract_fake)
-_CMUL_CONTRACT_KERNELS = {"cpu": _cmul_contract_cpu,
-                          "cuda": _cmul_contract_cuda}
+_cmul_contract = _kernels.operator(
+    "cmul_contract", "(Tensor p, Tensor q, float p_scale, bool conj_q, "
+    "Tensor? bias, float bias_scale) -> Tensor", _cmul_contract_cpu,
+    _cmul_contract_cuda, _cmul_contract_fake)
+#: K1 as a PyTorch operator, the node a traced graph records
+cmul_contract_op = _cmul_contract.op
+
+
+def k1_launches(bf16: bool = False) -> int:
+    """K1's launches with complex64 (or bf16) operands, both designs
+    (:data:`spectralae_torch._kernels.LAUNCHES`)."""
+    tail = "_bf16" if bf16 else ""
+    return (_kernels.LAUNCHES["cmul_contract" + tail]
+            + _kernels.LAUNCHES["cmul_contract_blocked" + tail])
 
 
 def check_compute_dtype(compute_dtype) -> None:

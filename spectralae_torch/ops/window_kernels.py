@@ -27,9 +27,8 @@ from the shape.  K4 also takes the four-step FFT's output
 gathered to natural bin order first.  Each has a plain PyTorch version here
 (:func:`corr_pair_windows_plain`, :func:`anchor_windows_plain`), which the
 wrappers run for CPU tensors; for CUDA tensors they launch the kernel or
-raise.  :data:`LAUNCHES` counts kernel launches by kernel: one per call of a
-kernel's C entry point, which runs its two grids (the rows, then the sum
-over blocks).
+raise.  Each kernel's C entry point runs its two grids (the rows, then the
+sum over blocks).
 
 Every product here runs in IEEE float32: the plain versions disable TF32
 around their matmuls, the kernels never use tensor cores.
@@ -46,9 +45,6 @@ import torch
 from .. import _kernels
 from . import dft, fft_kernels
 from .spectral import _hermitian_weights
-
-#: kernel launches since import (or the last reset), by kernel
-LAUNCHES = {"corr_pair_windows": 0, "anchor_windows": 0}
 
 NUM_SMS, _GRID_YZ, _cdiv = _kernels.NUM_SMS, _kernels.GRID_YZ, _kernels.cdiv
 
@@ -391,17 +387,14 @@ def corr_pair_windows(X: torch.Tensor, Z: torch.Tensor, nx: int, ny: int,
     plan = window_plan(False, B, D, E, nx, nyr, hx, hy, same)
     out = torch.empty((D, E, 2 * hx + 1, 2 * hy + 1), dtype=torch.float32,
                       device=X.device)
-    with torch.cuda.device(X.device):
-        scratch = torch.empty(plan.scratch, dtype=torch.float32,
-                              device=X.device)
-        err = _kernels.lib().corr_pair_windows_launch(
-            X.data_ptr(), Z.data_ptr(),
-            _consts_on("pair", nx, ny, hx, hy, X.device).data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, E, nx,
-            nyr, hx, hy, int(same), plan.rows, plan.batches, plan.ychunk,
-            plan.ytile, plan.smem, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(err, "corr_pair_windows")
-    LAUNCHES["corr_pair_windows"] += 1
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=X.device)
+    _kernels.launch(
+        "corr_pair_windows_launch", "corr_pair_windows", X.device,
+        X.data_ptr(), Z.data_ptr(),
+        _consts_on("pair", nx, ny, hx, hy, X.device).data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, E, nx, nyr,
+        hx, hy, int(same), plan.rows, plan.batches, plan.ychunk, plan.ytile,
+        plan.smem)
     return out
 
 
@@ -555,19 +548,14 @@ def anchor_windows(X: torch.Tensor, K0taps: torch.Tensor, nx: int, ny: int,
     n_xx, n_eg = D * D * vx4 * vy4, D * D * vx2 * vy2
     out = torch.empty(n_xx + n_eg + 1 + D, dtype=torch.float32,
                       device=device)
-    with torch.cuda.device(device):
-        scratch = torch.empty(plan.scratch, dtype=torch.float32,
-                              device=device)
-        err = _kernels.lib().anchor_windows_launch(
-            *ptrs, taps.data_ptr(),
-            _consts_on("anchor", nx, ny, hx2, hy2, device).data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, nx, nx_l,
-            row0, nyr, nk2, nl2, float(s1), int(planes is not None),
-            plan.rows,
-            plan.batches, plan.ychunk, plan.ytile, plan.smem,
-            torch.cuda.current_stream().cuda_stream)
-    _kernels.check(err, "anchor_windows")
-    LAUNCHES["anchor_windows"] += 1
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=device)
+    _kernels.launch(
+        "anchor_windows_launch", "anchor_windows", device, *ptrs,
+        taps.data_ptr(),
+        _consts_on("anchor", nx, ny, hx2, hy2, device).data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), plan.scratch, B, D, nx, nx_l,
+        row0, nyr, nk2, nl2, float(s1), int(planes is not None), plan.rows,
+        plan.batches, plan.ychunk, plan.ytile, plan.smem)
     return (out[:n_xx].reshape(D, D, vx4, vy4),
             out[n_xx:n_xx + n_eg].reshape(D, D, vx2, vy2),
             out[n_xx + n_eg], out[n_xx + n_eg + 1:])

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.cli.main import main as tcli
 from spectralae_torch.core import types as ttypes
 from spectralae_torch.ops import coord as tcoord
@@ -444,10 +445,10 @@ def test_cmul_contract_bf16_forward_on_card(cuda_device, a, k, b, n):
     q = _card_planes(gen, cuda_device, b, k, w).transpose(0, 1)
     bias = torch.randn(b, device=cuda_device, generator=gen)
     kw = dict(bias=bias, bias_scale=float(n * n))
-    before = sk.LAUNCHES_BF16
+    before = sk.k1_launches(True)
     got = sk.cmul_contract(p, q, **kw)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES_BF16 == before + 1
+    assert sk.k1_launches(True) == before + 1
     assert rel(got.cpu(), sk.cmul_contract_plain(p, q, **kw).cpu()) < 1e-6
 
 
@@ -463,10 +464,10 @@ def test_cmul_contract_bf16_backward_forms_on_card(cuda_device, a, k, b, n):
     q = _card_planes(gen, cuda_device, k, b, w)
     for p, scale in ((g.transpose(0, 1), 1.0),
                      (g.transpose(0, 1).contiguous(), 0.1)):
-        before = sk.LAUNCHES_BF16
+        before = sk.k1_launches(True)
         got = sk.cmul_contract(p, q, p_scale=scale, conj_q=True)
         torch.cuda.synchronize()
-        assert sk.LAUNCHES_BF16 == before + 1
+        assert sk.k1_launches(True) == before + 1
         want = sk.cmul_contract_plain(p.contiguous(), q, p_scale=scale,
                                       conj_q=True)
         assert rel(got.cpu(), want.cpu()) < 1e-6
@@ -488,11 +489,11 @@ def test_spectral_conv_fused_bf16_grads_on_card(cuda_device):
         y = torch.fft.irfft2(sk.spectral_conv_fused(
             torch.fft.rfft2(leaves[0]), tdft.kernel_spectrum(leaves[1], n, n),
             leaves[2], n, n, True, BF), s=(n, n))
-        before = sk.LAUNCHES_BF16
+        before = sk.k1_launches(True)
         grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
             y, leaves, dy.to(dev))]
         if dev != "cpu":
-            assert sk.LAUNCHES_BF16 == before + 2
+            assert sk.k1_launches(True) == before + 2
     # the card's float32 FFTs move a few operands across a bf16 rounding
     # boundary: 1e-4 (the step tolerance of chip_smoke.py's fft domain)
     for got, want in zip(grads["cuda"], grads["cpu"]):
@@ -509,11 +510,11 @@ def test_conv_valid_bf16_on_card(cuda_device):
     w = torch.randn(10, 3, 5, 5, device=cuda_device, generator=gen).to(BF)
     dy = torch.randn(4, 10, 64, 64, device=cuda_device, generator=gen)
     xt, wt = xpad.clone().requires_grad_(), w.clone().requires_grad_()
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     out = ck.conv_valid(xt, wt)
     out.backward(dy)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 1
+    assert _kernels.LAUNCHES["conv_valid"] == before + 1
     assert out.dtype == torch.float32
     assert xt.grad.dtype == BF and wt.grad.dtype == BF
     want = ck.conv_valid_plain(xpad.double(), w.double())

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.core.config import Config, LayerParams
 from spectralae_torch.core.types import (AEParams, ConvStage, init_params,
                                          initial_spec, params_from_numpy)
@@ -169,7 +170,6 @@ def test_coord_stream_on_card_matches_cpu(monkeypatch):
     1e-4: the last update step carries the small gradients' absolute
     error).  cuDNN's TF32 stays at PyTorch's default (on): the stream's
     library convs run in IEEE float32 by themselves."""
-    from spectralae_torch.ops import coord_kernels as ck
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
@@ -182,10 +182,10 @@ def test_coord_stream_on_card_matches_cpu(monkeypatch):
                           .astype(np.float32))
     cpu = coord_stream(xs, params, spec.scales, 0)
     on = AEParams.from_leaves([t.cuda() for t in params.leaves()])
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     card = coord_stream(xs.cuda(), on, spec.scales, 0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES - before == 2 * 3
+    assert _kernels.LAUNCHES["conv_valid"] - before == 2 * 3
     flat = lambda ts: np.concatenate([t.cpu().numpy().ravel() for t in ts])
     assert rel(flat(card.params.leaves()), flat(cpu.params.leaves())) < 1e-5
     assert rel(flat(card.mom), flat(cpu.mom)) < 1e-4

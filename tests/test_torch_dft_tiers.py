@@ -353,11 +353,11 @@ def test_precision_none_runs_at_default_on_the_card(precision, want,
     assert fk.tier(precision) == want
     seen = []
 
-    def launch(entry, key, xr, xi, kind, n, outs, *ints, precision=None):
-        seen.append((entry, precision))
+    def launch(entry, name, device, *args):
+        seen.append((entry, args[-3]))     # the tier, then LEAF_TILE
     monkeypatch.setattr(fk, "_on_card", lambda t, name: True)
-    monkeypatch.setattr(fk, "_launch", launch)
+    monkeypatch.setattr(fk._kernels, "launch", launch)
     fk.rfft2_mixed(torch.zeros(2, 16, 32), precision=precision)
-    assert seen == [("rfft_y_leaf_launch", want),
-                    ("fft_x_leaf_launch", want)]
+    assert seen == [("rfft_y_leaf_launch", fk._TIERS[want]),
+                    ("fft_x_leaf_launch", fk._TIERS[want])]
     assert None in pk.PRECISIONS

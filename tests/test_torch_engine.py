@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.core.config import Config, LayerParams
 from spectralae_torch.core.types import params_from_numpy
 from spectralae_torch.model.engine import KEYMAP, Engine, dispatch_key
@@ -406,9 +407,7 @@ def test_engine_on_card_matches_cpu(monkeypatch):
     PyTorch's default (on): the engine's library convs run in IEEE float32
     by themselves."""
     from spectralae_torch.model import engine as engine_mod
-    from spectralae_torch.ops import coord_kernels as ck
     from spectralae_torch.ops import spectral_kernels as sk
-    from spectralae_torch.ops import window_kernels as wk
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
@@ -436,12 +435,13 @@ def test_engine_on_card_matches_cpu(monkeypatch):
         cpu._mom = tuple(t.cpu() for t in card._mom)
         cpu._prev_grad = tuple(t.cpu() for t in card._prev_grad)
         x = rng.uniform(0, 255, size=(3, 64, 64)).astype(np.float32)
-        before = (sk.LAUNCHES, ck.LAUNCHES,
-                  wk.LAUNCHES["corr_pair_windows"])
+        before = (sk.k1_launches(), _kernels.LAUNCHES["conv_valid"],
+                  _kernels.LAUNCHES["corr_pair_windows"])
         trains, fft = card.flags.sel, card.flags.fft
         out = (card.step(x), cpu.step(x))
-        grew = (sk.LAUNCHES - before[0], ck.LAUNCHES - before[1],
-                wk.LAUNCHES["corr_pair_windows"] - before[2])
+        grew = (sk.k1_launches() - before[0],
+                _kernels.LAUNCHES["conv_valid"] - before[1],
+                _kernels.LAUNCHES["corr_pair_windows"] - before[2])
         stages = card.params.n_stages
         assert grew == ((stages, 0, 2 if trains else 0) if fft
                         else (0, 2, 0))

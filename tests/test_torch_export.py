@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.cli.main import main as tcli
 from spectralae_torch.core.config import Config, LayerParams
 from spectralae_torch.core.types import (init_params, initial_spec,
@@ -342,30 +343,30 @@ def test_operator_only_while_tracing(kernel, monkeypatch):
     the operator as one node, and runs it to the same result."""
     gen = torch.Generator().manual_seed(1)
     if kernel == "k1":
-        mod, table, op = sk, "_CMUL_CONTRACT_KERNELS", sk.cmul_contract_op
+        call, op = sk._cmul_contract, sk.cmul_contract_op
         args = (_cplx(gen, 2, 3, 40), _cplx(gen, 3, 4, 40))
 
         def fn(p, q):
             return sk.cmul_contract(p, q, p_scale=0.5, conj_q=True)
     elif kernel == "resize":
-        mod, table = rk, "_SPECTRAL_RESIZE_KERNELS"
-        op = rk.spectral_resize_op
+        call, op = rk._spectral_resize, rk.spectral_resize_op
         args = (_cplx(gen, 2, 3, 16, 9),)
 
         def fn(X):
             return rk.spectral_resize(X, 16, 16, 8, 8)
     else:
-        mod, table, op = ck, "_CONV_VALID_KERNELS", ck.conv_valid_op
+        call, op = ck._conv_valid, ck.conv_valid_op
         args = (torch.randn(2, 3, 12, 10, generator=gen),
                 torch.randn(4, 3, 5, 5, generator=gen))
         fn = ck._valid_corr
-    kernels = dict(getattr(mod, table))
+    assert call.op is op
+    kernels = dict(call.kernels)
     calls = []
 
     def counted(*a):
         calls.append(a)
         return kernels["cpu"](*a)
-    monkeypatch.setitem(getattr(mod, table), "cpu", counted)
+    monkeypatch.setitem(call.kernels, "cpu", counted)
     want = fn(*args)
     assert len(calls) == 1          # through the table, not the operator
 
@@ -540,14 +541,16 @@ def test_pt2_on_the_card_equals_eager_and_launches(cuda_device, tmp_path,
     nodes = _op_nodes(path)
     m = ServingModel.load(path, device=cuda_device)
     x = torch.from_numpy(_frames(3, 3)).to(cuda_device)
-    counters = ({K1_OP: (sk, "LAUNCHES"), RESIZE_OP: (rk, "LAUNCHES")}
-                if domain == "fft" else {K2_OP: (ck, "LAUNCHES")})
+    counters = ({K1_OP: sk.k1_launches,
+                 RESIZE_OP: lambda: _kernels.LAUNCHES["spectral_resize"]}
+                if domain == "fft"
+                else {K2_OP: lambda: _kernels.LAUNCHES["conv_valid"]})
     assert set(nodes) == set(counters)
-    before = {op: getattr(*c) for op, c in counters.items()}
+    before = {op: c() for op, c in counters.items()}
     got = m(x)
     torch.cuda.synchronize()
     for op, c in counters.items():
-        assert getattr(*c) - before[op] == nodes.count(op) > 0
+        assert c() - before[op] == nodes.count(op) > 0
     with torch.no_grad():
         if domain == "fft":
             want = tmodel.forward_fft(params, x, spec.scales)

@@ -33,6 +33,7 @@ from spectralae.train import fft_dp as jdp
 from spectralae.train import fft_iter as jiter
 from spectralae.train import fft_pallas as jpal
 from spectralae.train.fft_corr import _true_forward as jforward
+from spectralae_torch import _kernels
 from spectralae_torch.ops import burst_kernels as bk
 from spectralae_torch.train import fft as tfft
 from spectralae_torch.train import fft_dp as tdp
@@ -97,9 +98,9 @@ def run_both(jfn, tfn, arrays, bf16=False, **kw):
                **(dict(kw, mxu_dtype=jnp.bfloat16) if bf16 else kw))
     if bf16:
         kw["mxu_dtype"] = torch.bfloat16
-    before = dict(bk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     got = tfn(t[0], t[0], t[1], *t[2:], **kw)
-    assert bk.LAUNCHES == before
+    assert _kernels.LAUNCHES == before
     return got, want
 
 

@@ -12,6 +12,12 @@ with it, so that the card-only tests also run where JAX is not installed::
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
 
+import ast
+import contextlib
+import re
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -56,9 +62,9 @@ def test_cmul_contract_matches_pallas(a, k, b, w):
     jnp, jpk, _ = _jax()
     rng = np.random.default_rng(0)
     p, q = cplx(rng, a, k, w), cplx(rng, k, b, w)
-    before = sk.LAUNCHES
+    before = sk.k1_launches()
     got = sk.cmul_contract(torch.from_numpy(p), torch.from_numpy(q))
-    assert sk.LAUNCHES == before     # the CPU takes the plain version
+    assert sk.k1_launches() == before     # the CPU takes the plain version
     wr, wi = jpk._cmul_contract(jnp.asarray(p.real), jnp.asarray(p.imag),
                                 jnp.asarray(q.real), jnp.asarray(q.imag),
                                 interpret=True)
@@ -117,9 +123,10 @@ def test_conv_valid_matches_pallas(shape):
     rng = np.random.default_rng(4)
     xpad = rng.normal(size=(b, d, h + nk - 1, w + nl - 1)).astype(np.float32)
     wt = rng.normal(size=(m, d, nk, nl)).astype(np.float32)
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     got = ck.conv_valid(torch.from_numpy(xpad), torch.from_numpy(wt))
-    assert ck.LAUNCHES == before     # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert _kernels.LAUNCHES["conv_valid"] == before
     want = jconv.conv_valid_pallas(jnp.asarray(xpad), jnp.asarray(wt))
     assert got.shape == (b, m, h, w)
     assert rel(got, want) < TOL
@@ -176,6 +183,62 @@ def test_kernel_build_is_keyed_by_sources_and_targets_hopper():
     assert _kernels.BUILD_DIR.parts[-2:] == ("build", "spectralae_torch")
 
 
+def test_kernel_modules_reach_the_library_only_through_launch():
+    """No module under ``ops/`` keeps a launch counter, switches the
+    device, takes a stream or calls a ``*_launch`` entry point of the
+    library itself: each entry point that launches is named to
+    :func:`_kernels.launch`, which does all of that in one place."""
+    entries = {n for n in _kernels._SIGNATURES if n.endswith("_launch")}
+    named = set()
+    for path in sorted(Path(sk.__file__).parent.glob("*.py")):
+        src = path.read_text()
+        assert not re.search(r"^\s*(global\s+)?LAUNCHES\b", src, re.M), path
+        for seam in ("torch.cuda.device(", "cuda_stream",
+                     "_cuda_getCurrentRawStream", "getattr(_kernels.lib()"):
+            assert seam not in src, (path, seam)
+        tree = ast.parse(src)
+        assert not [n.attr for n in ast.walk(tree)
+                    if isinstance(n, ast.Attribute) and n.attr in entries]
+        here = {n.value for n in ast.walk(tree)
+                if isinstance(n, ast.Constant) and n.value in entries}
+        if here:
+            assert any(isinstance(n, ast.Attribute) and n.attr == "launch"
+                       and getattr(n.value, "id", None) == "_kernels"
+                       for n in ast.walk(tree)), path
+        named |= here
+    assert named == entries
+
+
+def test_launch_takes_the_stream_checks_and_counts(monkeypatch):
+    """:func:`_kernels.launch` appends the device's current stream to the
+    arguments, switches the device only where it is not current, raises on
+    an error without counting it, and counts a launch under its name."""
+    calls, switched, err = [], [], [0]
+    lib = types.SimpleNamespace(seam_launch=lambda *a: calls.append(a)
+                                or err[0])
+
+    @contextlib.contextmanager
+    def device(d):
+        switched.append(d)
+        yield
+    monkeypatch.setattr(_kernels, "lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    # a build of PyTorch for the CPU has neither
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    before = _kernels.LAUNCHES.copy()
+    _kernels.launch("seam_launch", "seam", torch.device("cuda", 0), 7, 0.5)
+    assert calls == [(7, 0.5, 1000)] and switched == []
+    _kernels.launch("seam_launch", "seam", torch.device("cuda", 1), 8)
+    assert calls[1] == (8, 1001) and switched == [torch.device("cuda", 1)]
+    err[0] = 700
+    with pytest.raises(RuntimeError, match="seam: .* cudaError 700"):
+        _kernels.launch("seam_launch", "seam", torch.device("cuda", 0))
+    assert _kernels.LAUNCHES - before == {"seam": 2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("a,k,b,n", [(8, 3, 10, 128), (8, 10, 10, 64),
                                      (8, 10, 3, 128), (2, 3, 20, 16)])
@@ -188,10 +251,10 @@ def test_cmul_contract_kernel_matches_plain_on_card(cuda_device, a, k, b, n):
                     generator=gen)
     bias = torch.randn(b, device=cuda_device, generator=gen)
     kw = dict(p_scale=1.0 / b, bias=bias, bias_scale=float(n * n))
-    before = sk.LAUNCHES
+    before = sk.k1_launches()
     got = sk.cmul_contract(p, C.transpose(0, 1), **kw)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == before + 1
+    assert sk.k1_launches() == before + 1
     want = sk.cmul_contract_plain(p, C.transpose(0, 1), **kw)
     assert rel(got.cpu(), want.cpu()) < TOL
 
@@ -235,10 +298,10 @@ def test_conv_valid_kernel_matches_plain_on_card(cuda_device, b, d, m, n):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     xpad = torch.randn(b, d, n + 4, n + 7, device=cuda_device, generator=gen)
     w = torch.randn(m, d, 5, 5, device=cuda_device, generator=gen)
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     got = ck.conv_valid(xpad, w)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 1
+    assert _kernels.LAUNCHES["conv_valid"] == before + 1
     want = ck.conv_valid_plain(xpad.double(), w.double())
     assert rel(got.cpu(), want.cpu()) < TOL
 
@@ -257,10 +320,10 @@ def test_cmul_contract_conj_and_strided_p_on_card(cuda_device, a, k, b, n):
     q = torch.randn(k, b, w, dtype=torch.complex64, device=cuda_device,
                     generator=gen)
     p = g.transpose(0, 1)                        # [a, k, w], strided
-    before = sk.LAUNCHES
+    before = sk.k1_launches()
     got = sk.cmul_contract(p, q, p_scale=0.1, conj_q=True)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == before + 1
+    assert sk.k1_launches() == before + 1
     want = sk.cmul_contract_plain(p.contiguous(), q, p_scale=0.1,
                                   conj_q=True)
     assert rel(got.cpu(), want.cpu()) < TOL
@@ -300,10 +363,10 @@ def test_spectral_conv_fused_grads_on_card(cuda_device):
         leaves = [X, c0.clone().requires_grad_(), b0.clone().requires_grad_()]
         C = dft.kernel_spectrum(leaves[1], n, n)
         y = torch.fft.irfft2(conv(X, C, leaves[2], n, n), s=(n, n))
-        before = sk.LAUNCHES
+        before = sk.k1_launches()
         grads.append(torch.autograd.grad(y, [X] + leaves[1:], dy))
         if conv is sk.spectral_conv_fused:
-            assert sk.LAUNCHES == before + 2     # dX and dC
+            assert sk.k1_launches() == before + 2     # dX and dC
     for got, want in zip(*grads):
         assert rel(got.cpu(), want.cpu()) < 1e-5
 
@@ -322,10 +385,11 @@ def test_conv_valid_grads_on_card(cuda_device, monkeypatch,
     w = torch.randn(3, 10, 5, 5, device=cuda_device, generator=gen)
     dy = torch.randn(4, 3, 64, 64, device=cuda_device, generator=gen)
     xt, wt = xpad.clone().requires_grad_(), w.clone().requires_grad_()
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     ck.conv_valid(xt, wt).backward(dy)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 1 + int(data_grad_kernel)
+    assert (_kernels.LAUNCHES["conv_valid"]
+            == before + 1 + int(data_grad_kernel))
     x64 = xpad.double().requires_grad_()
     w64 = w.double().requires_grad_()
     ck.conv_valid_plain(x64, w64).backward(dy.double())
@@ -629,11 +693,11 @@ def test_cmul_contract_plans_on_card(cuda_device, a, k, b, w, form, bf16):
                               bf16)
     kw = (dict(p_scale=1.0 / b, bias=bias, bias_scale=64.0)
           if form == "forward" else dict(p_scale=0.1, conj_q=True))
-    before = sk.LAUNCHES_BF16 if bf16 else sk.LAUNCHES
+    before = sk.k1_launches(bf16)
     got = sk.cmul_contract(p, q, **kw)
     again = sk.cmul_contract(p, q, **kw)
     torch.cuda.synchronize()
-    assert (sk.LAUNCHES_BF16 if bf16 else sk.LAUNCHES) == before + 2
+    assert sk.k1_launches(bf16) == before + 2
     assert torch.equal(got, again)
     want = sk.cmul_contract_plain(p, q, **kw)
     assert rel(got.cpu(), want.cpu()) < (1e-5 if bf16 else TOL)
@@ -708,9 +772,10 @@ def test_cmul_contract_blocked_matches_lane_on_card(cuda_device, monkeypatch,
 @pytest.mark.parametrize("domain", ["fft", "coord"])
 def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
     """One train step of the benchmark's M = 50 net at 1024^2 b16: the fft
-    step's 17 K1 calls (``kernel.cmul_contract``), 15 to 17 of them on
-    the blocked design (``k1.blocked``), and its 11 resizes (6 forward, 5
-    adjoint: ``kernel.spectral_resize``); the coord step calls neither."""
+    step's 17 K1 calls (``kernel.cmul_contract``), 15 to 17 of them
+    launches of the blocked design (``cmul_contract_blocked``), and its 11
+    resizes (6 forward, 5 adjoint: ``kernel.spectral_resize``); the coord
+    step calls neither."""
     from spectralae_torch.core import profiling
     from spectralae_torch.core import types as ttypes
     from spectralae_torch.train import modern
@@ -722,6 +787,7 @@ def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = 255 * torch.rand(16, 3, 1024, 1024, device=cuda_device,
                          generator=gen)
+    before = _kernels.LAUNCHES.copy()
     profiling.enable()
     try:
         modern.train_step(params, ttypes.init_opt_state(params), x,
@@ -729,14 +795,17 @@ def test_k1_blocked_counts_in_the_m50_step_on_card(cuda_device, domain):
         counters = profiling.snapshot()["counters"]
     finally:
         profiling.disable()
+    launched = _kernels.LAUNCHES - before
+    blocked = (launched["cmul_contract_blocked"]
+               + launched["cmul_contract_blocked_bf16"])
     kernels = sum(v for n, v in counters.items() if n.startswith("kernel."))
     if domain == "fft":
         assert counters["kernel.cmul_contract"] == 17
         assert counters["kernel.spectral_resize"] == 11
         assert kernels == 28
-        assert 15 <= counters["k1.blocked"] <= 17
+        assert 15 <= blocked <= 17
     else:
-        assert kernels == 0 and "k1.blocked" not in counters
+        assert kernels == 0 and blocked == 0
 
 
 K2_CARD = [  # (B, D, M, H, W, nk, nl): widths 32^2..512^2, D = 10 at 3x3
@@ -760,11 +829,11 @@ def test_conv_valid_plans_on_card(cuda_device, shape):
     xpad = torch.randn(b, d, h + nk - 1, w + nl - 1, device=cuda_device,
                        generator=gen)
     wt = torch.randn(m, d, nk, nl, device=cuda_device, generator=gen)
-    before = ck.LAUNCHES
+    before = _kernels.LAUNCHES["conv_valid"]
     got = ck.conv_valid(xpad, wt)
     again = ck.conv_valid(xpad, wt)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 2
+    assert _kernels.LAUNCHES["conv_valid"] == before + 2
     assert got.shape == (b, m, h, w) and torch.equal(got, again)
     want = ck.conv_valid_plain(xpad.double(), wt.double())
     assert rel(got.cpu(), want.cpu()) < TOL

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.ops import fft_kernels as fk
 from spectralae_torch.ops import probe_kernels as pk
 
@@ -51,10 +52,10 @@ def _check_input(shape=(3, 32, 48), seed=0) -> np.ndarray:
                                   "middle_store"])
 def test_mosaic_probe_exact_against_numpy(name):
     mosaic = _script("torch_probe_mosaic_features")
-    before = dict(pk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     ok, line = mosaic.run_case(name, "cpu")
     assert ok and line == f"{name}: OK maxerr=0.0", line
-    assert pk.LAUNCHES == before          # the CPU takes the plain version
+    assert _kernels.LAUNCHES == before     # the CPU takes the plain version
 
 
 def test_mosaic_probe_script_prints_three_ok_lines(capsys):
@@ -99,9 +100,9 @@ def test_ydft_energy_matches_the_jax_probe():
     want_k = float(jprobe.ydft_energy(jnp.asarray(x), y_chunk=16,
                                       interpret=True))
     want_r = float(jprobe.ref_energy(jnp.asarray(x)))
-    before = dict(pk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     got = pk.ydft_energy(torch.from_numpy(x), y_chunk=16)
-    assert pk.LAUNCHES == before
+    assert _kernels.LAUNCHES == before
     assert got.dtype == torch.float32 and got.dim() == 0
     for want in (want_k, want_r):
         assert abs(float(got) - want) / abs(want) < TOL
@@ -153,10 +154,10 @@ def cuda_device():
                                   "middle_store"])
 def test_mosaic_probe_kernels_on_card(cuda_device, name):
     mosaic = _script("torch_probe_mosaic_features")
-    before = pk.LAUNCHES[name]
+    before = _kernels.LAUNCHES[name]
     ok, line = mosaic.run_case(name, "cuda")
     assert ok, line
-    assert pk.LAUNCHES[name] == before + 1
+    assert _kernels.LAUNCHES[name] == before + 1
 
 
 # each tier's energy against the rfft route: fft_kernels.p2_tier_tol (the
@@ -177,10 +178,10 @@ def test_ydft_energy_kernel_matches_plain_on_card(cuda_device, shape,
     run without TF32) and the rfft route."""
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.from_numpy(_check_input(shape, seed=2)).to(cuda_device)
-    before = pk.LAUNCHES["ydft_energy"]
+    before = _kernels.LAUNCHES["ydft_energy"]
     got = float(pk.ydft_energy(x, y_chunk=y_chunk, precision=precision))
     torch.cuda.synchronize()
-    assert pk.LAUNCHES["ydft_energy"] == before + 1
+    assert _kernels.LAUNCHES["ydft_energy"] == before + 1
     want = float(pk.ydft_energy_plain(x, y_chunk=y_chunk,
                                       precision=precision))
     assert abs(got - want) / want < TOL

@@ -156,7 +156,7 @@ def test_op_cost_kernel_calls_are_opaque(monkeypatch):
                         lambda *a, **k: seen.append(1) or plain(*a, **k))
     assert rl.op_cost(sk.cmul_contract, p, q)[0] == 0.0
     assert seen == [1]
-    assert _kernels.HOOK is None and not _kernels.hooked()
+    assert _kernels.HOOK is None and not _kernels.kernel_route(p)
 
 
 def test_op_cost_takes_the_kernel_routes_on_the_cpu():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectralae_torch import _kernels
 from spectralae_torch.ops import window_kernels as wk
 
 torch.set_num_threads(1)
@@ -70,9 +71,9 @@ def test_corr_pair_windows_matches_jax(B, D, E, nx, ny, hx, hy):
     rng = np.random.default_rng(B * 1000 + D * 100 + E * 10 + nx)
     nyr = ny // 2 + 1
     X, Z = rand_spec(rng, B, D, nx, nyr), rand_spec(rng, B, E, nx, nyr)
-    before = dict(wk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     got = wk.corr_pair_windows(_t(X), _t(Z), nx, ny, hx, hy)
-    assert wk.LAUNCHES == before          # the CPU takes the plain version
+    assert _kernels.LAUNCHES == before     # the CPU takes the plain version
     assert got.shape == (D, E, 2 * hx + 1, 2 * hy + 1)
     want = corr_pair_windows(jnp.asarray(X), jnp.asarray(Z), nx, ny, hx, hy,
                              interpret=True)
@@ -119,9 +120,9 @@ def test_anchor_windows_matches_jax(B, D, nx, ny, nk2):
     from spectralae.ops.pallas_windows import anchor_windows
     from spectralae.train import fft_corr
     X, taps, h2, s1 = _anchor_problem(B * 100 + D, B, D, nx, ny, nk2)
-    before = dict(wk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     got = wk.anchor_windows(_t(X), _t(taps), nx, ny, h2, h2, s1)
-    assert wk.LAUNCHES == before
+    assert _kernels.LAUNCHES == before
     pallas = anchor_windows(jnp.asarray(X), jnp.asarray(taps), nx, ny, h2,
                             h2, s1, interpret=True)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, pallas):
@@ -279,10 +280,10 @@ def test_anchor_windows_mixed_matches_jax(B, D, nx, ny, nk2, max_m1, bf16,
     monkeypatch.setattr(jfft, "_MAX_M1", max_m1)
     x, (Xre, Xim), taps, h2, s1 = _mixed_problem(
         B + nx, B, D, nx, ny, nk2, torch.bfloat16 if bf16 else None)
-    before = dict(wk.LAUNCHES)
+    before = _kernels.LAUNCHES.copy()
     got = wk.anchor_windows((Xre, Xim), _t(taps), nx, ny, h2, h2, s1,
                             mixed=True)
-    assert wk.LAUNCHES == before
+    assert _kernels.LAUNCHES == before
     as_jax = (jnp.asarray(Xre.float().numpy()).astype(jnp.bfloat16)
               if bf16 else jnp.asarray(Xre.numpy()))
     as_jax_im = (jnp.asarray(Xim.float().numpy()).astype(jnp.bfloat16)
@@ -341,9 +342,9 @@ def test_corr_pair_windows_kernel_matches_plain(cuda_device, B, D, E, n, ny,
     X = torch.fft.rfft2(x)
     Z = X if same else torch.fft.rfft2(torch.randn(
         B, E, n, ny, device=cuda_device, generator=gen))
-    before = wk.LAUNCHES["corr_pair_windows"]
+    before = _kernels.LAUNCHES["corr_pair_windows"]
     got = _repeated(lambda: wk.corr_pair_windows(X, Z, n, ny, h, h))
-    assert wk.LAUNCHES["corr_pair_windows"] == before + 3
+    assert _kernels.LAUNCHES["corr_pair_windows"] == before + 3
     want = wk.corr_pair_windows_plain(X, Z, n, ny, h, h)
     assert rel(got.cpu(), want.cpu()) < CARD_TOL
 
@@ -367,7 +368,7 @@ def test_anchor_windows_row_slab_kernel_matches_plain(cuda_device, B, n,
     h2, s1 = nk2 // 2, 1 / (4 * D)
     nsl = -(-n // chunk)
     Xp = torch.nn.functional.pad(X, (0, 0, 0, nsl * chunk - n))
-    before = wk.LAUNCHES["anchor_windows"]
+    before = _kernels.LAUNCHES["anchor_windows"]
     parts = []
     for i in range(nsl):
         Xl = Xp[:, :, i * chunk:(i + 1) * chunk]
@@ -379,7 +380,7 @@ def test_anchor_windows_row_slab_kernel_matches_plain(cuda_device, B, n,
             assert rel(g.cpu(), w.cpu()) < CARD_TOL, (i, name)
         assert i == 0 or not got[3].any()
         parts.append(got)
-    assert wk.LAUNCHES["anchor_windows"] == before + 3 * nsl
+    assert _kernels.LAUNCHES["anchor_windows"] == before + 3 * nsl
     full = wk.anchor_windows(X, taps, n, n, h2, h2, s1, signal_dtype=sd)
     for k, name in enumerate(("XX", "EGw", "seg", "e0")):
         assert rel(sum(p[k] for p in parts).cpu(), full[k].cpu()) < CARD_TOL
@@ -398,10 +399,10 @@ def test_anchor_windows_kernel_matches_plain(cuda_device, B, D, n, ny, nk2,
                                     generator=gen))
     taps = torch.randn(D, D, nk2, nk2, device=cuda_device, generator=gen) * .2
     sd = torch.bfloat16 if bf16 else None
-    before = wk.LAUNCHES["anchor_windows"]
+    before = _kernels.LAUNCHES["anchor_windows"]
     got = _repeated(lambda: wk.anchor_windows(
         X, taps, n, ny, nk2 // 2, nk2 // 2, 1 / (4 * D), signal_dtype=sd))
-    assert wk.LAUNCHES["anchor_windows"] == before + 3
+    assert _kernels.LAUNCHES["anchor_windows"] == before + 3
     want = wk.anchor_windows_plain(X, taps, n, ny, nk2 // 2, nk2 // 2,
                                    1 / (4 * D), signal_dtype=sd)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
@@ -420,10 +421,10 @@ def test_anchor_windows_mixed_kernel_matches_plain(cuda_device, B, n, bf16):
     x = torch.rand(B, 3, n, n, device=cuda_device, generator=gen) * 255
     planes = fk.rfft2_mixed(x, out_dtype=torch.bfloat16 if bf16 else None)
     taps = torch.randn(3, 3, 9, 9, device=cuda_device, generator=gen) * .2
-    before = wk.LAUNCHES["anchor_windows"]
+    before = _kernels.LAUNCHES["anchor_windows"]
     got = _repeated(lambda: wk.anchor_windows(planes, taps, n, n, 4, 4,
                                               1 / 30, mixed=True))
-    assert wk.LAUNCHES["anchor_windows"] == before + 3
+    assert _kernels.LAUNCHES["anchor_windows"] == before + 3
     want = wk.anchor_windows_plain(planes, taps, n, n, 4, 4, 1 / 30,
                                    mixed=True)
     for name, g, w in zip(("XX", "EGw", "seg", "e0"), got, want):
